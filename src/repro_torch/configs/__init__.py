@@ -1,0 +1,5 @@
+"""Architectures the port runs; each module registers its config on import."""
+
+from repro_torch.configs import stablelm_1_6b  # noqa: F401
+
+PORTED_ARCHS = ("stablelm-1.6b",)

@@ -1,0 +1,106 @@
+"""Dispatch layer over the attention kernels.
+
+Routing is by the device of the tensors, never by a fallback: a CUDA
+tensor goes to the hand-written kernel (which raises on anything it does
+not take), a CPU tensor to the plain PyTorch version in ``ref``. The
+``*_plain`` entry points run the plain version on any device; they are the
+explicit opt-in the model's plain path (tests, ``chip_smoke.py``) uses to
+hold the kernels against it on the card.
+
+Each op keeps an ``OpCounter`` (``COUNTERS``): ``launches`` counts kernel
+launches (incremented by the kernel wrapper, where it launches) and
+``plain_calls`` counts calls of the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+
+COUNTERS: Dict[str, _build.OpCounter] = {
+    "decode_attention": _da.counter,
+    "flash_attention": _fa.counter,
+}
+
+
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def _check_cpu(t: torch.Tensor, op: str) -> None:
+    if t.device.type != "cpu":
+        raise ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    logit_softcap: float = 0.0,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """The plain version of ``flash_attention``, on any device."""
+    _fa.counter.plain_calls += 1
+    # dense for short key ranges; beyond, the chunked online softmax keeps
+    # memory O(S) (a (B,H,S,S) score tensor at long context does not fit)
+    fn = ref.attention_chunked if k.shape[2] > 2048 else ref.attention
+    return fn(q, k, v, causal=causal, window=window, scale=scale,
+              logit_softcap=logit_softcap, q_offset=q_offset)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    logit_softcap: float = 0.0,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Prefill attention (GQA, causal, optional sliding window, q_offset)."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                   logit_softcap=logit_softcap, q_offset=q_offset)
+    _check_cpu(q, "flash_attention")
+    return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                 logit_softcap=logit_softcap, q_offset=q_offset)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The plain version of ``decode_attention``, on any device."""
+    _da.counter.plain_calls += 1
+    return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode against a KV cache."""
+    if q.is_cuda:
+        return _da.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    _check_cpu(q, "decode_attention")
+    return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)

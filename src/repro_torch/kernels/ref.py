@@ -1,0 +1,156 @@
+"""Plain PyTorch versions of the attention kernels.
+
+These are the semantic ground truth the CUDA kernels are held against on
+the card, and what ``ops`` runs for tensors that lie on the CPU. They
+follow the TPU kernels' semantics, including one point where the JAX
+package's own jnp oracle differs: a query row whose every key is masked
+(a length-0 decode row, a window that excludes every key) yields 0, not
+the uniform average a finite ``NEG_INF`` softmax would give.
+
+All arithmetic is float32 with TF32 off, whatever the input dtype; the
+output is cast back to ``q.dtype``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """Matrix products in true float32 (TF32 off) for the duration."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _mask(sq: int, skv: int, q_offset: int, causal: bool, window: int,
+          kv_start: int, device) -> torch.Tensor:
+    """(Sq, C) bool: key positions kv_start..kv_start+C visible to each query."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_start, kv_start + skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window > 0:
+        mask &= (q_pos - kv_pos) < window
+    return mask
+
+
+def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(s) @ v over masked keys, 0 for a row with no visible key."""
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v)
+    return o / torch.where(l == 0.0, 1.0, l)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    logit_softcap: float = 0.0,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Dense attention. q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
+
+    q_offset: absolute position of the first query (default Skv - Sq:
+    queries are the suffix).
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    if q_offset is None:
+        q_offset = Skv - Sq
+    with _full_f32():
+        qg = q.reshape(B, Hkv, g, Sq, D).float()
+        s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = _mask(Sq, Skv, int(q_offset), causal, window, 0, q.device)
+        o = _masked_softmax_av(s, mask, v.float()[:, :, None])
+    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    logit_softcap: float = 0.0,
+    kv_chunk: int = 1024,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """O(S)-memory attention: a loop over KV chunks with an online softmax.
+
+    Semantics identical to ``attention``; used for long key ranges where
+    the dense (B,H,Sq,Skv) score tensor would not fit.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    if q_offset is None:
+        q_offset = Skv - Sq
+    C = min(kv_chunk, Skv)
+    with _full_f32():
+        qg = q.reshape(B, Hkv, g, Sq, D).float() * scale
+        m = torch.full((B, Hkv, g, Sq, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, g, Sq, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, g, Sq, D), device=q.device)
+        for c0 in range(0, Skv, C):
+            kb = k[:, :, c0:c0 + C].float()[:, :, None]
+            vb = v[:, :, c0:c0 + C].float()[:, :, None]
+            s = torch.matmul(qg, kb.transpose(-1, -2))
+            if logit_softcap > 0.0:
+                s = logit_softcap * torch.tanh(s / logit_softcap)
+            mask = _mask(Sq, kb.shape[-2], int(q_offset), causal, window, c0, q.device)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p, vb)
+            m = m_new
+        out = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode. q (B,Hq,D), caches (B,Hkv,S,D), lengths (B,)."""
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    with _full_f32():
+        qg = q.reshape(B, Hkv, g, 1, D).float()
+        s = torch.matmul(qg, k_cache.float()[:, :, None].transpose(-1, -2)) * scale
+        live = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+        mask = live[:, None, None, None, :]  # (B,1,1,1,S)
+        o = _masked_softmax_av(s, mask, v_cache.float()[:, :, None])
+    return o.reshape(B, Hq, D).to(q.dtype)

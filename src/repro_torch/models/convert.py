@@ -1,0 +1,98 @@
+"""Layout conversion between the JAX package's pytrees and the port's.
+
+The JAX model stacks its layers for ``lax.scan``: every leaf of
+``params["unit"]["pos{p}"]`` has a leading ``reps`` axis, layer
+``r * len(unit) + p``; a remainder tail lives under ``params["rem"]``.
+The port keeps one dict per layer. Leaves are copied 1:1 (no transposes:
+both store projections ``(d_in, d_out)``). Inputs are numpy arrays, so
+the port never touches a jax array; tests pass ``jax.tree.map(np.asarray,
+tree)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import AttentionKind, BlockKind, ModelConfig
+from repro_torch.models.transformer import Caches, Params
+
+
+def find_unit(cfg: ModelConfig) -> Tuple[List[Tuple[BlockKind, AttentionKind]], int, int]:
+    """Smallest repeating unit of (block kind, attention kind), as the JAX
+    model scans it. Returns (unit, num_repeats, num_remainder)."""
+    ext = [(k, cfg.attention_kind_at(i)) for i, k in enumerate(cfg.layer_pattern)]
+    n = len(ext)
+    for u in range(1, n + 1):
+        unit = ext[:u]
+        reps = n // u
+        if all(ext[i] == unit[i % u] for i in range(reps * u)):
+            rem = n - reps * u
+            if all(ext[reps * u + j] == unit[j] for j in range(rem)):
+                return unit, reps, rem
+    return ext, 1, 0
+
+
+def _layer_sources(cfg: ModelConfig) -> List[Tuple[str, str, Any]]:
+    """For layer i: ("unit", "pos{p}", rep) or ("rem", "rem{j}", None)."""
+    unit, reps, rem = find_unit(cfg)
+    out = [("unit", f"pos{p}", r) for r in range(reps) for p in range(len(unit))]
+    out += [("rem", f"rem{j}", None) for j in range(rem)]
+    return out
+
+
+def _to_torch(tree: Any, device, index=None) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if index is not None:
+        a = a[index]
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cpu") -> Params:
+    """The JAX ``Model.init`` pytree (numpy leaves) as the port's params."""
+    params: Params = {
+        "embed": _to_torch(tree["embed"], device),
+        "final_norm": _to_torch(tree["final_norm"], device),
+    }
+    if "lm_head" in tree:
+        params["lm_head"] = _to_torch(tree["lm_head"], device)
+    layer_list = []
+    for group, key, rep in _layer_sources(cfg):
+        layer_list.append(_to_torch(tree[group][key], device, rep))
+    params["layers"] = layer_list
+    return params
+
+
+def caches_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cpu") -> Caches:
+    """JAX caches ``{"unit": {"pos{p}": {"k", "v"}}, "rem": ...}`` -> the
+    port's per-layer lists."""
+    out: Caches = {"k": [], "v": []}
+    for group, key, rep in _layer_sources(cfg):
+        for name in ("k", "v"):
+            a = np.asarray(tree[group][key][name])
+            if rep is not None:
+                a = a[rep]
+            out[name].append(torch.from_numpy(np.array(a)).to(device))
+    return out
+
+
+def caches_to_jax_numpy(cfg: ModelConfig, caches: Caches) -> Dict[str, Any]:
+    """Inverse of ``caches_from_jax_numpy``: numpy leaves in the JAX layout."""
+    unit, reps, rem = find_unit(cfg)
+    tree: Dict[str, Any] = {"unit": {}, "rem": {}}
+    sources = _layer_sources(cfg)
+    for p in range(len(unit)):
+        layers = [i for i, (g, k, _) in enumerate(sources) if g == "unit" and k == f"pos{p}"]
+        tree["unit"][f"pos{p}"] = {
+            name: np.stack([caches[name][i].detach().cpu().float().numpy() for i in layers])
+            for name in ("k", "v")
+        }
+    for j in range(rem):
+        i = reps * len(unit) + j
+        tree["rem"][f"rem{j}"] = {name: caches[name][i].detach().cpu().float().numpy()
+                                  for name in ("k", "v")}
+    return tree
