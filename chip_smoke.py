@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # every phase, as a check run does
     python3 chip_smoke.py --phases 1      # kernels against plain versions only
     python3 chip_smoke.py --phases 3 --profile   # + where a decode step's time goes
+    python3 chip_smoke.py --phases 4      # the GEMM super-kernel path only
+    python3 chip_smoke.py --phases 4 --profile   # + where a GEMM dispatch's time goes
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -17,7 +19,18 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      777-token prefill and 8 decode steps;
   3. serves 16 requests for four full-width stablelm-1.6b tenants through
      ``MultiTenantEngine`` in ``space_time`` and ``time_only`` mode, with
-     every kernel's launch counter read around the run.
+     every kernel's launch counter read around the run;
+  4. drives the paper's GEMM super-kernel path: (a) holds K1
+     ``batched_gemm`` and K2 ``grouped_gemm`` against their plain versions
+     in float32 and bfloat16 and times them beside ``torch.bmm``; (b) runs
+     Table 1, the four strategies over the paper's SGEMM shapes and R
+     sweep; (c) drives ``DynamicSpaceTimeScheduler`` with bare
+     ``GemmProblem``s on two stochastic streams (the ablation trace, and a
+     ragged merge at stablelm-1.6b's MLP width), checks every result, and
+     reads the launch counters around each run. Phase 4 runs with
+     ``CUDA_DEVICE_MAX_CONNECTIONS=32``, so that space_only's 32 streams
+     get 32 hardware queues; after other phases, which keep CUDA's
+     default, it runs in a child process of its own.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -28,8 +41,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,10 +91,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(name: str, got, want, dtype_key: str) -> float:
+def check_close(name: str, got, want, dtype_key: str, tol=None) -> float:
+    """Max |got - want|; raises PhaseFailed outside (rtol, atol), which
+    default to TOL[dtype_key]."""
     import torch
 
-    rtol, atol = TOL[dtype_key]
+    rtol, atol = tol or TOL[dtype_key]
     got32, want32 = got.float(), want.float()
     if not torch.isfinite(got32).all():
         raise PhaseFailed(f"{name}: kernel output has non-finite values")
@@ -337,8 +354,8 @@ def run_engine(model, stacked, mode, prompts, ops):
         + f" (decode_attention per decode step = {launches['decode_attention'] / max(1, eng.steps):.1f})")
     if len(eng.finished) != REQUESTS or len(done) != REQUESTS:
         raise PhaseFailed(f"{mode}: not every request finished with {MAX_NEW} tokens")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in REPLACES:  # the serving path's kernels (the GEMM path's are phase 4's)
+        if launches[k] <= 0:
             raise PhaseFailed(f"{mode}: kernel {k} was never launched on the serving path")
     tokens = {r.request_id: list(r.generated) for r in reqs}
     del eng
@@ -453,6 +470,489 @@ def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches):
     return rows
 
 
+# ----------------------------------------------------------------- phase 4
+# The paper's GEMM super-kernel path: K1 batched_gemm and K2 grouped_gemm
+# against their plain versions, the Table 1 strategy sweep, and the
+# scheduler on two stochastic GEMM streams.
+#
+# Tolerances are the JAX kernel tests' own: K1 rtol 2e-4 (f32) / 2e-2
+# (bf16) with atol = rtol * sqrt(K), the spread of a K-term float32 sum;
+# K2 rtol 2e-4 / 3e-2 with atol = 10 * rtol. Both kernels compute in full
+# float32 (no TF32), so only the order of the sums differs in f32.
+GEMM_RTOL = {"torch.float32": 2e-4, "torch.bfloat16": 2e-2}
+GROUPED_RTOL = {"torch.float32": 2e-4, "torch.bfloat16": 3e-2}
+K1_CASES = [  # (R, M, K, N): tests/test_kernels_batched_gemm.py's shapes
+    (2, 512, 512, 1), (4, 256, 1152, 128), (3, 256, 256, 256),
+    (1, 128, 128, 128), (5, 100, 70, 33), (8, 16, 512, 16),
+    (3, 200, 300, 96),  # the JAX block-shape-invariance problem
+]
+PAPER_RS = (2, 16, 120)
+GROUP_SIZES = ([64, 64], [100, 5, 0, 260], [1, 1, 1], [300])
+PAPER_GEOMEAN = {"rnn_matvec": 2.48, "resnet18_conv2_2": 3.23, "square_256": 4.93}
+TABLE1_REPS = 5
+ABLATION_TENANTS, ABLATION_TICKS = 8, 120   # examples/spacetime_ablation.py's trace
+RAGGED_TENANTS, RAGGED_TICKS = 4, 40
+RAGGED_K, RAGGED_N = 2048, 5632             # stablelm-1.6b: d_model, d_ff
+WINDOW_S = 0.002
+GEMM_MAX_CONNECTIONS = "32"  # hardware queues for space_only's 32 streams
+GEMM_TIMEOUT_S = 600
+GEMM_REPLACES = {
+    "batched_gemm": "src/repro/kernels/batched_gemm.py:91",
+    "grouped_gemm": "src/repro/kernels/grouped_gemm.py:92",
+}
+
+
+def gemm_tol(dtype, K):
+    r = GEMM_RTOL[str(dtype)]
+    return r, r * K ** 0.5
+
+
+def grouped_tol(dtype):
+    r = GROUPED_RTOL[str(dtype)]
+    return r, 10 * r
+
+
+def gemm_work(rows, K, N, w_mats, dtype):
+    """(bytes, flops): x, w and out once each; 2*rows*K*N operations."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    return esize * (rows * K + w_mats * K * N + rows * N), 2 * rows * K * N
+
+
+def ragged_trace(seed):
+    """Per tick, the (tenant, M) arrivals of the ragged stream: stablelm
+    MLP-shaped GEMMs with M from decode batches (1-16 rows) and prefill
+    chunks (128-1024 rows), half each."""
+    rng = np.random.default_rng(seed + 7)
+    ticks = []
+    for _ in range(RAGGED_TICKS):
+        arr = []
+        for _ in range(1 + rng.poisson(1.0)):
+            decode = rng.random() < 0.5
+            m = int(rng.integers(1, 17)) if decode else int(rng.integers(128, 1025))
+            arr.append((int(rng.integers(RAGGED_TENANTS)), m))
+        ticks.append(arr)
+    return ticks
+
+
+def timed_row(err, kernel, plain, library, work, dtype, iters):
+    """The kernels-line numbers of one kernel: its time, its plain
+    version's and the library call's (CUDA events), and its bound."""
+    bound_ms, bound_by = bound(*work, str(dtype))
+    row = {
+        "max_abs_err": err,
+        "ms": time_ms(kernel, iters),
+        "plain_ms": time_ms(plain, 3, 1),
+        "library_ms": time_ms(library, iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bmm_ms={row['library_ms']:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bmm={row['ms'] / row['library_ms']:.2f}")
+    return row
+
+
+def measure_batched(ops, x, w, err, iters=20):
+    import torch
+
+    R, M, K = x.shape
+    return timed_row(err, lambda: ops.batched_gemm(x, w), lambda: ops.batched_gemm_plain(x, w),
+                     lambda: torch.bmm(x, w), gemm_work(R * M, K, w.shape[2], R, x.dtype),
+                     x.dtype, iters)
+
+
+def measure_grouped(ops, x, w, bg, bm, err, iters=10):
+    import torch
+
+    T, K = x.shape
+    wg = w[torch.as_tensor(bg, device=w.device).long()]  # gathered outside the timing
+    xb = x.view(T // bm, bm, K)
+    used = len(np.unique(bg))  # w counts once per group the blocks use
+    return timed_row(err, lambda: ops.grouped_gemm(x, w, bg, bm=bm),
+                     lambda: ops.grouped_gemm_plain(x, w, bg, bm=bm),
+                     lambda: torch.bmm(xb, wg), gemm_work(T, K, w.shape[2], used, x.dtype),
+                     x.dtype, iters)
+
+
+def check_batched(ops, gen, dev, dtype, R, M, K, N):
+    import torch
+
+    x = torch.randn((R, M, K), generator=gen, device=dev).to(dtype)
+    w = torch.randn((R, K, N), generator=gen, device=dev).to(dtype)
+    got = ops.batched_gemm(x, w)
+    want = ops.batched_gemm_plain(x, w)
+    torch.cuda.synchronize()
+    err = check_close(f"batched_gemm {str(dtype)[6:]} {(R, M, K, N)}", got, want, str(dtype),
+                      gemm_tol(dtype, K))
+    return x, w, err
+
+
+def group_inputs(gen, dev, dtype, sizes, bm, K, N):
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import make_group_layout
+
+    offs, bg, T = make_group_layout(np.asarray(sizes), bm=bm)
+    x = torch.zeros((T, K), device=dev)
+    for g, sz in enumerate(sizes):
+        x[offs[g]:offs[g] + sz] = torch.randn((sz, K), generator=gen, device=dev)
+    w = torch.randn((len(sizes), K, N), generator=gen, device=dev)
+    return x.to(dtype), w.to(dtype), bg
+
+
+def check_grouped(ops, name, dtype, x, w, bg, bm):
+    import torch
+
+    got = ops.grouped_gemm(x, w, bg, bm=bm)
+    want = ops.grouped_gemm_plain(x, w, bg, bm=bm)
+    torch.cuda.synchronize()
+    return check_close(name, got, want, str(dtype), grouped_tol(dtype))
+
+
+def phase_gemm_kernels(ops, dev, seed):
+    """(a) K1 and K2 against their plain versions, f32 and bf16; times at
+    the Table 1 shapes."""
+    import torch
+
+    from repro_torch.configs.paper_sgemm import PAPER_GEMM_SHAPES
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 4)
+    ragged_sizes = [m for tick in ragged_trace(seed) for _, m in tick][:8]
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in K1_CASES:
+            check_batched(ops, gen, dev, dtype, *case)
+        for g in PAPER_GEMM_SHAPES.values():
+            for R in PAPER_RS:
+                x, w, err = check_batched(ops, gen, dev, dtype, R, g.M, g.K, g.N)
+                if dtype == torch.float32:  # Table 1 is float32
+                    measure_batched(ops, x, w, err)
+        # bitwise problem independence: changing x[2] leaves 0, 1, 3 as they were
+        x = torch.randn((4, 64, 64), generator=gen, device=dev).to(dtype)
+        w = torch.randn((4, 64, 64), generator=gen, device=dev).to(dtype)
+        base = ops.batched_gemm(x, w)
+        x2 = x.clone()
+        x2[2] = torch.randn((64, 64), generator=gen, device=dev).to(dtype)
+        pert = ops.batched_gemm(x2, w)
+        same = [bool(torch.equal(base[r], pert[r])) for r in range(4)]
+        log(f"  batched_gemm {str(dtype)[6:]} problem independence: bit-identical per problem "
+            f"after changing x[2]: {same}")
+        if same != [True, True, False, True]:
+            raise PhaseFailed("batched_gemm: a problem's output depends on another's data")
+        for sizes in GROUP_SIZES:
+            for bm in (32, 96):  # 96: a row block of 1.5 of the kernel's 64-row tiles
+                x, w, bg = group_inputs(gen, dev, dtype, sizes, bm, 48, 40)
+                check_grouped(ops, f"grouped_gemm {str(dtype)[6:]} sizes={sizes} bm={bm}",
+                              dtype, x, w, bg, bm)
+        x, w, bg = group_inputs(gen, dev, dtype, ragged_sizes, 128, RAGGED_K, RAGGED_N)
+        check_grouped(ops, f"grouped_gemm {str(dtype)[6:]} sizes={ragged_sizes} bm=128 "
+                      f"K={RAGGED_K} N={RAGGED_N}", dtype, x, w, bg, 128)
+        # group isolation: rows of group g see only w[g]; padded rows are 0
+        x, w, bg = group_inputs(gen, dev, dtype, [16, 9], 16, 24, 8)
+        out = ops.grouped_gemm(x, w, bg, bm=16).float()
+        x32, w32 = x.float(), w.float()
+        want = torch.cat([x32[:16] @ w32[0], x32[16:] @ w32[1]])
+        check_close(f"grouped_gemm {str(dtype)[6:]} group isolation", out, want,
+                    str(dtype), grouped_tol(dtype))
+        if not torch.equal(out[25:], torch.zeros_like(out[25:])):
+            raise PhaseFailed("grouped_gemm: padded rows are not zero")
+
+
+def phase_table1(ops, dev, seed):
+    """(b) Table 1 on the card: four strategies, f32, reps 5, min time."""
+    import torch
+
+    from repro_torch.config import ScheduleConfig
+    from repro_torch.configs.paper_sgemm import PAPER_GEMM_SHAPES, PAPER_R_SWEEP
+    from repro_torch.core import GemmProblem, SuperKernelCache
+    from repro_torch.core.strategies import Exclusive, SpaceOnly, SpaceTime, TimeOnly
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    log(f"  {'shape':18s} {'R':>4s} | GFLOP/s {'time_only':>10s} {'space_only':>10s} "
+        f"{'space_time':>10s} {'exclusive':>10s} | st/space st/time")
+    for name, g in PAPER_GEMM_SHAPES.items():
+        vs_space, vs_time = [], []
+        for r in PAPER_R_SWEEP:
+            problems = [GemmProblem(tenant_id=t,
+                                    x=torch.randn((g.M, g.K), generator=gen, device=dev),
+                                    w=torch.randn((g.K, g.N), generator=gen, device=dev))
+                        for t in range(r)]
+            rates = {}
+            for s in (TimeOnly(), SpaceOnly(),
+                      SpaceTime(SuperKernelCache(ScheduleConfig(r_bucketing="exact"))),
+                      Exclusive()):
+                s.prepare(problems)
+                times = []
+                for _ in range(TABLE1_REPS):
+                    outs, t = s.run()
+                    times.append(t)
+                rates[s.name] = g.flops * r / min(times)
+                if r == 16:  # every strategy's outputs, once, against the plain product
+                    ws = [problems[0].w if s.name == "exclusive" else p.w for p in problems]
+                    want = ref.batched_gemm(torch.stack([p.x for p in problems]),
+                                            torch.stack(ws))
+                    check_close(f"{name} R=16 {s.name}", torch.stack(outs), want,
+                                "torch.float32", gemm_tol(torch.float32, g.K))
+            vs_space.append(rates["space_time"] / rates["space_only"])
+            vs_time.append(rates["space_time"] / rates["time_only"])
+            log(f"  {name:18s} {r:4d} | {'':7s} " + " ".join(
+                f"{rates[k] / 1e9:10.1f}" for k in ("time_only", "space_only", "space_time",
+                                                    "exclusive"))
+                + f" | {vs_space[-1]:7.2f}x {vs_time[-1]:6.2f}x")
+            del problems
+        log(f"  {name:18s} geomean over R: st/space_only {geomean(vs_space):.2f}x "
+            f"st/time_only {geomean(vs_time):.2f}x (paper geomean vs next-best: "
+            f"{PAPER_GEOMEAN[name]:.2f}x)")
+
+
+def geomean(xs):
+    return float(np.exp(np.mean(np.log(xs))))
+
+
+def run_gemm_stream(ops, sched, ticks, make_problem):
+    """Drive ``sched`` on a WallClock over ``ticks`` (lists of arrival
+    specs), as examples/spacetime_ablation.py does; returns the completed
+    problems and each op's (launches, plain calls), zeroed just before the
+    run and read just after."""
+    import torch
+
+    done = []
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    for arrivals in ticks:
+        for spec in arrivals:
+            sched.submit(make_problem(spec))
+        done.extend(sched.pump())
+        time.sleep(0.0002)
+    done.extend(sched.flush())
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTERS.items()}
+    return done, counts
+
+
+def report_stream(what, sched, done, n_submitted, counts, tol_of):
+    """Check every completed problem against its plain product; print the
+    run's metrics."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    if len(done) != n_submitted or any(p.result is None for p in done):
+        raise PhaseFailed(f"{what}: {len(done)}/{n_submitted} problems completed")
+    worst, bad = 0.0, 0
+    for p in done:
+        rtol, atol = tol_of(p)
+        want = ref.batched_gemm(p.x[None], p.w[None])[0].float()
+        got = p.result.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise PhaseFailed(f"{what}: result of shape {tuple(got.shape)} or non-finite")
+        err = (got - want).abs()
+        worst = max(worst, float(err.max()))
+        bad += int((err > atol + rtol * want.abs()).any())
+    lat = np.asarray([p.completion_time - p.arrival_time for p in done])
+    rep = sched.report()
+    log(f"  {what}: {len(done)} problems, dispatches={int(rep['dispatches'])}, "
+        f"cache_hit_rate={rep['cache_hit_rate']:.3f}, achieved_tflops={rep['achieved_tflops']:.3f}, "
+        f"latency p50={np.percentile(lat, 50) * 1e3:.3f}ms p95={np.percentile(lat, 95) * 1e3:.3f}ms, "
+        f"cache {sched.cache.stats}")
+    log(f"    results vs plain product: max_abs_err={worst:.3e}, {bad} out of tolerance; "
+        f"launches/plain calls: {counts}")
+    if bad:
+        raise PhaseFailed(f"{what}: {bad} results out of tolerance")
+
+
+def ablation_stream(dev, seed):
+    """Run 1's stream, examples/spacetime_ablation.py's trace: 8 tenants'
+    conv2_2 GEMMs (f32), 1 + Poisson(1.5) arrivals per tick, 120 ticks.
+    Returns (ticks of (tenant, input) specs, spec -> GemmProblem)."""
+    import torch
+
+    from repro_torch.configs.paper_sgemm import PAPER_GEMM_SHAPES
+    from repro_torch.core import GemmProblem
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6)
+    g = PAPER_GEMM_SHAPES["resnet18_conv2_2"]
+    rng = np.random.default_rng(seed)
+    ws = [torch.randn((g.K, g.N), generator=gen, device=dev) for _ in range(ABLATION_TENANTS)]
+    xs = [torch.randn((g.M, g.K), generator=gen, device=dev) for _ in range(4)]
+    ticks = [[(int(rng.integers(ABLATION_TENANTS)), int(rng.integers(4)))
+              for _ in range(1 + rng.poisson(1.5))] for _ in range(ABLATION_TICKS)]
+    return ticks, lambda s: GemmProblem(tenant_id=s[0], x=xs[s[1]], w=ws[s[0]])
+
+
+def phase_gemm_scheduler(ops, dev, seed):
+    """(c) DynamicSpaceTimeScheduler on two stochastic GEMM streams."""
+    import torch
+
+    from repro_torch.config import ScheduleConfig
+    from repro_torch.core import DynamicSpaceTimeScheduler, GemmProblem
+
+    # run 1: the ablation trace
+    ticks, make_problem = ablation_stream(dev, seed)
+    sizes1 = []
+    sched = DynamicSpaceTimeScheduler(
+        ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64),
+        on_dispatch=lambda batch, dt, rid: sizes1.append(len(batch)))
+    done, counts1 = run_gemm_stream(ops, sched, ticks, make_problem)
+    K = done[0].x.shape[1]
+    report_stream(f"run 1: {ABLATION_TENANTS} tenants resnet18_conv2_2 f32, window "
+                  f"{WINDOW_S * 1e3:g} ms", sched, done, sum(map(len, ticks)), counts1,
+                  lambda p: gemm_tol(torch.float32, K))
+    log(f"    dispatch sizes R: {sizes1}")
+    del done, sched
+
+    # run 2: ragged merge at stablelm-1.6b's MLP width, bf16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    wr = [torch.randn((RAGGED_K, RAGGED_N), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(RAGGED_TENANTS)]
+    ticks = ragged_trace(seed)
+    layouts = []
+    sched = DynamicSpaceTimeScheduler(
+        ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64,
+                       allow_ragged_merge=True),
+        on_dispatch=lambda batch, dt, rid: layouts.append([p.x.shape[0] for p in batch]))
+    done, counts2 = run_gemm_stream(
+        ops, sched, ticks, lambda s: GemmProblem(
+            tenant_id=s[0], w=wr[s[0]],
+            x=torch.randn((s[1], RAGGED_K), generator=gen, device=dev).to(torch.bfloat16)))
+    report_stream(f"run 2: {RAGGED_TENANTS} tenants ragged K={RAGGED_K} N={RAGGED_N} bf16",
+                  sched, done, sum(map(len, ticks)), counts2,
+                  lambda p: gemm_tol(torch.bfloat16, RAGGED_K))
+    log(f"    dispatch row counts: {layouts}")
+    del done
+    if counts1["batched_gemm"][0] <= 0:
+        raise PhaseFailed("run 1 never launched batched_gemm")
+    if counts2["grouped_gemm"][0] <= 0:
+        raise PhaseFailed("run 2 never launched grouped_gemm")
+    launches = {k: counts1[k][0] + counts2[k][0] for k in GEMM_REPLACES}
+    plain = {k: counts1[k][1] + counts2[k][1] for k in GEMM_REPLACES}
+    if any(plain.values()):
+        raise PhaseFailed(f"plain versions were called on the GEMM path: {plain}")
+    # each ragged dispatch's sizes and the layout its cache launched K2 on
+    ragged = [(l, sched.cache.ragged_layout(l)) for l in layouts if len(set(l)) > 1]
+    return launches, sizes1, ragged
+
+
+def gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged):
+    """K1 and K2 against plain and torch.bmm at the scheduler runs' shapes:
+    K1 at run 1's median dispatch (R padded to its pow2 bucket), K2 at run
+    2's median ragged dispatch (by padded rows), on the layout the cache
+    launched it on."""
+    import torch
+
+    from repro_torch.configs.paper_sgemm import PAPER_GEMM_SHAPES
+    from repro_torch.core import round_pow2
+    from repro_torch.core.superkernel import RAGGED_BM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+    g = PAPER_GEMM_SHAPES["resnet18_conv2_2"]
+    R = round_pow2(int(np.median(sizes1)))
+    log(f"  batched_gemm at run 1's median dispatch: R={R} (pow2 bucket), {g.name} f32")
+    x, w, err = check_batched(ops, gen, dev, torch.float32, R, g.M, g.K, g.N)
+    k1 = measure_batched(ops, x, w, err)
+    by_rows = sorted(ragged, key=lambda r: r[1][1])
+    sizes, (offs, T, bg, G) = by_rows[len(by_rows) // 2]
+    log(f"  grouped_gemm at run 2's median ragged dispatch: M={sizes} -> T={T} rows, "
+        f"{G} groups (pow2), bf16")
+    x = torch.zeros((T, RAGGED_K), device=dev)
+    for o, m in zip(offs, sizes):
+        x[int(o):int(o) + m] = torch.randn((m, RAGGED_K), generator=gen, device=dev)
+    x = x.to(torch.bfloat16)
+    w = torch.zeros((G, RAGGED_K, RAGGED_N), device=dev, dtype=torch.bfloat16)
+    w[: len(sizes)] = torch.randn((len(sizes), RAGGED_K, RAGGED_N), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+    err = check_grouped(ops, "grouped_gemm bf16 at that layout", torch.bfloat16, x, w, bg,
+                        RAGGED_BM)
+    k2 = measure_grouped(ops, x, w, bg, RAGGED_BM, err)
+    rows = []
+    for name, row in (("batched_gemm", k1), ("grouped_gemm", k2)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "replaces": GEMM_REPLACES[name], "launches": launches[name], **row})
+    return rows
+
+
+def profile_gemm_stream(ops, dev, seed):
+    """Where a merged GEMM dispatch's time goes: torch.profiler over run 1's
+    stream. Prints the mean dispatch time (the scheduler's busy time over
+    its dispatches), the device's kernel time per dispatch, its idle share
+    over the run (the stream sleeps 0.2 ms per tick), and the kernels and
+    host ops that take the most time. Profiled times include the
+    profiler's own cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ScheduleConfig
+    from repro_torch.core import DynamicSpaceTimeScheduler
+
+    ticks, make_problem = ablation_stream(dev, seed)
+    sched = DynamicSpaceTimeScheduler(
+        ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_gemm_stream(ops, sched, ticks, make_problem)
+        wall = time.perf_counter() - t0
+    n = sched.stats.dispatches
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"  profile run 1: wall {wall * 1e3:.3f} ms, {n} dispatches, mean dispatch "
+        f"{sched.stats.busy_time_s / n * 1e3:.3f} ms (scheduler busy time), device kernels "
+        f"{busy_us / n / 1e3:.3f} ms per dispatch, device idle share {1 - busy_us / 1e6 / wall:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    device {e.self_device_time_total / n / 1e3:8.3f} ms/dispatch "
+            f"{e.count / n:5.1f}x  {e.key[:80]}")
+    host = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        log(f"    host   {e.self_cpu_time_total / n / 1e3:8.3f} ms/dispatch "
+            f"{e.count / n:5.1f}x  {e.key[:80]}")
+
+
+def phase_gemm(ops, dev, seed, profile=False):
+    import torch
+
+    log(" (a) K1 batched_gemm and K2 grouped_gemm against their plain versions")
+    phase_gemm_kernels(ops, dev, seed)
+    log(" (b) Table 1 on the card: four strategies, float32, min of "
+        f"{TABLE1_REPS} runs, GFLOP/s")
+    ops.reset_counters()
+    phase_table1(ops, dev, seed)
+    counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTERS.items()}
+    log(f"  launches / plain calls over the sweep: {counts}")
+    if any(counts[k][1] for k in GEMM_REPLACES):
+        raise PhaseFailed(f"plain versions were called in the Table 1 sweep: {counts}")
+    torch.cuda.empty_cache()
+    log(" (c) the scheduler on stochastic GEMM streams (WallClock)")
+    launches, sizes1, ragged = phase_gemm_scheduler(ops, dev, seed)
+    log(f"  GEMM path launches (runs 1 and 2): {launches}")
+    log("kernels at the GEMM path's shapes")
+    rows = gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged)
+    if profile:
+        profile_gemm_stream(ops, dev, seed)
+    return rows
+
+
+def phase_gemm_apart(seed, profile):
+    """Phase 4 in a child process with CUDA_DEVICE_MAX_CONNECTIONS set (it
+    reuses the kernels this run built); returns its kernels rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rows_file = Path(tmp) / "rows.json"
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--phases", "4",
+               "--seed", str(seed), "--rows-out", str(rows_file)]
+        env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS=GEMM_MAX_CONNECTIONS)
+        try:
+            rc = subprocess.run(cmd + (["--profile"] if profile else []), env=env,
+                                timeout=GEMM_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"phase 4 took more than {GEMM_TIMEOUT_S} s") from None
+        if rc != 0:
+            raise PhaseFailed(f"phase 4 exited with {rc}")
+        return json.loads(rows_file.read_text())
+
+
 # ----------------------------------------------------------------- main
 def gpu_identity() -> str:
     out = subprocess.run(
@@ -465,12 +965,24 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 3, profile steady decode steps of both modes")
+                    help="after phase 3, profile steady decode steps of both modes; "
+                         "after phase 4, profile the scheduler's GEMM stream")
+    ap.add_argument("--rows-out", metavar="FILE",
+                    help="write the kernels rows to FILE as JSON, in place of the closing "
+                         "lines (how phase 4 reports to the run that started it)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    # Phase 4's space_only spreads its products over 32 streams (Hyper-Q),
+    # which map onto 32 hardware queues only with this setting (CUDA's
+    # default is 8), read when the CUDA context is made. Phases 1-3 keep
+    # CUDA's default: run alone, phase 4 sets it here, before torch touches
+    # the card; after other phases, it runs in a process of its own.
+    gemm_apart = 4 in phases and len(phases) > 1
+    if phases == {4}:
+        os.environ.setdefault("CUDA_DEVICE_MAX_CONNECTIONS", GEMM_MAX_CONNECTIONS)
 
     import torch
 
@@ -492,7 +1004,7 @@ def main(argv=None) -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    rows = None
+    rows = []
     try:
         if 1 in phases:
             log("phase 1: kernels against their plain versions on the card")
@@ -504,11 +1016,20 @@ def main(argv=None) -> int:
             log(f"phase 3: serving {REQUESTS} requests for {R_TENANTS} stablelm-1.6b tenants")
             launches, prompt_lens = phase_serving(dev, args.seed, ops, args.profile)
             log("kernels at the serving path's shapes")
-            rows = main_path_kernel_rows(ops, dev, args.seed, prompt_lens, launches)
+            rows += main_path_kernel_rows(ops, dev, args.seed, prompt_lens, launches)
+        if gemm_apart:
+            torch.cuda.empty_cache()
+            rows += phase_gemm_apart(args.seed, args.profile)
+        elif 4 in phases:
+            log("phase 4: the GEMM super-kernel path (K1, K2, Table 1, the scheduler)")
+            rows += phase_gemm(ops, dev, args.seed, args.profile)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rows is not None:
+    if args.rows_out:
+        Path(args.rows_out).write_text(json.dumps(rows))
+        return 0
+    if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from typing import Deque, Dict, Hashable, List, Optional, Tuple
 
 import torch
@@ -45,7 +46,58 @@ class ShapeBucket:
     def for_gemm(x: torch.Tensor, w: torch.Tensor) -> "ShapeBucket":
         M, K = x.shape
         _, N = w.shape
-        return ShapeBucket("gemm", M, K, N, str(x.dtype).removeprefix("torch."))
+        return ShapeBucket("gemm", M, K, N, dtype_name(x.dtype))
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The dtype's name as the JAX package's buckets spell it ("float32")."""
+    return str(dtype).removeprefix("torch.")
+
+
+_seq = itertools.count()
+
+
+@dataclasses.dataclass
+class GemmProblem:
+    """One pending GEMM from one tenant's model.
+
+    Satisfies the ``Workload`` protocol (see ``core.workload``): ``bucket``
+    / ``cost`` / ``merge_family`` are derived from the operand shapes, and
+    its executor is the scheduler's built-in ``SuperKernelCache`` (it
+    carries no ``execute`` callback).
+    """
+
+    kind = "kernel"               # monitor latency class (not a field)
+
+    tenant_id: int
+    x: torch.Tensor               # (M, K) activation
+    w: torch.Tensor               # (K, N) this tenant's weights
+    arrival_time: float = 0.0
+    slo_s: float = 0.100
+    seq: int = dataclasses.field(default_factory=lambda: next(_seq))
+    # filled by the scheduler on completion:
+    result: Optional[torch.Tensor] = None
+    completion_time: Optional[float] = None
+
+    @property
+    def bucket(self) -> ShapeBucket:
+        return ShapeBucket.for_gemm(self.x, self.w)
+
+    @property
+    def merge_family(self) -> Tuple:
+        """GEMMs sharing (op, K, N, dtype) may ragged-merge across M."""
+        b = self.bucket
+        return (b.op, b.K, b.N, b.dtype)
+
+    @property
+    def flops(self) -> int:
+        M, K = self.x.shape
+        N = self.w.shape[1]
+        return 2 * M * K * N
+
+    @property
+    def cost(self) -> float:
+        return float(self.flops)
 
 
 class WorkQueue:
@@ -120,3 +172,8 @@ class WorkQueue:
         self._per_tenant.clear()
         self._count = 0
         return out
+
+
+# Backwards-compatible alias: the queue predates the generic Workload
+# refactor and most call sites still say "kernel queue".
+KernelQueue = WorkQueue

@@ -10,10 +10,10 @@ prefill/decode cohorts flow through the SAME policy core:
   2. a pluggable ``BatchingPolicy`` decides when each shape bucket is
      ripe — the fixed window of the paper, or an SLO-adaptive window
      that shrinks as a tenant's slack to its deadline shrinks;
-  3. ``pump`` dispatches each ripe bucket as ONE super-dispatch, bounded
-     by ``max_superkernel_size``: items carrying an ``execute`` callback
-     run it over the merged batch (in this port, bare GEMM problems raise
-     until the super-kernel compile cache is ported, see ROADMAP.md);
+  3. ``pump`` dispatches each ripe bucket as ONE super-dispatch: items
+     carrying an ``execute`` callback run it over the merged batch;
+     bare GEMM problems route through the super-kernel cache
+     (``SuperKernelCache``), bounded by ``max_superkernel_size``;
   4. per-tenant latency is recorded against the same clock, stragglers
      are detected and evicted (``LatencyMonitor`` + caller hook).
 
@@ -35,6 +35,7 @@ from repro_torch.core.clock import Clock, WallClock
 from repro_torch.core.policy import BatchingPolicy, make_policy
 from repro_torch.core.queue import WorkQueue
 from repro_torch.core.slo import LatencyMonitor
+from repro_torch.core.superkernel import SuperKernelCache
 
 
 @dataclasses.dataclass
@@ -95,6 +96,7 @@ class DynamicSpaceTimeScheduler:
         self.on_dispatch = on_dispatch
         self.replica_id = replica_id
         self.queue = WorkQueue()
+        self.cache = SuperKernelCache(self.schedule)
         self.monitor = LatencyMonitor(
             self.schedule.latency_ewma_alpha,
             self.schedule.straggler_eviction_ratio,
@@ -130,7 +132,7 @@ class DynamicSpaceTimeScheduler:
         """Admit one workload; returns False if admission control rejects.
 
         ``item`` is anything satisfying the Workload protocol (a
-        ``Workload``, ...).
+        ``Workload``, a ``GemmProblem``, ...).
         """
         cap = self.schedule.max_pending_per_tenant
         if cap is not None and self.queue.pending_for_tenant(item.tenant_id) >= cap:
@@ -318,15 +320,13 @@ class DynamicSpaceTimeScheduler:
 
     def _execute(self, batch: List, ragged: bool) -> List:
         """One super-dispatch: callback workloads run their own merged
-        executor over the whole batch."""
+        executor; bare GEMMs route through the super-kernel cache."""
         execute = getattr(batch[0], "execute", None)
         if execute is not None:
             return execute(batch)
-        raise NotImplementedError(
-            "bare GEMM workloads need the super-kernel compile cache "
-            "(SuperKernelCache, batched/grouped GEMM kernels), which is not "
-            "ported yet (see ROADMAP.md); submit workloads with an execute "
-            "callback")
+        if ragged:
+            return self.cache.execute_ragged(batch)
+        return self.cache.execute(batch)
 
     def _dispatch(self, batch: List, ragged: bool = False) -> List:
         t0 = self.clock.now()
@@ -375,6 +375,7 @@ class DynamicSpaceTimeScheduler:
             "problems": float(self.stats.problems_completed),
             "rejected": float(self.stats.rejected),
             "achieved_tflops": self.stats.achieved_tflops,
+            "cache_hit_rate": self.cache.stats.hit_rate,
             "evicted_tenants": float(len(self.evicted)),
             "ripe_nudges": float(self.stats.ripe_nudges),
             "deadline_rejected": float(self.stats.deadline_rejected),

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +44,12 @@ SIGNATURES = {
         # q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
         # dtype, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "batched_gemm": (
+        # x, w, out, R, M, N, K, dtype, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_gemm": (
+        # x, w, block_groups, out, T, G, N, K, bm, dtype, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

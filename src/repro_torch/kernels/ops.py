@@ -1,4 +1,4 @@
-"""Dispatch layer over the attention kernels.
+"""Dispatch layer over the GEMM and attention kernels.
 
 Routing is by the device of the tensors, never by a fallback: a CUDA
 tensor goes to the hand-written kernel (which raises on anything it does
@@ -19,12 +19,16 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_gemm as _gg
 
 COUNTERS: Dict[str, _build.OpCounter] = {
     "decode_attention": _da.counter,
     "flash_attention": _fa.counter,
+    "batched_gemm": _bg.counter,
+    "grouped_gemm": _gg.counter,
 }
 
 
@@ -36,6 +40,45 @@ def reset_counters() -> None:
 def _check_cpu(t: torch.Tensor, op: str) -> None:
     if t.device.type != "cpu":
         raise ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def batched_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``batched_gemm``, on any device."""
+    _bg.counter.plain_calls += 1
+    return ref.batched_gemm(x, w)
+
+
+def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Space-time super-kernel: out[r] = x[r] @ w[r].
+
+    The JAX op's ``bm/bn/bk`` keywords size TPU VMEM tiles and nothing in
+    the scheduler passes them; the CUDA kernel fixes its own tile, so the
+    port drops them.
+    """
+    if x.is_cuda:
+        return _bg.batched_gemm(x, w)
+    _check_cpu(x, "batched_gemm")
+    return batched_gemm_plain(x, w)
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, block_groups, *,
+                       bm: int = _gg.DEFAULT_BM) -> torch.Tensor:
+    """The plain version of ``grouped_gemm``, on any device."""
+    _gg.counter.plain_calls += 1
+    return ref.grouped_gemm(x, w, block_groups, bm)
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups, *,
+                 bm: int = _gg.DEFAULT_BM) -> torch.Tensor:
+    """Ragged super-kernel: row block i of x times w[block_groups[i]].
+
+    ``bm`` is the row block, which fixes which rows share a weight; the
+    JAX op's ``bn/bk`` tiling keywords are dropped, as for ``batched_gemm``.
+    """
+    if x.is_cuda:
+        return _gg.grouped_gemm(x, w, block_groups, bm)
+    _check_cpu(x, "grouped_gemm")
+    return grouped_gemm_plain(x, w, block_groups, bm=bm)
 
 
 def flash_attention_plain(

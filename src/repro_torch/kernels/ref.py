@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the GEMM and attention kernels.
 
 These are the semantic ground truth the CUDA kernels are held against on
 the card, and what ``ops`` runs for tensors that lie on the CPU. They
@@ -8,7 +8,7 @@ package's own jnp oracle differs: a query row whose every key is masked
 the uniform average a finite ``NEG_INF`` softmax would give.
 
 All arithmetic is float32 with TF32 off, whatever the input dtype; the
-output is cast back to ``q.dtype``.
+output is cast back to the input dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +30,22 @@ def _full_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[r] = x[r] @ w[r]; x (R,M,K), w (R,K,N)."""
+    with _full_f32():
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups, bm: int) -> torch.Tensor:
+    """out[i-th row block] = x_block @ w[block_groups[i]]; x (T,K), w (G,K,N)."""
+    T, K = x.shape
+    idx = torch.as_tensor(block_groups).to(device=w.device, dtype=torch.long)
+    with _full_f32():
+        xb = x.reshape(T // bm, bm, K).float()
+        out = torch.matmul(xb, w.float()[idx])
+    return out.reshape(T, -1).to(x.dtype)
 
 
 def _mask(sq: int, skv: int, q_offset: int, causal: bool, window: int,

@@ -16,9 +16,12 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import repro.config as jconfig  # noqa: E402
+import repro.configs.paper_sgemm as jsgemm  # noqa: E402
 
 import repro_torch  # noqa: E402
 import repro_torch.config as tconfig  # noqa: E402
+import repro_torch.configs.paper_sgemm as tsgemm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -102,3 +105,19 @@ def test_registry_lists_only_ported_archs():
     assert tconfig.list_configs() == ["stablelm-1.6b"]
     with pytest.raises(KeyError, match="unknown arch"):
         tconfig.get_config("gemma3-27b")
+
+
+def test_paper_sgemm_equals_the_jax_package():
+    assert list(tsgemm.PAPER_GEMM_SHAPES) == list(jsgemm.PAPER_GEMM_SHAPES)
+    for name, want in jsgemm.PAPER_GEMM_SHAPES.items():
+        got = tsgemm.PAPER_GEMM_SHAPES[name]
+        assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+        assert _plain(got) == _plain(want)
+        assert got.flops == want.flops
+    assert tsgemm.PAPER_R_SWEEP == jsgemm.PAPER_R_SWEEP
+
+
+def test_every_cuda_source_has_a_build_entry():
+    sources = sorted(p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu"))
+    assert sources == sorted(_build.SOURCES)
+    assert sorted(_build.SIGNATURES) == sources

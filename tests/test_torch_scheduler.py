@@ -107,8 +107,6 @@ def test_identical_decisions(name):
     assert g_adm == w_adm
     assert g_stats == w_stats
     assert g_sum == w_sum and g_k0 == w_k0
-    # the port's report is the JAX one without the GEMM compile cache's hit rate
-    w_rep.pop("cache_hit_rate")
     assert g_rep == w_rep
 
 
@@ -125,11 +123,24 @@ def test_policies_really_differ():
     assert runs["cap"][2]["rejected"] > 0
 
 
-def test_bare_gemm_items_are_refused_until_the_superkernel_slice():
+def test_bare_gemm_items_dispatch_through_the_superkernel_cache():
     sched = tsched.DynamicSpaceTimeScheduler(tconfig.ScheduleConfig(batching_window_s=0.0))
-    sched.submit(tworkload.Workload(tenant_id=0, bucket=("gemm", 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sched.flush()
+    rng = np.random.RandomState(0)
+    problems = [tqueue.GemmProblem(tenant_id=t,
+                                   x=torch.from_numpy(rng.randn(8, 16).astype(np.float32)),
+                                   w=torch.from_numpy(rng.randn(16, 4).astype(np.float32)))
+                for t in range(3)]
+    for p in problems:
+        assert sched.submit(p)
+    done = sched.flush()
+    assert done == problems and sched.stats.dispatches == 1
+    for p in problems:
+        torch.testing.assert_close(p.result, p.x @ p.w)
+        assert p.completion_time is not None
+    stats = sched.cache.stats
+    assert (stats.misses, stats.executions, stats.problems_executed, stats.padded_problems) \
+        == (1, 1, 3, 1)  # R = 3 padded to the pow2 bucket 4
+    assert sched.report()["cache_hit_rate"] == 0.0
 
 
 def test_schedule_config_validation_matches():
