@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases 3 --profile   # + where a decode step's time goes
     python3 chip_smoke.py --phases 4      # the GEMM super-kernel path only
     python3 chip_smoke.py --phases 4 --profile   # + where a GEMM dispatch's time goes
+    python3 chip_smoke.py --phases 5      # the RWKV-6 serving path only
+    python3 chip_smoke.py --phases 5 --profile   # + where an RWKV decode step's time goes
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -30,7 +32,17 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      reads the launch counters around each run. Phase 4 runs with
      ``CUDA_DEVICE_MAX_CONNECTIONS=32``, so that space_only's 32 streams
      get 32 hardware queues; after other phases, which keep CUDA's
-     default, it runs in a child process of its own.
+     default, it runs in a child process of its own;
+  5. drives the RWKV-6 serving path: (a) holds K5 ``wkv6_scan`` against
+     its plain version in float32 and bfloat16, from a zero and a random
+     state, whole and split in two, and times it at a median prompt; (b)
+     builds rwkv6-1.6b at full width (seeded random weights, decay made
+     data-dependent) and compares the kernel path's logits with the plain
+     path's over a 777-token prefill, whole and chunked (512 + 265), and
+     8 decode steps: in float32 directly, in bf16 each against the float32
+     plain path; (c) serves 16 requests for four rwkv6-1.6b tenants (bf16)
+     in ``space_time`` and ``time_only`` mode, with K5's launch counter
+     read around the run and required at 24 per prefill.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -63,7 +75,9 @@ TOL = {"torch.float32": (2e-5, 2e-4), "torch.bfloat16": (2e-2, 2e-2)}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:150",
+    "wkv6_scan": "src/repro/kernels/wkv6_scan.py:84",
 }
+ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phase 3's path
 
 
 class PhaseFailed(Exception):
@@ -267,6 +281,23 @@ DECODE_STEPS = 8
 CACHE_LEN = 2048
 
 
+def compare_logits(what, got, want):
+    """Kernel-path logits against plain-path logits: within MODEL_RTOL of
+    the largest |logit|; whether the argmax agrees is printed."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise PhaseFailed(f"model {what}: shape {tuple(got.shape)} or non-finite logits")
+    err = float((got - want).abs().max())
+    lim = MODEL_RTOL * float(want.abs().max())
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    log(f"  {what}: max_abs_err={err:.4f} limit={lim:.4f} (5% of max |logit|) "
+        f"argmax_agree={agree} {'ok' if err <= lim else 'FAIL'}")
+    if err > lim:
+        raise PhaseFailed(f"model {what}: kernel path and plain path disagree")
+
+
 def phase_model(dev, seed):
     import torch
 
@@ -276,7 +307,7 @@ def phase_model(dev, seed):
 
     cfg = get_config("stablelm-1.6b")
     model = build_model(cfg, device=dev)
-    plain = build_model(cfg, device=dev, plain_attention=True)
+    plain = build_model(cfg, device=dev, plain_kernels=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen)
@@ -285,29 +316,16 @@ def phase_model(dev, seed):
         f"{cfg.num_layers} layers, d_model {cfg.d_model}")
     rng = np.random.RandomState(seed)
     tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, PROMPT_LEN)), device=dev)
-
-    def compare(what, got, want):
-        got, want = got.float(), want.float()
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            raise PhaseFailed(f"model {what}: shape {tuple(got.shape)} or non-finite logits")
-        err = float((got - want).abs().max())
-        lim = MODEL_RTOL * float(want.abs().max())
-        agree = bool((got.argmax(-1) == want.argmax(-1)).all())
-        log(f"  {what}: max_abs_err={err:.4f} limit={lim:.4f} (5% of max |logit|) "
-            f"argmax_agree={agree} {'ok' if err <= lim else 'FAIL'}")
-        if err > lim:
-            raise PhaseFailed(f"model {what}: kernel path and plain path disagree")
-
     with torch.no_grad():
         lk, ck = model.forward_prefill(params, tokens, CACHE_LEN)
         lp, cp = plain.forward_prefill(params, tokens, CACHE_LEN)
-        compare(f"prefill {PROMPT_LEN} tokens", lk, lp)
+        compare_logits(f"prefill {PROMPT_LEN} tokens", lk, lp)
         lengths = torch.tensor([PROMPT_LEN], device=dev)
         for step in range(DECODE_STEPS):
             tok = lk.argmax(-1)  # both paths decode the same token
             lk, ck = model.forward_decode(params, tok, ck, lengths)
             lp, cp = plain.forward_decode(params, tok, cp, lengths)
-            compare(f"decode step {step}", lk, lp)
+            compare_logits(f"decode step {step}", lk, lp)
             lengths = lengths + 1
     torch.cuda.synchronize()
 
@@ -319,7 +337,9 @@ REQUESTS = 16
 MAX_NEW = 32
 
 
-def run_engine(model, stacked, mode, prompts, ops):
+def run_engine(model, stacked, mode, prompts, ops, kernels):
+    """Serve ``prompts`` in ``mode``; every kernel in ``kernels`` must launch.
+    Returns (greedy tokens by request id, requests, launches in this run)."""
     import torch
 
     from repro_torch.serving import EngineConfig, InferenceRequest, MultiTenantEngine
@@ -351,45 +371,71 @@ def run_engine(model, stacked, mode, prompts, ops):
         f"prefill p50={rep['prefill_p50_s'] * 1e3:.3f}ms "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"    launches: " + " ".join(f"{k}={v}" for k, v in launches.items())
-        + f" (decode_attention per decode step = {launches['decode_attention'] / max(1, eng.steps):.1f})")
+        + f" over {eng.steps} steps")
     if len(eng.finished) != REQUESTS or len(done) != REQUESTS:
         raise PhaseFailed(f"{mode}: not every request finished with {MAX_NEW} tokens")
-    for k in REPLACES:  # the serving path's kernels (the GEMM path's are phase 4's)
+    for k in kernels:
         if launches[k] <= 0:
             raise PhaseFailed(f"{mode}: kernel {k} was never launched on the serving path")
     tokens = {r.request_id: list(r.generated) for r in reqs}
     del eng
-    return tokens, reqs
+    return tokens, reqs, launches
 
 
 def phase_serving(dev, seed, ops, profile=False):
-    import torch
-
     from repro_torch.config import get_config
-    from repro_torch.core.tenancy import tenant_bytes
     from repro_torch.models import build_model
 
     cfg = get_config("stablelm-1.6b")
     model = build_model(cfg, device=dev)
+    stacked = stacked_tenants(model, dev, seed)
+    prompts, lens = serve_prompts(cfg, seed)
+    launches, _ = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
+    if profile:
+        profile_serving(model, stacked, prompts)
+    return launches, lens
+
+
+def stacked_tenants(model, dev, seed, init=None):
+    """R_TENANTS tenants' seeded random weights, stacked; ``init(params,
+    gen)`` (if given) runs on the stack after ``Model.init_stacked``."""
+    import torch
+
+    from repro_torch.core.tenancy import tenant_bytes
+
     gens = []
     for t in range(R_TENANTS):
         g = torch.Generator(device=dev)
         g.manual_seed(seed + 1 + t)
         gens.append(g)
     stacked = model.init_stacked(gens)
+    if init is not None:
+        init(stacked, gens[0])
     wbytes = tenant_bytes(stacked)
-    log(f"  {R_TENANTS} tenants stacked: {wbytes / 1e9:.2f} GB of bf16 weights; merged decode "
+    log(f"  {R_TENANTS} tenants stacked: {wbytes / 1e9:.2f} GB of weights; merged decode "
         f"step weight-bytes bound {wbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    return stacked
+
+
+def serve_prompts(cfg, seed):
+    """REQUESTS (tenant, prompt) pairs, prompts of 128-1024 random tokens."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(128, 1025, size=REQUESTS)
     prompts = [(i % R_TENANTS, rng.randint(1, cfg.vocab_size, size=int(n)).tolist())
                for i, n in enumerate(lens)]
     log(f"  prompts: lengths {sorted(int(x) for x in lens)}")
+    return prompts, [int(x) for x in lens]
+
+
+def serve_both_modes(model, stacked, prompts, ops, kernels):
+    """The serving path's main run: counters zeroed just before, both modes,
+    counters read just after. Returns (launches over both, per mode)."""
+    import torch
 
     ops.reset_counters()  # the main path starts here
-    tok_st, reqs_st = run_engine(model, stacked, "space_time", prompts, ops)
+    tok_st, reqs_st, per_st = run_engine(model, stacked, "space_time", prompts, ops, kernels)
     torch.cuda.empty_cache()
-    tok_to, reqs_to = run_engine(model, stacked, "time_only", prompts, ops)
+    tok_to, reqs_to, per_to = run_engine(model, stacked, "time_only", prompts, ops, kernels)
     launches = {k: c.launches for k, c in ops.COUNTERS.items()}
     plain_calls = {k: c.plain_calls for k, c in ops.COUNTERS.items()}
     if any(plain_calls.values()):
@@ -399,9 +445,7 @@ def phase_serving(dev, seed, ops, profile=False):
     log(f"  greedy-token agreement space_time vs time_only: {same}/{REQUESTS * MAX_NEW} "
         "(bf16: exact agreement not required)")
     log(f"  main-path launches (both modes): {launches}; plain-version calls: {plain_calls}")
-    if profile:
-        profile_serving(model, stacked, prompts)
-    return launches, [int(x) for x in lens]
+    return launches, (per_st, per_to)
 
 
 def profile_serving(model, stacked, prompts, steps=8):
@@ -953,6 +997,270 @@ def phase_gemm_apart(seed, profile):
         return json.loads(rows_file.read_text())
 
 
+# ----------------------------------------------------------------- phase 5
+# The RWKV-6 serving path: K5 wkv6_scan against its plain version, the
+# full-width model, and four rwkv6-1.6b tenants through the engine.
+#
+# K5 tolerances. The final state is float32 in both versions, from the
+# same inputs; only the order of float32 sums differs, over a 64-term dot
+# and T steps of an accumulating state: the JAX kernel test's own rtol
+# 2e-4, atol 2e-3, in both dtypes. Outputs: that in f32; in bf16 both
+# round the same float32 value once, so TOL's bf16 (2e-2, 2e-2) covers a
+# flipped rounding step.
+RWKV = "rwkv6-1.6b"
+WKV_TOL = (2e-4, 2e-3)
+WKV_HEADS, WKV_N = 32, 64                # rwkv6-1.6b: H heads of N = V = 64
+WKV_TS = (1, 17, 128, 777, 1024)
+WKV_SPLIT = 512                          # 777 = 512 + 265
+LORA_B_SCALE = 0.1                       # w_lora_b std: a data-dependent decay
+
+
+def live_decay_(params, gen):
+    """Random w_lora_b in every RWKV layer. At the JAX init it is zero, so
+    the decay is the constant exp(-exp(-4)) and K5's per-token decay would
+    go untested; a trained model's is data-dependent."""
+    from repro_torch.models import layers
+
+    for lp in params["layers"]:
+        layers.normal_(lp["w_lora_b"], LORA_B_SCALE, gen)
+
+
+def wkv_inputs(gen, dev, dtype, T, w_dtype=None):
+    """r, k, v, w as the serving path hands them to K5: (1, T, H, N)
+    projections read as (1, H, T, N) views; r, k, v ~ 0.5 N(0, 1) and decay
+    logits w ~ N(-3, 1) (decays from 0.37 to 0.998); u (H, N) ~ 0.3 N(0, 1)."""
+    import torch
+
+    shape = (1, T, WKV_HEADS, WKV_N)
+
+    def proj(scale, shift=0.0, dt=dtype):
+        t = torch.randn(shape, generator=gen, device=dev) * scale + shift
+        return t.to(dt).transpose(1, 2)
+
+    r, k, v = proj(0.5), proj(0.5), proj(0.5)
+    w = proj(1.0, -3.0, w_dtype or dtype)
+    u = torch.randn((WKV_HEADS, WKV_N), generator=gen, device=dev) * 0.3
+    return r, k, v, w, u
+
+
+def wkv_work(T, dtype, w_dtype=None):
+    """(bytes, float32 flops) of one scan over WKV_HEADS heads: r, k, v, w
+    read and out written once, u, the initial state read and the final state
+    written once; ~5 N V flops per head per step (o: r S and the bonus,
+    S: decay S + k v)."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    wsize = 4 if w_dtype is not None and "float32" in str(w_dtype) else esize
+    bh, n = WKV_HEADS, WKV_N
+    nbytes = bh * T * n * (4 * esize + wsize) + 4 * bh * n + 2 * 4 * bh * n * n
+    return nbytes, 5 * n * n * bh * T
+
+
+def check_wkv(ops, name, dtype, inputs, s0):
+    import torch
+
+    got, gs = ops.wkv6_scan(*inputs, init_state=s0)
+    want, ws = ops.wkv6_scan_plain(*inputs, init_state=s0)
+    torch.cuda.synchronize()
+    out_tol = WKV_TOL if dtype == torch.float32 else None
+    err = check_close(f"{name} out", got, want, str(dtype), out_tol)
+    check_close(f"{name} final state", gs, ws, "torch.float32", WKV_TOL)
+    return err, got, gs
+
+
+def phase_wkv_kernel(ops, dev, seed):
+    """(a) K5 against its plain version: f32 and bf16, every T of WKV_TS,
+    from a zero and a random state; a 777-step scan against 512 steps then
+    265 from the carried state (in one buffer, as the model's cache); the
+    (BH, T, N) form and a float32 w beside bf16 r, k, v."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        for T in WKV_TS:
+            inputs = wkv_inputs(gen, dev, dtype, T)
+            check_wkv(ops, f"wkv6_scan {tag} T={T} zero state", dtype, inputs, None)
+            s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+            _, whole, whole_state = check_wkv(ops, f"wkv6_scan {tag} T={T} random state",
+                                              dtype, inputs, s0)
+            if T != 777:
+                continue
+            buf = s0.clone()
+            parts = [ops.wkv6_scan(*(t[:, :, a:b] for t in inputs[:4]), inputs[4],
+                                   init_state=buf, final_state=buf)[0]
+                     for a, b in ((0, WKV_SPLIT), (WKV_SPLIT, T))]
+            torch.cuda.synchronize()
+            split = torch.cat(parts, dim=2)
+            check_close(f"wkv6_scan {tag} 512 + 265 from the carried state vs 777 out",
+                        split, whole, str(dtype), WKV_TOL)
+            check_close(f"wkv6_scan {tag} 512 + 265 vs 777 final state", buf, whole_state,
+                        "torch.float32", WKV_TOL)
+            log(f"    split bit-identical to whole: out {bool(torch.equal(split, whole))}, "
+                f"state {bool(torch.equal(buf, whole_state))}")
+        r, k, v, w, u = wkv_inputs(gen, dev, dtype, 777)
+        flat = [t.reshape(WKV_HEADS, 777, WKV_N) for t in (r, k, v, w)]  # (BH, T, N) copies
+        check_wkv(ops, f"wkv6_scan {tag} (BH, T, N) contiguous, u (BH, N)", dtype,
+                  (*flat, u.contiguous()), None)
+    r, k, v, w, u = wkv_inputs(gen, dev, torch.bfloat16, 777, w_dtype=torch.float32)
+    check_wkv(ops, "wkv6_scan bf16 with float32 w", torch.bfloat16, (r, k, v, w, u), None)
+
+
+def measure_wkv(ops, dev, seed, T, launches):
+    """K5 at a median prompt of the serving run, bf16, as the path calls it
+    (strided views, state updated in place in one buffer)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    inputs = wkv_inputs(gen, dev, torch.bfloat16, T)
+    state = torch.zeros((WKV_HEADS, WKV_N, WKV_N), device=dev)
+    err, _, _ = check_wkv(ops, f"wkv6_scan bf16 at a median prompt, T={T}", torch.bfloat16,
+                          inputs, state)
+    bound_ms, bound_by = bound(*wkv_work(T, torch.bfloat16), "torch.float32")
+    row = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.wkv6_scan(*inputs, init_state=state, final_state=state), 20),
+        "plain_ms": time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
+                                                        final_state=state), 3, 1),
+        "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library: none (no PyTorch "
+        f"call computes WKV6) bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"kernel/bound={row['ms'] / bound_ms:.1f}")
+    return {"name": "wkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
+            "replaces": REPLACES["wkv6_scan"], "launches": launches, **row}
+
+
+def rwkv_stage_logits(model, params, tokens, decode_tokens):
+    """Logits of a whole prefill, a chunked one (WKV_SPLIT + the rest) and
+    decode steps fed ``decode_tokens`` after the whole prefill, plus the
+    wkv states the whole prefill left."""
+    import torch
+
+    out = {}
+    logits, caches = model.forward_prefill(params, tokens, CACHE_LEN)
+    out["prefill"] = logits
+    states = [c.clone() for c in caches["wkv"]]
+    lc, cc = model.forward_prefill(params, tokens[:, :WKV_SPLIT], CACHE_LEN)
+    out["chunked"], _ = model.forward_prefill(params, tokens[:, WKV_SPLIT:], CACHE_LEN,
+                                              caches=cc, start=WKV_SPLIT)
+    lengths = torch.tensor([tokens.shape[1]], device=tokens.device)
+    for step, tok in enumerate(decode_tokens):
+        out[f"decode step {step}"], caches = model.forward_decode(params, tok, caches, lengths)
+        lengths = lengths + 1
+    return out, states
+
+
+def phase_rwkv_model(dev, seed):
+    """(b) rwkv6-1.6b at full width: kernel path against plain path on the
+    same seeded weights (data-dependent decay), in float32 and in bf16.
+
+    In float32 the two paths differ by float32 rounding alone, and the
+    kernel path must be within MODEL_RTOL of the plain path (a wrong scan
+    moves logits by O(1) of the largest). In bf16 a flipped rounding of
+    one scan output grows through 24 layers and 777 tokens of recurrent
+    state: two bf16 runs whose scans differ only in the order of float32
+    sums end several percent apart. So in bf16 both paths are held against
+    the float32 plain path, and the kernel path must be no farther from it
+    than twice the bf16 plain path is (plus 0.1% of the largest |logit|);
+    their distance from each other is printed beside it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(RWKV)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = build_model(cfg, device=dev).init(gen)
+    live_decay_(params, gen)
+    nparams = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {RWKV} {cfg.dtype}: {nparams / 1e9:.3f}B params, {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, w_lora_b ~ {LORA_B_SCALE} N(0, 1); float32 copy of the "
+        "same weights")
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, PROMPT_LEN)), device=dev)
+    decode_tokens = [torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1,)), device=dev)
+                     for _ in range(DECODE_STEPS)]
+
+    def state_gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+    runs = {}
+    with torch.no_grad():
+        for name, c, p in (("bf16", cfg, params),
+                           ("f32", cfg32, tree_map(lambda t: t.float(), params))):
+            for plain in (False, True):
+                model = build_model(c, device=dev, plain_kernels=plain)
+                runs[name, plain] = rwkv_stage_logits(model, p, tokens, decode_tokens)
+            del p
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    del params
+    log(f"  wkv state after the whole prefill, max over layers of max |d| / max |S|, kernel vs "
+        f"plain: f32 {state_gap(runs['f32', False][1], runs['f32', True][1]):.3e}, bf16 "
+        f"{state_gap(runs['bf16', False][1], runs['bf16', True][1]):.3e}")
+    k32, p32 = runs["f32", False][0], runs["f32", True][0]
+    kbf, pbf = runs["bf16", False][0], runs["bf16", True][0]
+    for stage in k32:
+        want = "prefill" if stage == "chunked" else stage  # chunked against whole
+        what = (f"chunked prefill {WKV_SPLIT} + {PROMPT_LEN - WKV_SPLIT} vs whole"
+                if stage == "chunked" else f"{stage} ({PROMPT_LEN}-token prompt)")
+        compare_logits(f"f32 {what}", k32[stage], p32[want])
+        ref = p32[want].float()
+        scale = float(ref.abs().max())
+        e_k = float((kbf[stage].float() - ref).abs().max())
+        e_p = float((pbf[want].float() - ref).abs().max())
+        e_kp = float((kbf[stage].float() - pbf[want].float()).abs().max())
+        agree = bool((kbf[stage].argmax(-1) == pbf[want].argmax(-1)).all())
+        ok = e_k <= 2 * e_p + 1e-3 * scale  # (float32-level agreement always passes)
+        log(f"  bf16 {what}: kernel vs plain max_abs_err={e_kp:.4f} ({e_kp / scale:.2%} of max "
+            f"|logit|) argmax_agree={agree}; vs the f32 plain path: kernel {e_k:.4f}, plain "
+            f"{e_p:.4f} (kernel <= 2 x plain: {'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise PhaseFailed(f"model bf16 {what}: the kernel path is farther from float32 than "
+                              "twice the plain path")
+
+
+def phase_rwkv(ops, dev, seed, profile=False):
+    """Phase 5: (a) K5, (b) the full-width model, (c) four rwkv6-1.6b
+    tenants served in both modes; returns K5's kernels row."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+
+    log(" (a) K5 wkv6_scan against its plain version")
+    phase_wkv_kernel(ops, dev, seed)
+    log(f" (b) {RWKV} at full width, kernel path vs plain path")
+    phase_rwkv_model(dev, seed)
+    torch.cuda.empty_cache()
+    log(f" (c) serving {REQUESTS} requests for {R_TENANTS} {RWKV} tenants")
+    cfg = get_config(RWKV)
+    model = build_model(cfg, device=dev)
+    stacked = stacked_tenants(model, dev, seed, live_decay_)
+    prompts, lens = serve_prompts(cfg, seed)
+    launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
+    want = cfg.num_layers * REQUESTS  # one launch per layer per (unchunked) prefill
+    for mode, per in zip(("space_time", "time_only"), per_mode):
+        if per["wkv6_scan"] != want:
+            raise PhaseFailed(f"{mode}: wkv6_scan launched {per['wkv6_scan']} times, "
+                              f"not {cfg.num_layers} per prefill ({want})")
+    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {REQUESTS} prefills")
+    if profile:
+        profile_serving(model, stacked, prompts)
+    del stacked
+    torch.cuda.empty_cache()
+    log("kernels at the RWKV serving path's shapes")
+    return [measure_wkv(ops, dev, seed, int(np.median(lens)), launches["wkv6_scan"])]
+
+
 # ----------------------------------------------------------------- main
 def gpu_identity() -> str:
     out = subprocess.run(
@@ -965,11 +1273,11 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 3, profile steady decode steps of both modes; "
-                         "after phase 4, profile the scheduler's GEMM stream")
+                    help="after phases 3 and 5, profile steady decode steps of both "
+                         "modes; after phase 4, profile the scheduler's GEMM stream")
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
                          "lines (how phase 4 reports to the run that started it)")
@@ -1023,6 +1331,10 @@ def main(argv=None) -> int:
         elif 4 in phases:
             log("phase 4: the GEMM super-kernel path (K1, K2, Table 1, the scheduler)")
             rows += phase_gemm(ops, dev, args.seed, args.profile)
+        if 5 in phases:
+            torch.cuda.empty_cache()
+            log(f"phase 5: the RWKV-6 serving path ({RWKV}, K5)")
+            rows += phase_rwkv(ops, dev, args.seed, args.profile)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

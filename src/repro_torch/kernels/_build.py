@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm")
+SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +50,10 @@ SIGNATURES = {
     "grouped_gemm": (
         # x, w, block_groups, out, T, G, N, K, bm, dtype, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "wkv6_scan": (
+        # r, k, v, w, u, s0, s_out, out, B, H, T, N, V, u_rows, strides,
+        # dtype, w_f32, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,4 +1,4 @@
-"""Dispatch layer over the GEMM and attention kernels.
+"""Dispatch layer over the GEMM, attention and WKV6 kernels.
 
 Routing is by the device of the tensors, never by a fallback: a CUDA
 tensor goes to the hand-written kernel (which raises on anything it does
@@ -14,7 +14,7 @@ launches (incremented by the kernel wrapper, where it launches) and
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,12 +23,14 @@ from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.kernels import wkv6_scan as _wkv
 
 COUNTERS: Dict[str, _build.OpCounter] = {
     "decode_attention": _da.counter,
     "flash_attention": _fa.counter,
     "batched_gemm": _bg.counter,
     "grouped_gemm": _gg.counter,
+    "wkv6_scan": _wkv.counter,
 }
 
 
@@ -147,3 +149,47 @@ def decode_attention(
         return _da.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
     _check_cpu(q, "decode_attention")
     return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def wkv6_scan_plain(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+    final_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``wkv6_scan``, on any device."""
+    _wkv.counter.plain_calls += 1
+    out, state = ref.wkv6_scan(r, k, v, w, u, init_state)
+    if final_state is None:
+        return out, state
+    return out, final_state.copy_(state.view(final_state.shape))
+
+
+def wkv6_scan(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+    final_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence over a whole sequence, from ``init_state`` (zero if
+    None); returns (outputs, the state after the last step), the state
+    written into ``final_state`` when given (it may be ``init_state``).
+
+    The JAX op's ``chunk`` keyword sizes the TPU kernel's VMEM blocks (and
+    pads T to it); the CUDA kernel stages its own chunks and stops at T.
+    """
+    if r.is_cuda:
+        return _wkv.wkv6_scan(r, k, v, w, u, init_state, final_state)
+    _check_cpu(r, "wkv6_scan")
+    return wkv6_scan_plain(r, k, v, w, u, init_state, final_state)
+
+
+# The decode step is a handful of elementwise ops and one small product per
+# head; the JAX package keeps it jnp too (not a Pallas kernel).
+wkv6_step = ref.wkv6_step

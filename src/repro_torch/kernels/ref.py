@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GEMM and attention kernels.
+"""Plain PyTorch versions of the GEMM, attention and WKV6 kernels.
 
 These are the semantic ground truth the CUDA kernels are held against on
 the card, and what ``ops`` runs for tensors that lie on the CPU. They
@@ -14,7 +14,8 @@ output is cast back to the input dtype.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -170,3 +171,66 @@ def decode_attention(
         mask = live[:, None, None, None, :]  # (B,1,1,1,S)
         o = _masked_softmax_av(s, mask, v_cache.float()[:, :, None])
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _bonus_rows(u: torch.Tensor, bh: int) -> torch.Tensor:
+    """u (H, N) or (BH, N) -> float32 (BH, N): row bh is u[bh % rows]."""
+    return u.float().repeat(bh // u.shape[0], 1)
+
+
+def wkv6_scan(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV6 scan in float32.
+
+    r, k, w (..., T, N) and v (..., T, V), with leading dims (BH,) or
+    (B, H); u (H, N) or (BH, N); init_state (BH, N, V) or None (zero).
+    Per head: o_t = r_t (S + diag(u) k_t^T v_t), then S = diag(exp(-exp(w_t)))
+    S + k_t^T v_t. Returns (out (..., T, V) in r's dtype, the float32 (BH,
+    N, V) state after step T). k_t^T v_t is taken in float32 from the
+    inputs, as the JAX package's decode step and final-state scan take it.
+    """
+    lead = r.shape[:-2]
+    T, N = r.shape[-2:]
+    V = v.shape[-1]
+    bh = math.prod(lead)
+    rf = r.reshape(bh, T, N).float()
+    kf = k.reshape(bh, T, N).float()
+    vf = v.reshape(bh, T, V).float()
+    decay = torch.exp(-torch.exp(w.reshape(bh, T, N).float()))
+    uf = _bonus_rows(u, bh)[:, :, None]
+    if init_state is None:
+        state = torch.zeros((bh, N, V), dtype=torch.float32, device=r.device)
+    else:
+        state = init_state.reshape(bh, N, V).float().clone()
+    out = torch.empty((bh, T, V), dtype=torch.float32, device=r.device)
+    with _full_f32():
+        for t in range(T):
+            kv = kf[:, t, :, None] * vf[:, t, None, :]
+            out[:, t] = torch.matmul(rf[:, t, None, :], state + uf * kv)[:, 0]
+            state = decay[:, t, :, None] * state + kv
+    return out.reshape(*lead, T, V).to(r.dtype), state
+
+
+def wkv6_step(
+    state: torch.Tensor,
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of WKV6: state (BH, N, V) float32; r, k, w (BH, N);
+    v (BH, V); u (H, N) or (BH, N). Returns (new state, out (BH, V) in r's
+    dtype)."""
+    decay = torch.exp(-torch.exp(w.float()))
+    kv = k.float()[:, :, None] * v.float()[:, None, :]
+    uf = _bonus_rows(u, r.shape[0])[:, :, None]
+    with _full_f32():
+        out = torch.matmul(r.float()[:, None, :], state + uf * kv)[:, 0]
+    return decay[:, :, None] * state + kv, out.to(r.dtype)

@@ -3,10 +3,12 @@
 The JAX model stacks its layers for ``lax.scan``: every leaf of
 ``params["unit"]["pos{p}"]`` has a leading ``reps`` axis, layer
 ``r * len(unit) + p``; a remainder tail lives under ``params["rem"]``.
-The port keeps one dict per layer. Leaves are copied 1:1 (no transposes:
-both store projections ``(d_in, d_out)``). Inputs are numpy arrays, so
-the port never touches a jax array; tests pass ``jax.tree.map(np.asarray,
-tree)``.
+The port keeps one dict per layer. Leaves are copied 1:1, dtype included
+(no transposes: both store projections ``(d_in, d_out)``; an RWKV-6
+layer's float32 ``w_base`` and ``u`` stay float32). Caches go by the names
+each layer's kind has (``transformer.cache_slots``). Inputs are numpy
+arrays, so the port never touches a jax array; tests pass
+``jax.tree.map(np.asarray, tree)``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models.transformer import Caches, Params
+from repro_torch.models.transformer import Caches, Params, cache_slots, resolve_device
 
 
 def find_unit(cfg: ModelConfig) -> Tuple[List[Tuple[BlockKind, AttentionKind]], int, int]:
@@ -52,8 +54,10 @@ def _to_torch(tree: Any, device, index=None) -> Any:
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
-def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cpu") -> Params:
-    """The JAX ``Model.init`` pytree (numpy leaves) as the port's params."""
+def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -> Params:
+    """The JAX ``Model.init`` pytree (numpy leaves) as the port's params, on
+    ``device`` (the card unless the caller asks for another)."""
+    device = resolve_device(device)
     params: Params = {
         "embed": _to_torch(tree["embed"], device),
         "final_norm": _to_torch(tree["final_norm"], device),
@@ -67,32 +71,37 @@ def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cpu") 
     return params
 
 
-def caches_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cpu") -> Caches:
-    """JAX caches ``{"unit": {"pos{p}": {"k", "v"}}, "rem": ...}`` -> the
-    port's per-layer lists."""
-    out: Caches = {"k": [], "v": []}
+def caches_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -> Caches:
+    """JAX caches ``{"unit": {"pos{p}": {name: ...}}, "rem": ...}`` -> the
+    port's per-name lists, on ``device`` (the card unless the caller asks
+    for another)."""
+    device = resolve_device(device)
+    out: Caches = {}
     for group, key, rep in _layer_sources(cfg):
-        for name in ("k", "v"):
-            a = np.asarray(tree[group][key][name])
+        for name, leaf in tree[group][key].items():
+            a = np.asarray(leaf)
             if rep is not None:
                 a = a[rep]
-            out[name].append(torch.from_numpy(np.array(a)).to(device))
+            out.setdefault(name, []).append(torch.from_numpy(np.array(a)).to(device))
     return out
 
 
 def caches_to_jax_numpy(cfg: ModelConfig, caches: Caches) -> Dict[str, Any]:
     """Inverse of ``caches_from_jax_numpy``: numpy leaves in the JAX layout."""
     unit, reps, rem = find_unit(cfg)
-    tree: Dict[str, Any] = {"unit": {}, "rem": {}}
+    slots = cache_slots(cfg)
     sources = _layer_sources(cfg)
+
+    def leaf(i: int, name: str) -> np.ndarray:
+        return caches[name][slots[i][1]].detach().cpu().float().numpy()
+
+    tree: Dict[str, Any] = {"unit": {}, "rem": {}}
     for p in range(len(unit)):
         layers = [i for i, (g, k, _) in enumerate(sources) if g == "unit" and k == f"pos{p}"]
         tree["unit"][f"pos{p}"] = {
-            name: np.stack([caches[name][i].detach().cpu().float().numpy() for i in layers])
-            for name in ("k", "v")
+            name: np.stack([leaf(i, name) for i in layers]) for name in slots[layers[0]][0]
         }
     for j in range(rem):
         i = reps * len(unit) + j
-        tree["rem"][f"rem{j}"] = {name: caches[name][i].detach().cpu().float().numpy()
-                                  for name in ("k", "v")}
+        tree["rem"][f"rem{j}"] = {name: leaf(i, name) for name in slots[i][0]}
     return tree

@@ -1,4 +1,4 @@
-"""Shared primitive layers: init, RMSNorm, RoPE, gated MLP.
+"""Shared primitive layers: init, RMSNorm, per-head norm, RoPE, gated MLP.
 
 Plain functions of (params, inputs) over dicts of tensors, numerically the
 JAX package's ``repro.models.layers``: weights are stored ``(d_in, d_out)``
@@ -40,12 +40,36 @@ def embed_init_(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return truncated_normal_(out, 0.02, generator)
 
 
+def uniform_(out: torch.Tensor, low: float, high: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Fill ``out`` with U[low, high), drawn in float32 on its device."""
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    out.copy_(tmp.uniform_(low, high, generator=generator))
+    return out
+
+
+def normal_(out: torch.Tensor, scale: float, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``out`` with N(0, 1) times ``scale``, drawn in float32."""
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    out.copy_(tmp.normal_(0.0, 1.0, generator=generator).mul_(scale))
+    return out
+
+
 # --------------------------------------------------------------------------- norm
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with float32 kept only for the variance reduction."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS normalisation of x (..., H*P) in float32, cast back
+    (RWKV-6's ln_x over heads)."""
+    shape = x.shape
+    xh = x.reshape(*shape[:-1], num_heads, shape[-1] // num_heads).float()
+    out = xh * torch.rsqrt(xh.square().mean(dim=-1, keepdim=True) + eps)
+    return out.reshape(shape).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- rope

@@ -1,4 +1,6 @@
-"""Decoder-only LM assembled from a ModelConfig (attention + MLP blocks).
+"""Decoder-only LM assembled from a ModelConfig: attention + MLP blocks
+(``attn_mlp``) and RWKV-6 blocks (``rwkv6``), dispatched per layer as the
+JAX package's ``_apply_block`` does.
 
 Params are a plain dict of tensors, the JAX package's pytree with its
 ``lax.scan`` over stacked layers written out as a list, one dict per layer:
@@ -7,9 +9,13 @@ Params are a plain dict of tensors, the JAX package's pytree with its
      "layers": [{"norm1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
                  "norm2": {"scale"}, "mlp": {"up", "gate", "down"}}, ...]}
 
-Caches are ``{"k": [...], "v": [...]}``, one ``(B, Hkv, S_alloc, D)``
-tensor per layer (``(R, B, Hkv, S_alloc, D)`` for a tenant-stacked
-cohort). ``models.convert`` maps both to and from the JAX layout.
+an RWKV-6 layer's dict being ``rwkv.param_specs``' flat one. Caches map
+each cache name to one tensor per layer of the kind that has it, in layer
+order: ``{"k": [...], "v": [...]}`` of ``(B, Hkv, S_alloc, D)`` for
+attention layers, ``{"wkv", "shift_tm", "shift_cm"}`` for RWKV-6 layers
+(``rwkv`` has their shapes), with a leading tenant axis R for a
+tenant-stacked cohort. ``models.convert`` maps both to and from the JAX
+layout.
 
 Entry points:
     forward_prefill          tokens (B, S) -> (last-position logits, caches)
@@ -18,7 +24,7 @@ Entry points:
                              caches -> (logits (R, B, V), caches): the
                              space-time merged decode step; every projection
                              is one batched product across tenants and each
-                             layer's attention is one kernel launch.
+                             layer's attention (or WKV6 step) runs once.
 
 Caches are updated in place; the returned caches are the ones passed in
 (or freshly allocated, for a fresh prefill).
@@ -32,10 +38,24 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 
 Params = Dict[str, Any]
 Caches = Dict[str, List[torch.Tensor]]
+
+PORTED_BLOCKS = (BlockKind.ATTN_MLP, BlockKind.RWKV6)
+CACHE_NAMES = {BlockKind.ATTN_MLP: ("k", "v"), BlockKind.RWKV6: rwkv.CACHE_NAMES}
+
+
+def cache_slots(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """Per layer: its cache names and its index in those names' lists."""
+    seen: Dict[BlockKind, int] = {}
+    out = []
+    for kind in cfg.layer_pattern:
+        j = seen.get(kind, 0)
+        out.append((CACHE_NAMES[kind], j))
+        seen[kind] = j + 1
+    return out
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,29 +85,33 @@ def _tenant_axis(tree: Any) -> Any:
 class Model:
     """Config + device + pure apply functions (params are external).
 
-    ``plain_attention=True`` runs attention through the plain PyTorch
-    versions on any device: the opt-in used to hold the kernel path
-    against the plain path on the card.
+    ``plain_kernels=True`` runs every kernel's op (attention, the WKV6
+    scan) through its plain PyTorch version on any device: the opt-in used
+    to hold the kernel path against the plain path on the card.
     """
 
-    def __init__(self, cfg: ModelConfig, device=None, plain_attention: bool = False):
-        unsupported = sorted({k.value for k in cfg.layer_pattern} - {BlockKind.ATTN_MLP.value})
+    def __init__(self, cfg: ModelConfig, device=None, plain_kernels: bool = False):
+        unsupported = sorted({k.value for k in cfg.layer_pattern}
+                             - {k.value for k in PORTED_BLOCKS})
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {unsupported} are not ported yet "
-                "(see ROADMAP.md); only attn_mlp blocks run")
+                "(see ROADMAP.md); attn_mlp and rwkv6 blocks run")
         if cfg.num_prefix_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: modality frontends are not ported yet (see ROADMAP.md)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _torch_dtype(cfg.dtype)
-        self.plain = plain_attention
+        self.plain = plain_kernels
+        self.blocks = list(cfg.layer_pattern)
         self.kinds = [cfg.attention_kind_at(i) for i in range(cfg.num_layers)]
+        self.slots = cache_slots(cfg)
+        self.has_attention = BlockKind.ATTN_MLP in self.blocks
 
     # -------------------------------------------------------------- init
     def _param_specs(self) -> Params:
-        """Params tree with (shape, init) leaves; init in {"dense", "embed", "ones"}."""
+        """Params tree with (shape, init) or (shape, init, dtype) leaves."""
         cfg = self.cfg
         d = cfg.d_model
         spec: Params = {
@@ -96,25 +120,29 @@ class Model:
         }
         if not cfg.tie_embeddings:
             spec["lm_head"] = ((d, cfg.vocab_size), "dense")
+        spec["layers"] = [self._block_specs(kind) for kind in self.blocks]
+        return spec
+
+    def _block_specs(self, kind: BlockKind) -> Params:
+        cfg = self.cfg
+        d = cfg.d_model
+        if kind == BlockKind.RWKV6:
+            return rwkv.param_specs(cfg)
         mlp = {"up": ((d, cfg.d_ff), "dense"), "down": ((cfg.d_ff, d), "dense")}
         if cfg.mlp_gated:
             mlp["gate"] = ((d, cfg.d_ff), "dense")
         attn = {k: (s, "zeros" if k.startswith("b") else "dense")
                 for k, s in attention.attn_param_shapes(cfg).items()}
-        spec["layers"] = [
-            {"norm1": {"scale": ((d,), "ones")}, "attn": dict(attn),
-             "norm2": {"scale": ((d,), "ones")}, "mlp": dict(mlp)}
-            for _ in range(cfg.num_layers)
-        ]
-        return spec
+        return {"norm1": {"scale": ((d,), "ones")}, "attn": attn,
+                "norm2": {"scale": ((d,), "ones")}, "mlp": mlp}
 
     def _alloc(self, spec: Any, lead: Tuple[int, ...]) -> Any:
         if isinstance(spec, dict):
             return {k: self._alloc(v, lead) for k, v in spec.items()}
         if isinstance(spec, list):
             return [self._alloc(v, lead) for v in spec]
-        shape, _ = spec
-        return torch.empty(lead + shape, dtype=self.dtype, device=self.device)
+        shape, dtype = spec[0], (spec[2] if len(spec) > 2 else self.dtype)
+        return torch.empty(lead + shape, dtype=dtype, device=self.device)
 
     def _fill(self, spec: Any, out: Any, index: Tuple, gen: torch.Generator) -> None:
         if isinstance(spec, dict):
@@ -125,7 +153,7 @@ class Model:
             for s, o in zip(spec, out):
                 self._fill(s, o, index, gen)
             return
-        _, kind = spec
+        kind = spec[1]
         target = out[index] if index else out
         if kind == "dense":
             layers.dense_init_(target, gen)
@@ -133,6 +161,12 @@ class Model:
             layers.embed_init_(target, gen)
         elif kind == "ones":
             target.fill_(1.0)
+        elif kind == "mix":  # RWKV token-shift mix: uniform in [0.25, 0.75)
+            layers.uniform_(target, 0.25, 0.75, gen)
+        elif kind == "decay_base":  # RWKV decay logit base
+            target.fill_(-4.0)
+        elif kind == "bonus":  # RWKV per-head bonus u
+            layers.normal_(target, 0.1, gen)
         else:
             target.zero_()
 
@@ -158,18 +192,29 @@ class Model:
     # -------------------------------------------------------------- caches
     def init_caches(self, batch: int, seq_len: int, tenants: Optional[int] = None,
                     dtype: Optional[torch.dtype] = None) -> Caches:
-        """Zeroed caches, one (B, Hkv, S_alloc, D) tensor per layer, with a
-        leading tenant axis when ``tenants`` is given."""
+        """Zeroed caches per layer, by kind (see the module docstring),
+        with a leading tenant axis when ``tenants`` is given. ``dtype``
+        overrides the model dtype of the attention and token-shift caches;
+        the WKV state stays float32."""
         cfg = self.cfg
         lead = (batch,) if tenants is None else (tenants, batch)
         dtype = dtype or self.dtype
-        out: Caches = {"k": [], "v": []}
-        for kind in self.kinds:
-            s = attention.cache_alloc_len(cfg, kind, seq_len)
-            shape = lead + (cfg.num_kv_heads, s, cfg.head_dim)
-            for name in ("k", "v"):
-                out[name].append(torch.zeros(shape, dtype=dtype, device=self.device))
+        out: Caches = {}
+        for block, kind in zip(self.blocks, self.kinds):
+            if block == BlockKind.RWKV6:
+                specs = rwkv.cache_specs(cfg)
+            else:
+                s = attention.cache_alloc_len(cfg, kind, seq_len)
+                shape = (cfg.num_kv_heads, s, cfg.head_dim)
+                specs = {"k": (shape, None), "v": (shape, None)}
+            for name, (shape, dt) in specs.items():
+                out.setdefault(name, []).append(
+                    torch.zeros(lead + shape, dtype=dt or dtype, device=self.device))
         return out
+
+    def _layer_cache(self, caches: Caches, i: int) -> Dict[str, torch.Tensor]:
+        names, j = self.slots[i]
+        return {name: caches[name][j] for name in names}
 
     # -------------------------------------------------------------- pieces
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -210,16 +255,23 @@ class Model:
         if fresh:
             caches = self.init_caches(B, cache_len)
         start = 0 if start is None else int(start)
-        rope = layers.rope_tables(torch.arange(start, start + S, device=tokens.device),
-                                  cfg.head_dim, cfg.rope_theta)
-        for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
+        rope = None
+        if self.has_attention:
+            rope = layers.rope_tables(torch.arange(start, start + S, device=tokens.device),
+                                      cfg.head_dim, cfg.rope_theta)
+        for i, lp in enumerate(params["layers"]):
+            c = self._layer_cache(caches, i)
+            if self.blocks[i] == BlockKind.RWKV6:
+                # honours the incoming state: fresh or a continuation alike
+                x = rwkv.rwkv_prefill(lp, x, cfg, c, self.plain)
+                continue
             h = layers.rmsnorm(lp["norm1"]["scale"], x, cfg.norm_eps)
-            ck, cv = caches["k"][i], caches["v"][i]
             if fresh:
-                a = attention.attn_prefill(lp["attn"], h, cfg, kind, ck, cv, rope, self.plain)
+                a = attention.attn_prefill(lp["attn"], h, cfg, self.kinds[i], c["k"], c["v"],
+                                           rope, self.plain)
             else:
                 a = attention.attn_prefill_continue(
-                    lp["attn"], h, cfg, kind, ck, cv, start, rope, self.plain)
+                    lp["attn"], h, cfg, self.kinds[i], c["k"], c["v"], start, rope, self.plain)
             x = x + a
             h = layers.rmsnorm(lp["norm2"]["scale"], x, cfg.norm_eps)
             x = x + layers.mlp(lp["mlp"], h, cfg.mlp_gated)
@@ -236,18 +288,24 @@ class Model:
         """One merged decode step for R tenants x B slots.
 
         params: tenant-stacked (every leaf has a leading R axis); tokens and
-        lengths (R, B); caches per layer (R, B, Hkv, S_alloc, D). Returns
+        lengths (R, B); caches per layer with a leading (R, B). Returns
         (logits (R, B, V), caches).
         """
         cfg = self.cfg
         R = tokens.shape[0]
         tenant = torch.arange(R, device=tokens.device)[:, None]
         x = self._embed_scale(params["embed"][tenant, tokens])  # (R, B, d)
-        rope = layers.rope_tables(lengths.reshape(-1, 1), cfg.head_dim, cfg.rope_theta)
+        rope = None
+        if self.has_attention:
+            rope = layers.rope_tables(lengths.reshape(-1, 1), cfg.head_dim, cfg.rope_theta)
         for i, lp in enumerate(params["layers"]):
+            c = self._layer_cache(caches, i)
+            if self.blocks[i] == BlockKind.RWKV6:
+                x = rwkv.rwkv_decode(lp, x, cfg, c)
+                continue
             h = layers.rmsnorm(lp["norm1"]["scale"][:, None, :], x, cfg.norm_eps)
             x = x + attention.attn_decode(
-                lp["attn"], h, cfg, caches["k"][i], caches["v"][i], lengths, rope, self.plain)
+                lp["attn"], h, cfg, c["k"], c["v"], lengths, rope, self.plain)
             h = layers.rmsnorm(lp["norm2"]["scale"][:, None, :], x, cfg.norm_eps)
             x = x + layers.mlp(lp["mlp"], h, cfg.mlp_gated)
         return self._logits(params, x), caches
@@ -265,5 +323,5 @@ class Model:
         return logits[0], caches
 
 
-def build_model(cfg: ModelConfig, device=None, plain_attention: bool = False) -> Model:
-    return Model(cfg, device=device, plain_attention=plain_attention)
+def build_model(cfg: ModelConfig, device=None, plain_kernels: bool = False) -> Model:
+    return Model(cfg, device=device, plain_kernels=plain_kernels)

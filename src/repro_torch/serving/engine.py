@@ -4,8 +4,11 @@ R tenants of the same architecture (different weights) are served from
 ONE set of tenant-stacked weights and caches. In ``space_time`` mode every
 tenant's decode cohort runs as one merged step
 (``Model.forward_decode_tenants``): each projection is one batched product
-across tenants and each layer's attention one decode-kernel launch over
-all R x B sequences -- the paper's mechanism applied to whole models.
+across tenants and each layer's attention one decode-kernel launch (an
+RWKV-6 layer's recurrence one step) over all R x B sequences -- the
+paper's mechanism applied to whole models. A recurrent (RWKV-6) prefill
+writes its final state into the request's slot, and a fresh prefill
+overwrites whatever state the slot's last request left.
 
 All work flows through the shared ``DynamicSpaceTimeScheduler``: each
 admitted prefill and each tenant's decode step is submitted as a generic
@@ -51,7 +54,8 @@ class EngineConfig:
     cache_len: int = 256
     mode: str = "space_time"        # "space_time" | "time_only"
     # >0: prefill prompts in fixed-size chunks (the flash kernel takes the
-    # chunk's start position at run time). Requires a non-sliding-window
+    # chunk's start position at run time; the WKV6 scan starts from the
+    # state the previous chunk left). Requires a non-sliding-window
     # architecture (chunked continuation needs linear caches).
     prefill_chunk: int = 0
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
@@ -187,8 +191,8 @@ class MultiTenantEngine:
             req.generated.append(tok)
             req.first_token_time = time.perf_counter()
             req.prefill_time = req.first_token_time
-            for name in ("k", "v"):
-                for big, small in zip(self.caches[name], cache[name]):
+            for name, layers in cache.items():  # every cache the model keeps
+                for big, small in zip(self.caches[name], layers):
                     big[t, s].copy_(small[0])
             self.slots.set_length(t, s, tokens.shape[1])
             self.last_token[t, s] = tok
@@ -247,7 +251,7 @@ class MultiTenantEngine:
         outs = []
         for wl in batch:
             t = wl.payload
-            caches_t = {name: [c[t] for c in self.caches[name]] for name in ("k", "v")}
+            caches_t = {name: [c[t] for c in layers] for name, layers in self.caches.items()}
             lg, _ = self.model.forward_decode(
                 tenant_view(self.stacked_params, t), self._to_device(self.last_token[t]),
                 caches_t, self._to_device(np.asarray(self.slots.lengths(t), np.int64)))

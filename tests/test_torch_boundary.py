@@ -94,6 +94,16 @@ def test_smoke_variant_equals_the_jax_package():
     assert _plain(got) == _plain(want)
 
 
+def test_rwkv_config_and_smoke_variant_equal_the_jax_package():
+    want = jconfig.get_config("rwkv6-1.6b")
+    got = tconfig.get_config("rwkv6-1.6b")
+    assert _plain(got) == _plain(want)
+    assert (got.num_layers, got.d_model, got.d_ff, got.vocab_size, got.ssm.head_dim,
+            got.source) == (24, 2048, 7168, 65536, 64, "arXiv:2404.05892")
+    assert got.param_count() == want.param_count()
+    assert _plain(tconfig.smoke_variant(got)) == _plain(jconfig.smoke_variant(want))
+
+
 def test_schedule_config_equals_the_jax_package():
     assert _plain(tconfig.ScheduleConfig()) == _plain(jconfig.ScheduleConfig())
     kw = dict(batching_policy="edf", preemption=True, admission_policy="feasibility",
@@ -102,7 +112,10 @@ def test_schedule_config_equals_the_jax_package():
 
 
 def test_registry_lists_only_ported_archs():
-    assert tconfig.list_configs() == ["stablelm-1.6b"]
+    from repro_torch.configs import PORTED_ARCHS
+
+    assert tconfig.list_configs() == ["rwkv6-1.6b", "stablelm-1.6b"]
+    assert sorted(PORTED_ARCHS) == tconfig.list_configs()
     with pytest.raises(KeyError, match="unknown arch"):
         tconfig.get_config("gemma3-27b")
 

@@ -21,7 +21,7 @@ from repro.config import get_config as jget_config  # noqa: E402
 from repro.config import smoke_variant as jsmoke  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
 
-from repro_torch.config import AttentionKind, get_config, smoke_variant  # noqa: E402
+from repro_torch.config import AttentionKind, BlockKind, get_config, smoke_variant  # noqa: E402
 from repro_torch.core.tenancy import tenant_view  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -45,7 +45,7 @@ def _pair(sliding_window=0, **overrides):
     jm = jbuild_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tcfg, device="cpu")
-    tp = params_from_jax_numpy(tcfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     return tcfg, jm, jp, tm, tp
 
 
@@ -96,7 +96,7 @@ def test_config_branches_match_jax():
     rng = np.random.RandomState(5)
     jp = jax.tree.map(lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
                       if a.ndim == 1 else a, jp)  # non-zero biases and norm scales
-    tp = params_from_jax_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     assert "lm_head" not in tp and "bq" in tp["layers"][0]["attn"]
     toks = rng.randint(1, cfg.vocab_size, size=(2, 9)).astype(np.int32)
     jl, jc = jm.forward_prefill(jp, jnp.asarray(toks), cache_len=CACHE_LEN)
@@ -110,7 +110,7 @@ def test_caches_convert_both_ways():
     toks = np.arange(1, 8, dtype=np.int32)[None, :]
     _, jc = jm.forward_prefill(jp, jnp.asarray(toks), cache_len=16)
     tree = jax.tree.map(np.asarray, jc)
-    tc = caches_from_jax_numpy(cfg, tree)
+    tc = caches_from_jax_numpy(cfg, tree, device="cpu")
     assert len(tc["k"]) == cfg.num_layers and tc["k"][0].shape == (1, 4, 16, 64)
     back = caches_to_jax_numpy(cfg, tc)
     np.testing.assert_array_equal(back["unit"]["pos0"]["k"], tree["unit"]["pos0"]["k"])
@@ -185,8 +185,8 @@ def test_init_stacked_slices_equal_init_and_match_jax_scales():
 
 
 def test_unported_block_kinds_raise():
-    cfg = dataclasses.replace(smoke_variant(get_config("stablelm-1.6b")), family="ssm",
-                              attention_kind=AttentionKind.NONE)
+    cfg = dataclasses.replace(smoke_variant(get_config("stablelm-1.6b")), family="hybrid",
+                              block_pattern=(BlockKind.MAMBA2, BlockKind.ATTN_MLP))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg, device="cpu")
 

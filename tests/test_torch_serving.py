@@ -4,7 +4,10 @@ Three stablelm smoke tenants (float32, weights converted from the JAX
 init), two slots each, nine requests of one prompt length (so JAX compiles
 once): greedy tokens must be identical per request, in both space_time and
 time_only mode. Greedy is an argmax over logits that agree to float32
-rounding, so exact equality is the right check.
+rounding, so exact equality is the right check. The same holds for three
+rwkv6-1.6b smoke tenants (recurrent caches: wkv state and token shifts),
+with a data-dependent decay (``w_lora_b`` made non-zero in both), whole and
+with chunked prefill.
 """
 
 import numpy as np
@@ -39,6 +42,40 @@ from repro_torch.serving.sampling import apply_top_k, apply_top_p  # noqa: E402
 R, SLOTS, CACHE_LEN, PROMPT_LEN, NEW = 3, 2, 32, 6, 5
 
 
+def _with_live_decay(tree, seed):
+    """JAX params (numpy leaves) with a random w_lora_b in every RWKV layer."""
+    rng = np.random.RandomState(seed)
+
+    def fix(path, a):
+        if getattr(path[-1], "key", None) == "w_lora_b":
+            return (rng.standard_normal(a.shape) * 0.1).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(fix, tree)
+
+
+@pytest.fixture(scope="module")
+def rwkv_tenants():
+    jcfg = jsmoke(jget_config("rwkv6-1.6b"))
+    cfg = smoke_variant(get_config("rwkv6-1.6b"))
+    jm = jbuild_model(jcfg)
+    key = jax.random.PRNGKey(1)
+    trees = [_with_live_decay(jax.tree.map(np.asarray, jm.init(jax.random.fold_in(key, t))), t)
+             for t in range(R)]
+    jparams = [jax.tree.map(jnp.asarray, t) for t in trees]
+    tparams = [params_from_jax_numpy(cfg, t, device="cpu") for t in trees]
+    return cfg, jm, jparams, build_model(cfg, device="cpu"), tparams
+
+
+def _serve_jax(jm, jparams, prompts, **cfg):
+    jeng = JEngine(jm, jparams, JEngineConfig(
+        num_tenants=R, slots_per_tenant=SLOTS, cache_len=CACHE_LEN, **cfg))
+    for t, p in prompts:
+        jeng.submit(JRequest(tenant_id=t, prompt=p, max_new_tokens=NEW))
+    jeng.run_until_drained()
+    return jeng
+
+
 @pytest.fixture(scope="module")
 def tenants():
     jcfg = jsmoke(jget_config("stablelm-1.6b"))
@@ -46,7 +83,8 @@ def tenants():
     jm = jbuild_model(jcfg)
     key = jax.random.PRNGKey(0)
     jparams = [jm.init(jax.random.fold_in(key, t)) for t in range(R)]
-    tparams = [params_from_jax_numpy(cfg, jax.tree.map(np.asarray, p)) for p in jparams]
+    tparams = [params_from_jax_numpy(cfg, jax.tree.map(np.asarray, p), device="cpu")
+               for p in jparams]
     return cfg, jm, jparams, build_model(cfg, device="cpu"), tparams
 
 
@@ -89,6 +127,36 @@ def test_greedy_tokens_match_jax_engine(tenants, mode):
     # on the CPU every attention call took the plain version
     assert ops.COUNTERS["decode_attention"].plain_calls > 0
     assert ops.COUNTERS["flash_attention"].plain_calls == 9 * cfg.num_layers  # one per prefill layer
+
+
+@pytest.mark.parametrize("mode", ["space_time", "time_only"])
+def test_rwkv_greedy_tokens_match_jax_engine(rwkv_tenants, mode):
+    """Each prefill is one WKV6 scan per layer (its plain version on the
+    CPU), from a zero state in a recycled slot too (9 requests, 6 slots)."""
+    cfg, jm, jparams, model, tparams = rwkv_tenants
+    prompts = _prompts(10)
+    jeng = _serve_jax(jm, jparams, prompts, mode=mode)
+    ops.reset_counters()
+    eng = _serve_port(model, tparams, prompts, mode=mode)
+    assert len(eng.finished) == 9
+    assert _tokens(eng) == _tokens(jeng)
+    assert eng.report()["scheduler_dispatches"] == jeng.report()["scheduler_dispatches"]
+    assert eng.steps == jeng.steps
+    assert ops.COUNTERS["wkv6_scan"].plain_calls == 9 * cfg.num_layers
+    assert all(c.launches == 0 for c in ops.COUNTERS.values())
+    assert sorted(eng.caches) == ["shift_cm", "shift_tm", "wkv"]
+
+
+def test_rwkv_chunked_prefill_engine_matches_jax(rwkv_tenants):
+    """Prompts of 6 prefilled in chunks of 4 (4 + 2, the second chunk's
+    scan starting from the first's state) give the JAX engine's tokens."""
+    cfg, jm, jparams, model, tparams = rwkv_tenants
+    prompts = _prompts(11, n=6)
+    jeng = _serve_jax(jm, jparams, prompts)
+    ops.reset_counters()
+    chunked = _serve_port(model, tparams, prompts, prefill_chunk=4)
+    assert _tokens(chunked) == _tokens(jeng)
+    assert ops.COUNTERS["wkv6_scan"].plain_calls == 2 * 6 * cfg.num_layers
 
 
 def test_space_time_merges_decode_time_only_does_not(tenants):
