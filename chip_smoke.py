@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 1      # kernels against plain versions only
     python3 chip_smoke.py --phases 3 --profile   # + where a decode step's time goes
     python3 chip_smoke.py --phases 4      # the GEMM super-kernel path only
-    python3 chip_smoke.py --phases 4 --profile   # + where a GEMM dispatch's time goes
+    python3 chip_smoke.py --phases 4 --profile   # + where a GEMM dispatch's time goes (K1, K2)
     python3 chip_smoke.py --phases 5      # the RWKV-6 serving path only
     python3 chip_smoke.py --phases 5 --profile   # + where an RWKV decode step's time goes
 
@@ -13,9 +13,10 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
 
   1. holds every kernel against its plain PyTorch version on the card, in
-     float32 and bfloat16, at the shapes of the serving path, and times the
-     kernel, the plain version and ``scaled_dot_product_attention`` (the
-     library yardstick, which the port never calls);
+     float32 and bfloat16, at the shapes of the serving path and at the
+     edges of K4's tiles, and times the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the library yardstick, which the
+     port never calls);
   2. builds stablelm-1.6b at full width (bf16, seeded random weights) and
      compares the kernel path's logits with the plain path's over a
      777-token prefill and 8 decode steps;
@@ -43,6 +44,16 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      plain path; (c) serves 16 requests for four rwkv6-1.6b tenants (bf16)
      in ``space_time`` and ``time_only`` mode, with K5's launch counter
      read around the run and required at 24 per prefill.
+
+K2 and K4 each have two kernels, picked by dtype and shape before the
+launch (``grouped_gemm.variant``, ``flash_attention.variant``): wgmma with
+TMA for bf16, the CUDA-core kernel otherwise. Every bf16 case above goes
+through the wgmma kernel; phase 3 fails unless every K4 launch on the
+serving path took it, and phase 4c unless every K2 launch of scheduler run
+2 did. The K2 and K4 rows of the ``kernels`` line carry the ``variant`` and
+``prior_ms``, the CUDA-core kernel's time at the same inputs, launched
+explicitly. The build prints ptxas's report for every kernel and the
+dynamic shared memory of the two wgmma kernels.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -189,31 +200,56 @@ def sdpa_decode(q, kc, vc, lengths):
 
 
 # ----------------------------------------------------------------- phase 1
-def measure_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window, q_offset=None,
-                  iters=20):
+def check_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window, q_offset=None,
+                causal=True):
+    """K4 against its plain version on one case; returns (inputs, keywords,
+    max error)."""
     import torch
+
+    from repro_torch.kernels import flash_attention as fa
 
     q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
     qo = Skv - Sq if q_offset is None else q_offset
-    kw = dict(causal=True, window=window, q_offset=qo)
+    kw = dict(causal=causal, window=window, q_offset=qo)
     got = ops.flash_attention(q, k, v, **kw)
     want = ops.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    name = f"flash_attention {str(dtype)[6:]} {(B, Hq, Hkv, Sq, Skv, D)} window={window} q_offset={qo}"
-    err = check_close(name, got, want, str(dtype))
-    nbytes, flops = flash_work(B, Hq, Hkv, Sq, Skv, D, True, window, qo, str(dtype))
+    name = (f"flash_attention {str(dtype)[6:]} {(B, Hq, Hkv, Sq, Skv, D)} window={window} "
+            f"q_offset={qo}{'' if causal else ' non-causal'} [{fa.variant(dtype, D)}]")
+    return (q, k, v), kw, check_close(name, got, want, str(dtype))
+
+
+def measure_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window, q_offset=None,
+                  iters=20, prior=False):
+    """K4 checked and timed beside its plain version and SDPA; with
+    ``prior``, the CUDA-core variant too (checked, then timed as
+    ``prior_ms``), launched explicitly on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), kw, err = check_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window,
+                                     q_offset)
+    nbytes, flops = flash_work(B, Hq, Hkv, Sq, Skv, D, True, window, kw["q_offset"], str(dtype))
     bound_ms, bound_by = bound(nbytes, flops, str(dtype))
     row = {
+        "variant": fa.variant(dtype, D),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters),
         "plain_ms": time_ms(lambda: ops.flash_attention_plain(q, k, v, **kw), 3, 1),
-        "library_ms": time_ms(sdpa_flash(q, k, v, True, window, qo), iters),
+        "library_ms": time_ms(sdpa_flash(q, k, v, True, window, kw["q_offset"]), iters),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if prior:
+        check_close("  its CUDA-core variant", fa.flash_attention(q, k, v, kernel="cuda_core", **kw),
+                    ops.flash_attention_plain(q, k, v, **kw), str(dtype))
+        row["prior_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, kernel="cuda_core", **kw),
+                                  iters)
     log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + (f" prior_ms={row['prior_ms']:.4f} (CUDA cores)" if prior else ""))
     return row
 
 
@@ -267,6 +303,17 @@ def phase_kernels(ops, dev, seed):
                 measure_flash(ops, dev, gen, dtype, 2, 4 * g, 4, 300, 300, D, 64, iters=3)
                 measure_decode(ops, dev, gen, dtype, 4, 4 * g, 4, 600, D, [0, 1, 333, 600],
                                iters=3)
+        # edges of the 64-row, 64-key tiles: lengths off the tile, fewer keys
+        # than a tile, one query, runtime offsets with a window, GQA 7,
+        # queries placed before every key, and no causal mask
+        for D in (64, 128):
+            check_flash(ops, dev, gen, dtype, 1, 4, 4, 40, 40, D, 0)
+            check_flash(ops, dev, gen, dtype, 2, 8, 4, 100, 300, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 8, 2, 100, 300, D, 48, q_offset=150)
+            check_flash(ops, dev, gen, dtype, 1, 28, 4, 300, 300, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 8, 8, 1, 777, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
+            check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -391,6 +438,11 @@ def phase_serving(dev, seed, ops, profile=False):
     stacked = stacked_tenants(model, dev, seed)
     prompts, lens = serve_prompts(cfg, seed)
     launches, _ = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
+    by_variant = dict(ops.COUNTERS["flash_attention"].variants)
+    log(f"  flash_attention launches by variant on the serving path: {by_variant}")
+    if by_variant.get("wgmma", 0) != launches["flash_attention"]:
+        raise PhaseFailed(f"flash_attention: {launches['flash_attention']} launches on the "
+                          f"serving path, not all wgmma: {by_variant}")
     if profile:
         profile_serving(model, stacked, prompts)
     return launches, lens
@@ -505,7 +557,7 @@ def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches):
     s_med = int(np.median(prompt_lens))
     log(f"  flash_attention at a median prefill: {s_med} tokens")
     fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, n_heads, n_heads, s_med, s_med,
-                       head_dim, 0)
+                       head_dim, 0, prior=True)
     rows = []
     for name, row in (("decode_attention", dec), ("flash_attention", fl)):
         rows.append({"name": name, "route": "cuda",
@@ -604,16 +656,28 @@ def measure_batched(ops, x, w, err, iters=20):
 
 
 def measure_grouped(ops, x, w, bg, bm, err, iters=10):
+    """K2 timed beside its plain version and torch.bmm, then its CUDA-core
+    variant (checked, then timed as ``prior_ms``), launched explicitly on
+    the same inputs."""
     import torch
+
+    from repro_torch.kernels import grouped_gemm as gg
 
     T, K = x.shape
     wg = w[torch.as_tensor(bg, device=w.device).long()]  # gathered outside the timing
     xb = x.view(T // bm, bm, K)
     used = len(np.unique(bg))  # w counts once per group the blocks use
-    return timed_row(err, lambda: ops.grouped_gemm(x, w, bg, bm=bm),
-                     lambda: ops.grouped_gemm_plain(x, w, bg, bm=bm),
-                     lambda: torch.bmm(xb, wg), gemm_work(T, K, w.shape[2], used, x.dtype),
-                     x.dtype, iters)
+    row = {"variant": gg.variant(x.dtype, K, w.shape[2])}
+    row.update(timed_row(err, lambda: ops.grouped_gemm(x, w, bg, bm=bm),
+                         lambda: ops.grouped_gemm_plain(x, w, bg, bm=bm),
+                         lambda: torch.bmm(xb, wg), gemm_work(T, K, w.shape[2], used, x.dtype),
+                         x.dtype, iters))
+    check_close("  its CUDA-core variant", gg.grouped_gemm(x, w, bg, bm, kernel="cuda_core"),
+                ops.grouped_gemm_plain(x, w, bg, bm=bm), str(x.dtype), grouped_tol(x.dtype))
+    row["prior_ms"] = time_ms(lambda: gg.grouped_gemm(x, w, bg, bm, kernel="cuda_core"), iters)
+    log(f"    prior_ms={row['prior_ms']:.4f} (CUDA cores) prior/kernel="
+        f"{row['prior_ms'] / row['ms']:.2f}")
+    return row
 
 
 def check_batched(ops, gen, dev, dtype, R, M, K, N):
@@ -645,10 +709,13 @@ def group_inputs(gen, dev, dtype, sizes, bm, K, N):
 def check_grouped(ops, name, dtype, x, w, bg, bm):
     import torch
 
+    from repro_torch.kernels import grouped_gemm as gg
+
     got = ops.grouped_gemm(x, w, bg, bm=bm)
     want = ops.grouped_gemm_plain(x, w, bg, bm=bm)
     torch.cuda.synchronize()
-    return check_close(name, got, want, str(dtype), grouped_tol(dtype))
+    kind = gg.variant(dtype, x.shape[1], w.shape[2])
+    return check_close(f"{name} [{kind}]", got, want, str(dtype), grouped_tol(dtype))
 
 
 def phase_gemm_kernels(ops, dev, seed):
@@ -681,11 +748,24 @@ def phase_gemm_kernels(ops, dev, seed):
             f"after changing x[2]: {same}")
         if same != [True, True, False, True]:
             raise PhaseFailed("batched_gemm: a problem's output depends on another's data")
+        tag = str(dtype)[6:]
+        # bm against the 64-row (CUDA cores) and 128-row (wgmma) tiles: 96 is
+        # 1.5 of the one, 256 two of the other; K 48 and N 40 are tails
+        # inside one 64-deep stage and one 128-wide tile
         for sizes in GROUP_SIZES:
-            for bm in (32, 96):  # 96: a row block of 1.5 of the kernel's 64-row tiles
+            for bm in (32, 96, 128, 256):
                 x, w, bg = group_inputs(gen, dev, dtype, sizes, bm, 48, 40)
-                check_grouped(ops, f"grouped_gemm {str(dtype)[6:]} sizes={sizes} bm={bm}",
+                check_grouped(ops, f"grouped_gemm {tag} sizes={sizes} bm={bm}",
                               dtype, x, w, bg, bm)
+        # K and N tails at full width: K 2056 = 32 stages + 8, N 5640 = 44
+        # tiles + 8 columns; and an N that only the CUDA-core kernel takes
+        for sizes, bm, K, N in (([300, 17, 130], 128, 2056, 5640), ([100, 5, 0, 260], 96, 2056, 40),
+                                ([100, 5, 0, 260], 96, 48, 5640), ([100, 5, 0, 260], 32, 72, 33)):
+            x, w, bg = group_inputs(gen, dev, dtype, sizes, bm, K, N)
+            check_grouped(ops, f"grouped_gemm {tag} sizes={sizes} bm={bm} K={K} N={N}",
+                          dtype, x, w, bg, bm)
+        # a tail of zero blocks and zero weights, as SuperKernelCache.ragged_layout pads them
+        check_ragged_tail(ops, gen, dev, dtype, [300, 17, 5], 256, 136)
         x, w, bg = group_inputs(gen, dev, dtype, ragged_sizes, 128, RAGGED_K, RAGGED_N)
         check_grouped(ops, f"grouped_gemm {str(dtype)[6:]} sizes={ragged_sizes} bm=128 "
                       f"K={RAGGED_K} N={RAGGED_N}", dtype, x, w, bg, 128)
@@ -698,6 +778,32 @@ def phase_gemm_kernels(ops, dev, seed):
                     str(dtype), grouped_tol(dtype))
         if not torch.equal(out[25:], torch.zeros_like(out[25:])):
             raise PhaseFailed("grouped_gemm: padded rows are not zero")
+
+
+def check_ragged_tail(ops, gen, dev, dtype, sizes, K, N):
+    """K2 on the layout ``execute_ragged`` builds for ``sizes``: rows packed
+    at their offsets, padded to a pow2 bucket of row blocks (group 0, zero
+    rows) and a pow2 bucket of groups (zero weights). The tail rows must be
+    0."""
+    import torch
+
+    from repro_torch.config import ScheduleConfig
+    from repro_torch.core import SuperKernelCache
+    from repro_torch.core.superkernel import RAGGED_BM
+
+    offs, T, bg, G = SuperKernelCache(ScheduleConfig()).ragged_layout(sizes)
+    x = torch.zeros((T, K), device=dev)
+    for o, m in zip(offs, sizes):
+        x[int(o):int(o) + m] = torch.randn((m, K), generator=gen, device=dev)
+    w = torch.zeros((G, K, N), device=dev)
+    w[: len(sizes)] = torch.randn((len(sizes), K, N), generator=gen, device=dev)
+    x, w = x.to(dtype), w.to(dtype)
+    check_grouped(ops, f"grouped_gemm {str(dtype)[6:]} ragged_layout({sizes}): T={T}, "
+                  f"{len(bg)} blocks, G={G}", dtype, x, w, bg, RAGGED_BM)
+    out = ops.grouped_gemm(x, w, bg, bm=RAGGED_BM)
+    tail = int(offs[-1])
+    if not torch.equal(out[tail:], torch.zeros_like(out[tail:])):
+        raise PhaseFailed("grouped_gemm: rows of the padded tail blocks are not zero")
 
 
 def phase_table1(ops, dev, seed):
@@ -770,7 +876,7 @@ def run_gemm_stream(ops, sched, ticks, make_problem):
         time.sleep(0.0002)
     done.extend(sched.flush())
     torch.cuda.synchronize()
-    counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTERS.items()}
+    counts = {k: (c.launches, c.plain_calls, dict(c.variants)) for k, c in ops.COUNTERS.items()}
     return done, counts
 
 
@@ -825,12 +931,28 @@ def ablation_stream(dev, seed):
     return ticks, lambda s: GemmProblem(tenant_id=s[0], x=xs[s[1]], w=ws[s[0]])
 
 
+def ragged_stream(dev, seed):
+    """Run 2's stream: ``ragged_trace``'s arrivals of stablelm-1.6b MLP
+    GEMMs (bf16) from 4 tenants. Returns (ticks, spec -> GemmProblem)."""
+    import torch
+
+    from repro_torch.core import GemmProblem
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    wr = [torch.randn((RAGGED_K, RAGGED_N), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(RAGGED_TENANTS)]
+    return ragged_trace(seed), lambda s: GemmProblem(
+        tenant_id=s[0], w=wr[s[0]],
+        x=torch.randn((s[1], RAGGED_K), generator=gen, device=dev).to(torch.bfloat16))
+
+
 def phase_gemm_scheduler(ops, dev, seed):
     """(c) DynamicSpaceTimeScheduler on two stochastic GEMM streams."""
     import torch
 
     from repro_torch.config import ScheduleConfig
-    from repro_torch.core import DynamicSpaceTimeScheduler, GemmProblem
+    from repro_torch.core import DynamicSpaceTimeScheduler
 
     # run 1: the ablation trace
     ticks, make_problem = ablation_stream(dev, seed)
@@ -847,20 +969,13 @@ def phase_gemm_scheduler(ops, dev, seed):
     del done, sched
 
     # run 2: ragged merge at stablelm-1.6b's MLP width, bf16
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 7)
-    wr = [torch.randn((RAGGED_K, RAGGED_N), generator=gen, device=dev).to(torch.bfloat16)
-          for _ in range(RAGGED_TENANTS)]
-    ticks = ragged_trace(seed)
+    ticks, make_problem = ragged_stream(dev, seed)
     layouts = []
     sched = DynamicSpaceTimeScheduler(
         ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64,
                        allow_ragged_merge=True),
         on_dispatch=lambda batch, dt, rid: layouts.append([p.x.shape[0] for p in batch]))
-    done, counts2 = run_gemm_stream(
-        ops, sched, ticks, lambda s: GemmProblem(
-            tenant_id=s[0], w=wr[s[0]],
-            x=torch.randn((s[1], RAGGED_K), generator=gen, device=dev).to(torch.bfloat16)))
+    done, counts2 = run_gemm_stream(ops, sched, ticks, make_problem)
     report_stream(f"run 2: {RAGGED_TENANTS} tenants ragged K={RAGGED_K} N={RAGGED_N} bf16",
                   sched, done, sum(map(len, ticks)), counts2,
                   lambda p: gemm_tol(torch.bfloat16, RAGGED_K))
@@ -870,6 +985,10 @@ def phase_gemm_scheduler(ops, dev, seed):
         raise PhaseFailed("run 1 never launched batched_gemm")
     if counts2["grouped_gemm"][0] <= 0:
         raise PhaseFailed("run 2 never launched grouped_gemm")
+    by_variant = counts2["grouped_gemm"][2]
+    log(f"    run 2 grouped_gemm launches by variant: {by_variant}")
+    if by_variant.get("wgmma", 0) != counts2["grouped_gemm"][0]:
+        raise PhaseFailed(f"run 2: grouped_gemm launches not all wgmma: {by_variant}")
     launches = {k: counts1[k][0] + counts2[k][0] for k in GEMM_REPLACES}
     plain = {k: counts1[k][1] + counts2[k][1] for k in GEMM_REPLACES}
     if any(plain.values()):
@@ -921,38 +1040,43 @@ def gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged):
 
 def profile_gemm_stream(ops, dev, seed):
     """Where a merged GEMM dispatch's time goes: torch.profiler over run 1's
-    stream. Prints the mean dispatch time (the scheduler's busy time over
-    its dispatches), the device's kernel time per dispatch, its idle share
-    over the run (the stream sleeps 0.2 ms per tick), and the kernels and
-    host ops that take the most time. Profiled times include the
-    profiler's own cost."""
+    stream (K1) and run 2's (K2). Prints the mean dispatch time (the
+    scheduler's busy time over its dispatches), the device's kernel time per
+    dispatch, its idle share over the run (the stream sleeps 0.2 ms per
+    tick), and the kernels and host ops that take the most time. Profiled
+    times include the profiler's own cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.config import ScheduleConfig
     from repro_torch.core import DynamicSpaceTimeScheduler
 
-    ticks, make_problem = ablation_stream(dev, seed)
-    sched = DynamicSpaceTimeScheduler(
-        ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_gemm_stream(ops, sched, ticks, make_problem)
-        wall = time.perf_counter() - t0
-    n = sched.stats.dispatches
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"  profile run 1: wall {wall * 1e3:.3f} ms, {n} dispatches, mean dispatch "
-        f"{sched.stats.busy_time_s / n * 1e3:.3f} ms (scheduler busy time), device kernels "
-        f"{busy_us / n / 1e3:.3f} ms per dispatch, device idle share {1 - busy_us / 1e6 / wall:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"    device {e.self_device_time_total / n / 1e3:8.3f} ms/dispatch "
-            f"{e.count / n:5.1f}x  {e.key[:80]}")
-    host = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU]
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
-        log(f"    host   {e.self_cpu_time_total / n / 1e3:8.3f} ms/dispatch "
-            f"{e.count / n:5.1f}x  {e.key[:80]}")
+    for run, (ticks, make_problem), ragged in (("run 1", ablation_stream(dev, seed), False),
+                                               ("run 2", ragged_stream(dev, seed), True)):
+        sched = DynamicSpaceTimeScheduler(
+            ScheduleConfig(batching_window_s=WINDOW_S, max_superkernel_size=64,
+                           allow_ragged_merge=ragged))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_gemm_stream(ops, sched, ticks, make_problem)
+            wall = time.perf_counter() - t0
+        n = sched.stats.dispatches
+        avgs = prof.key_averages()
+        kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        log(f"  profile {run}: wall {wall * 1e3:.3f} ms, {n} dispatches, mean dispatch "
+            f"{sched.stats.busy_time_s / n * 1e3:.3f} ms (scheduler busy time), device kernels "
+            f"{busy_us / n / 1e3:.3f} ms per dispatch, device idle share "
+            f"{1 - busy_us / 1e6 / wall:.3f}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    device {e.self_device_time_total / n / 1e3:8.3f} ms/dispatch "
+                f"{e.count / n:5.1f}x  {e.key[:80]}")
+        host = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU]
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+            log(f"    host   {e.self_cpu_time_total / n / 1e3:8.3f} ms/dispatch "
+                f"{e.count / n:5.1f}x  {e.key[:80]}")
+        del sched
+        torch.cuda.empty_cache()
 
 
 def phase_gemm(ops, dev, seed, profile=False):
@@ -1262,6 +1386,24 @@ def phase_rwkv(ops, dev, seed, profile=False):
 
 
 # ----------------------------------------------------------------- main
+def build_report(_build):
+    """ptxas's report for every kernel (entry function, registers, spills;
+    static shared memory is on the registers line), and the dynamic shared
+    memory the two wgmma kernels ask for."""
+    import ctypes
+
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if any(key in line for key in ("entry function", "registers", "spill")):
+                log(f"  ptxas {name}: {line.strip().removeprefix('ptxas info    : ')}")
+    gg = _build.load("grouped_gemm").repro_grouped_gemm_smem
+    fa = _build.load("flash_attention").repro_flash_attention_smem
+    gg.argtypes, gg.restype = [], ctypes.c_int
+    fa.argtypes, fa.restype = [ctypes.c_int], ctypes.c_int
+    log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; flash_attention wgmma "
+        f"D=64 {fa(64)} bytes, D=128 {fa(128)} bytes")
+
+
 def gpu_identity() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1277,7 +1419,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile steady decode steps of both "
-                         "modes; after phase 4, profile the scheduler's GEMM stream")
+                         "modes; after phase 4, profile the scheduler's two GEMM streams")
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
                          "lines (how phase 4 reports to the run that started it)")
@@ -1308,10 +1450,8 @@ def main(argv=None) -> int:
     secs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
-    for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
+        build_report(_build)
     rows = []
     try:
         if 1 in phases:

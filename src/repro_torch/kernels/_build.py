@@ -42,14 +42,14 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention": (
         # q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
-        # dtype, scale, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # dtype, variant, scale, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "batched_gemm": (
         # x, w, out, R, M, N, K, dtype, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "grouped_gemm": (
-        # x, w, block_groups, out, T, G, N, K, bm, dtype, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # x, w, tiles, out, n_tiles, T, G, N, K, dtype, variant, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "wkv6_scan": (
         # r, k, v, w, u, s0, s_out, out, B, H, T, N, V, u_rows, strides,
         # dtype, w_f32, stream
@@ -57,20 +57,31 @@ SIGNATURES = {
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Kernel variants of the ops that have two (K2, K4), by C code: the float32
+# CUDA-core kernel and the bf16 tensor-core (wgmma + TMA) kernel.
+VARIANT_CODES = {"cuda_core": 0, "wgmma": 1}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 @dataclasses.dataclass
 class OpCounter:
-    """Per-op counts: kernel launches, and calls of the plain version."""
+    """Per-op counts: kernel launches (in all, and by variant where the op
+    has more than one kernel), and calls of the plain version."""
 
     launches: int = 0
     plain_calls: int = 0
+    variants: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def launched(self, variant: str) -> None:
+        """Count one launch of the op's ``variant`` kernel."""
+        self.launches += 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.variants = {}
 
 
 def _nvcc() -> str:

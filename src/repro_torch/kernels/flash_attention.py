@@ -5,6 +5,9 @@ Pallas ``flash_attention``. Unlike the TPU kernel, ``q_offset`` (absolute
 position of the first query) is a runtime argument, so chunked prefill
 runs the kernel too. Its plain PyTorch version is ``ref.attention``;
 ``ops.flash_attention`` picks between them by the device of the tensors.
+On the card, ``variant`` picks one of the source's two kernels by dtype
+and head dim before the launch: the bf16 tensor-core kernel (wgmma fed by
+TMA) or the float32 CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +22,16 @@ counter = _build.OpCounter()
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
+def variant(dtype: torch.dtype, D: int) -> str:
+    """The kernel that computes attention of ``dtype`` at head dim ``D``:
+    wgmma for bf16 (the head dims the wrapper takes are 64 and 128, whose
+    rows are 16-byte multiples, as TMA needs), the CUDA-core kernel for
+    float32."""
+    if dtype == torch.bfloat16 and D in SUPPORTED_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -29,11 +42,14 @@ def flash_attention(
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
     q_offset: Optional[int] = None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
 
-    Launches the CUDA kernel on the tensors' card; raises on anything the
-    kernel does not take (device, dtype, layout, head dim, softcap).
+    Launches a CUDA kernel on the tensors' card: ``variant(dtype, D)``'s,
+    or ``kernel`` where given (how ``chip_smoke.py`` times the CUDA-core
+    kernel on bf16); raises on anything the kernel does not take (device,
+    dtype, layout, head dim, softcap).
     """
     _build.check_device(q)
     if logit_softcap != 0.0:
@@ -53,6 +69,9 @@ def flash_attention(
         _build.check_tensor(t, what, q.dtype)
         if t.device != q.device:
             raise ValueError("flash_attention: all tensors must be on one device")
+    kind = kernel or variant(q.dtype, D)
+    if kind not in _build.VARIANT_CODES or (kind == "wgmma" and variant(q.dtype, D) != "wgmma"):
+        raise ValueError(f"flash_attention: variant {kind!r} does not take {q.dtype} D={D}")
     out = torch.empty_like(q)
     if Sq == 0 or Skv == 0:
         return out.zero_()
@@ -63,7 +82,8 @@ def flash_attention(
         status = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Hq, Hkv, Sq, Skv, D, int(bool(causal)), int(window), q_offset,
-            _build.DTYPE_CODES[q.dtype], float(scale), _build.stream_of(q))
+            _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[kind], float(scale),
+            _build.stream_of(q))
     _build.check_status(lib, "flash_attention", status)
-    counter.launches += 1
+    counter.launched(kind)
     return out

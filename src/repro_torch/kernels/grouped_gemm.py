@@ -10,12 +10,14 @@ Wrapper of ``csrc/grouped_gemm.cu``, the port of the JAX package's Pallas
     block_groups: (T/bm,) int32 -- which group each row block belongs to
 
 Its plain PyTorch version is ``ref.grouped_gemm``; ``ops.grouped_gemm``
-picks between them by the device of the tensors.
+picks between them by the device of the tensors. On the card, ``variant``
+picks one of the source's two kernels by dtype and shape before the launch:
+the bf16 tensor-core kernel (wgmma fed by TMA) or the CUDA-core kernel.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,37 @@ from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
 DEFAULT_BM = 128
+# Row tile of each kernel: the height of the tile table's tiles.
+TILE_ROWS = {"cuda_core": 64, "wgmma": 128}
+
+
+def variant(dtype: torch.dtype, K: int, N: int) -> str:
+    """The kernel that computes a (T, K) x (G, K, N) product of ``dtype``.
+
+    wgmma for bf16 with K and N multiples of 8 (TMA needs 16-byte global
+    strides; base pointers are checked 16-byte aligned) and K > 0; the
+    CUDA-core kernel for everything else, all float32 included (its 2e-4
+    tolerance rules out TF32).
+    """
+    if dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
+def tile_table(block_groups: np.ndarray, bm: int, tile_rows: int) -> np.ndarray:
+    """(n_tiles, 3) int32 rows (row0, row_end, group), one per row tile.
+
+    Row block i (rows i*bm .. (i+1)*bm - 1) is ceil(bm / tile_rows) tiles of
+    ``tile_rows`` rows; the last one ends at the block's edge, so no tile
+    stores across two blocks. Each tile carries its block's group id.
+    """
+    ids = np.asarray(block_groups, np.int32)
+    per_block = -(-bm // tile_rows)
+    row0 = (np.arange(len(ids))[:, None] * bm + np.arange(per_block)[None, :] * tile_rows).ravel()
+    block_end = np.repeat((np.arange(len(ids)) + 1) * bm, per_block)
+    table = np.stack([row0, np.minimum(row0 + tile_rows, block_end),
+                      np.repeat(ids, per_block)], axis=1)
+    return np.ascontiguousarray(table, dtype=np.int32)
 
 
 def make_group_layout(
@@ -61,16 +94,17 @@ def host_block_groups(block_groups: np.ndarray, n_blocks: int, n_groups: int) ->
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups: np.ndarray,
-                 bm: int = DEFAULT_BM) -> torch.Tensor:
+                 bm: int = DEFAULT_BM, kernel: Optional[str] = None) -> torch.Tensor:
     """out[i*bm:(i+1)*bm] = x[i*bm:(i+1)*bm] @ w[block_groups[i]].
 
     x (T,K) with T % bm == 0, w (G,K,N), block_groups (T/bm,) integer ids
     (a host numpy array, as ``make_group_layout`` builds it; checked on
-    the host, then uploaded). Any
-    bm >= 1: a row block is ceil(bm / 64) of the kernel's 64-row tiles,
-    the last one masked at the block's edge.
-    Launches the CUDA kernel on the tensors' card (float32 accumulation,
-    full float32 arithmetic); raises on anything the kernel does not take.
+    the host, then turned into the kernel's tile table and uploaded). Any
+    bm >= 1 (see ``tile_table``).
+    Launches a CUDA kernel on the tensors' card, float32 accumulation:
+    ``variant(dtype, K, N)``'s, or ``kernel`` where given (how
+    ``chip_smoke.py`` times the CUDA-core kernel on bf16); raises on
+    anything the kernel does not take.
     """
     _build.check_device(x)
     if x.ndim != 2 or w.ndim != 3:
@@ -91,15 +125,19 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups: np.ndarray,
     if w.device != x.device:
         raise ValueError("grouped_gemm: x and w must be on one device")
     ids = host_block_groups(block_groups, T // bm, G)
+    v = kernel or variant(x.dtype, K, N)
+    if v not in TILE_ROWS or (v == "wgmma" and variant(x.dtype, K, N) != "wgmma"):
+        raise ValueError(f"grouped_gemm: variant {v!r} does not take {x.dtype} K={K} N={N}")
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    table = torch.from_numpy(ids).to(x.device)
+    tiles = tile_table(ids, bm, TILE_ROWS[v])
+    table = torch.from_numpy(tiles).to(x.device)
     lib = _build.load("grouped_gemm")
     with torch.cuda.device(x.device):
         status = lib.repro_grouped_gemm(
-            x.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(), T, G, N, K, bm,
-            _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+            x.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(), len(tiles), T, G, N,
+            K, _build.DTYPE_CODES[x.dtype], _build.VARIANT_CODES[v], _build.stream_of(x))
     _build.check_status(lib, "grouped_gemm", status)
-    counter.launches += 1
+    counter.launched(v)
     return out
