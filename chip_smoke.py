@@ -25,7 +25,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      every kernel's launch counter read around the run;
   4. drives the paper's GEMM super-kernel path: (a) holds K1
      ``batched_gemm`` and K2 ``grouped_gemm`` against their plain versions
-     in float32 and bfloat16 and times them beside ``torch.bmm``; (b) runs
+     in float32 and bfloat16 and times them beside ``torch.bmm`` and the
+     previous kernel; (b) runs
      Table 1, the four strategies over the paper's SGEMM shapes and R
      sweep; (c) drives ``DynamicSpaceTimeScheduler`` with bare
      ``GemmProblem``s on two stochastic streams (the ablation trace, and a
@@ -45,15 +46,27 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      in ``space_time`` and ``time_only`` mode, with K5's launch counter
      read around the run and required at 24 per prefill.
 
-K2 and K4 each have two kernels, picked by dtype and shape before the
-launch (``grouped_gemm.variant``, ``flash_attention.variant``): wgmma with
-TMA for bf16, the CUDA-core kernel otherwise. Every bf16 case above goes
-through the wgmma kernel; phase 3 fails unless every K4 launch on the
-serving path took it, and phase 4c unless every K2 launch of scheduler run
-2 did. The K2 and K4 rows of the ``kernels`` line carry the ``variant`` and
-``prior_ms``, the CUDA-core kernel's time at the same inputs, launched
-explicitly. The build prints ptxas's report for every kernel and the
-dynamic shared memory of the two wgmma kernels.
+K1, K2 and K4 each have a kernel for the tensor cores, picked by dtype and
+shape before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
+``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
+register-tiled ``simt`` kernel (K split across a cluster) and K2's and K4's
+CUDA-core kernels. K3 takes its ``split_kv`` kernel for every shape: the live
+prefix of each (sequence, kv head) split across a thread-block cluster and
+combined on chip. Phase 1 checks K3 at its tile and split edges, every GQA
+ratio it takes, and that two launches give the same bits; phase 4a checks K1
+at its row-tile, K and N edges and that a problem's output is bit-identical
+whatever the others hold, on both of its kernels. Phase 3 fails unless every
+K4 launch on the serving path took wgmma and every K3 launch split_kv; phase
+4c unless every K1 launch of scheduler run 1 took simt and every K1 and K2
+launch of run 2 wgmma. The K1 to K4 rows of the ``kernels`` line carry the
+``variant``, the ``shape`` they were timed at, their launches by variant, and
+``prior_ms``: the previous kernel's time at the same inputs (K1: its first,
+CUDA-core kernel; K2, K4: the CUDA-core variant; K3: its first, single-pass
+kernel), launched explicitly. Kernel times are device times of back-to-back
+launches queued behind a sleep kernel, so the host's launch cost does not
+pace them. The build prints ptxas's report for every kernel, the dynamic
+shared memory of the wgmma kernels and of K3's ring, and how many of K3's
+clusters fit on the card at once.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -91,6 +104,9 @@ REPLACES = {
 ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phase 3's path
 
 
+SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms at the H100's ~2 GHz
+
+
 class PhaseFailed(Exception):
     pass
 
@@ -100,7 +116,11 @@ def log(*args) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls, by
+    CUDA events. The calls are queued behind a sleep kernel long enough for
+    the host to enqueue them all (~0.2 ms of sleep per call), so the events
+    time the card's work and not the host's launch cost, which paces a
+    kernel of a few tens of microseconds otherwise."""
     import torch
 
     for _ in range(warmup):
@@ -108,6 +128,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -253,31 +274,73 @@ def measure_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window, q_offset
     return row
 
 
-def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20):
+def decode_inputs(gen, dev, dtype, B, Hq, Hkv, S, D, lengths):
     import torch
 
     q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
     kc = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
     vc = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
-    lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+    return q, kc, vc, torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+
+
+def check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths):
+    """K3 against its plain version on one case, and against itself: a
+    second launch on the same inputs must give the same bits. Returns
+    (inputs, max error)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    q, kc, vc, lens = decode_inputs(gen, dev, dtype, B, Hq, Hkv, S, D, lengths)
     got = ops.decode_attention(q, kc, vc, lens)
+    again = ops.decode_attention(q, kc, vc, lens)
     want = ops.decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
-    name = (f"decode_attention {str(dtype)[6:]} {(B, Hq, Hkv, S, D)} "
-            f"lengths min={min(lengths)} max={max(lengths)}")
+    shown = lengths if len(lengths) <= 8 else f"min={min(lengths)} max={max(lengths)}"
+    name = (f"decode_attention {str(dtype)[6:]} {(B, Hq, Hkv, S, D)} lengths {shown} "
+            f"[{da.variant(dtype, D)}, {da.splits(S)} splits]")
     err = check_close(name, got, want, str(dtype))
+    if not torch.equal(got, again):
+        raise PhaseFailed(f"{name}: two launches on the same inputs differ")
+    return (q, kc, vc, lens), err
+
+
+def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20, prior=False):
+    """K3 checked and timed beside its plain version and SDPA; with
+    ``prior``, its first, single-pass kernel too (checked, then timed as
+    ``prior_ms``), launched explicitly on the same inputs."""
+    from repro_torch.kernels import decode_attention as da
+
+    (q, kc, vc, lens), err = check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths)
     nbytes, flops = decode_work(B, Hq, Hkv, S, D, lengths, str(dtype))
     bound_ms, bound_by = bound(nbytes, flops, str(dtype))
     row = {
+        "variant": da.variant(dtype, D),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.decode_attention(q, kc, vc, lens), iters),
         "plain_ms": time_ms(lambda: ops.decode_attention_plain(q, kc, vc, lens), 3, 1),
         "library_ms": time_ms(sdpa_decode(q, kc, vc, lens), iters),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if prior:
+        single = lambda: da.decode_attention(q, kc, vc, lens, kernel="single_pass")  # noqa: E731
+        check_close("  its single-pass kernel", single(), ops.decode_attention_plain(q, kc, vc, lens),
+                    str(dtype))
+        row["prior_ms"] = time_ms(single, iters)
     log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + (f" prior_ms={row['prior_ms']:.4f} (single pass)" if prior else ""))
     return row
+
+
+def decode_edge_lengths(S, B):
+    """B lengths at K3's tile and split edges for a cache of S: 0, 1, 63, 64,
+    65, either side of the first rank boundary of a full cache, S - 1, S."""
+    from repro_torch.kernels import decode_attention as da
+
+    edge = da.key_ranges(S, da.splits(S))[0][1]
+    lens = [0, 1, 63, 64, 65, edge - 1, edge, edge + 1, S - 1, S]
+    return (lens * (-(-B // len(lens))))[:B]
 
 
 def phase_kernels(ops, dev, seed):
@@ -295,7 +358,7 @@ def phase_kernels(ops, dev, seed):
         measure_flash(ops, dev, gen, dtype, 1, 32, 32, 64, 1024, 64, 0, q_offset=512)  # chunk
         for (B, Hq, Hkv, S, D) in ((16, 32, 32, 2048, 64), (16, 28, 4, 2048, 128)):
             lengths = [1, 2048] + list(rng.randint(1, 2049, size=B - 2))
-            measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths)
+            measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, prior=True)
         # the other GQA ratios the kernels take (q_per_kv 2, 4, 8), both head
         # dims, a ragged sequence length and a length-0 decode row
         for g in (2, 4, 8):
@@ -303,6 +366,13 @@ def phase_kernels(ops, dev, seed):
                 measure_flash(ops, dev, gen, dtype, 2, 4 * g, 4, 300, 300, D, 64, iters=3)
                 measure_decode(ops, dev, gen, dtype, 4, 4 * g, 4, 600, D, [0, 1, 333, 600],
                                iters=3)
+        # K3's split and tile edges: lengths 0, 1, 63-65, either side of a rank
+        # boundary, S - 1 and S, at every q_per_kv of 1, 2, 4, 7 and 8
+        for S in (777, 2048):
+            for g in (1, 2, 4, 7, 8):
+                for D in (64, 128):
+                    check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D,
+                                 decode_edge_lengths(S, 10))
         # edges of the 64-row, 64-key tiles: lengths off the tile, fewer keys
         # than a tile, one query, runtime offsets with a window, GQA 7,
         # queries placed before every key, and no causal mask
@@ -430,6 +500,8 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
 
 
 def phase_serving(dev, seed, ops, profile=False):
+    """Phase 3; returns (launches over both modes, per mode, prompt lengths).
+    Fails unless every K4 launch took wgmma and every K3 launch split_kv."""
     from repro_torch.config import get_config
     from repro_torch.models import build_model
 
@@ -437,15 +509,16 @@ def phase_serving(dev, seed, ops, profile=False):
     model = build_model(cfg, device=dev)
     stacked = stacked_tenants(model, dev, seed)
     prompts, lens = serve_prompts(cfg, seed)
-    launches, _ = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
-    by_variant = dict(ops.COUNTERS["flash_attention"].variants)
-    log(f"  flash_attention launches by variant on the serving path: {by_variant}")
-    if by_variant.get("wgmma", 0) != launches["flash_attention"]:
-        raise PhaseFailed(f"flash_attention: {launches['flash_attention']} launches on the "
-                          f"serving path, not all wgmma: {by_variant}")
+    launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
+    for name, want in (("flash_attention", "wgmma"), ("decode_attention", "split_kv")):
+        by_variant = dict(ops.COUNTERS[name].variants)
+        log(f"  {name} launches by variant on the serving path: {by_variant}")
+        if by_variant.get(want, 0) != launches[name]:
+            raise PhaseFailed(f"{name}: {launches[name]} launches on the serving path, not all "
+                              f"{want}: {by_variant}")
     if profile:
         profile_serving(model, stacked, prompts)
-    return launches, lens
+    return launches, per_mode, lens
 
 
 def stacked_tenants(model, dev, seed, init=None):
@@ -542,8 +615,10 @@ def profile_serving(model, stacked, prompts, steps=8):
         torch.cuda.empty_cache()
 
 
-def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches):
-    """Kernel vs plain vs SDPA at the serving path's own shapes (bf16)."""
+def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches, per_mode):
+    """Kernel vs plain vs SDPA at the serving path's own shapes (bf16): K3
+    at the merged decode step (space_time) and at one tenant's decode
+    (time_only), each row with its mode's launches; K4 at a median prefill."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -552,17 +627,28 @@ def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches):
     n_heads, head_dim = 32, 64
     log(f"  decode_attention at the merged decode step: R*B={R_TENANTS * SLOTS}, "
         f"cache {CACHE_LEN}, lengths = prompt + {MAX_NEW // 2}")
-    dec = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * SLOTS, n_heads, n_heads,
-                         CACHE_LEN, head_dim, lens_mid)
+    merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * SLOTS, n_heads, n_heads,
+                            CACHE_LEN, head_dim, lens_mid, prior=True)
+    alone = lens_mid[::R_TENANTS]  # tenant 0's requests: prompts go to tenants in turn
+    log(f"  decode_attention at a time_only decode step: tenant 0 alone, B={SLOTS}, "
+        f"lengths {alone}")
+    single = measure_decode(ops, dev, gen, torch.bfloat16, SLOTS, n_heads, n_heads, CACHE_LEN,
+                            head_dim, alone, prior=True)
     s_med = int(np.median(prompt_lens))
     log(f"  flash_attention at a median prefill: {s_med} tokens")
     fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, n_heads, n_heads, s_med, s_med,
                        head_dim, 0, prior=True)
+    per_st, per_to = per_mode
     rows = []
-    for name, row in (("decode_attention", dec), ("flash_attention", fl)):
+    for name, shape, n, row in (
+            ("decode_attention", "merged decode (space_time)", per_st["decode_attention"], merged),
+            ("decode_attention", "one tenant's decode (time_only)", per_to["decode_attention"],
+             single),
+            ("flash_attention", "median prefill", launches["flash_attention"], fl)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "launches": launches[name], **row})
+                     "replaces": REPLACES[name], "shape": shape, "launches": n,
+                     "launches_by_variant": {row["variant"]: n}, **row})
     return rows
 
 
@@ -582,6 +668,11 @@ K1_CASES = [  # (R, M, K, N): tests/test_kernels_batched_gemm.py's shapes
     (1, 128, 128, 128), (5, 100, 70, 33), (8, 16, 512, 16),
     (3, 200, 300, 96),  # the JAX block-shape-invariance problem
 ]
+# K1's tile edges: row tiles (64 or 128 rows) ending inside a problem, K
+# tails (8 = half a 16-deep stage; 2056 = 32 stages of 64 + 8) and N tails
+# (40 inside one column tile, 5640 = 44 tiles + 8 columns)
+K1_EDGE_CASES = [(3, m, 256, 136) for m in (1, 16, 100, 129, 300)] + [
+    (2, 100, 8, 40), (2, 129, 2056, 5640), (3, 16, 2056, 40), (2, 300, 8, 5640)]
 PAPER_RS = (2, 16, 120)
 GROUP_SIZES = ([64, 64], [100, 5, 0, 260], [1, 1, 1], [300])
 PAPER_GEOMEAN = {"rnn_matvec": 2.48, "resnet18_conv2_2": 3.23, "square_256": 4.93}
@@ -647,12 +738,26 @@ def timed_row(err, kernel, plain, library, work, dtype, iters):
 
 
 def measure_batched(ops, x, w, err, iters=20):
+    """K1 timed beside its plain version and torch.bmm, then its first,
+    CUDA-core kernel (checked, then timed as ``prior_ms``), launched
+    explicitly on the same inputs."""
     import torch
 
+    from repro_torch.kernels import batched_gemm as bg
+
     R, M, K = x.shape
-    return timed_row(err, lambda: ops.batched_gemm(x, w), lambda: ops.batched_gemm_plain(x, w),
-                     lambda: torch.bmm(x, w), gemm_work(R * M, K, w.shape[2], R, x.dtype),
-                     x.dtype, iters)
+    N = w.shape[2]
+    row = {"variant": bg.variant(x.dtype, K, N)}
+    row.update(timed_row(err, lambda: ops.batched_gemm(x, w), lambda: ops.batched_gemm_plain(x, w),
+                         lambda: torch.bmm(x, w), gemm_work(R * M, K, N, R, x.dtype), x.dtype,
+                         iters))
+    prior = lambda: bg.batched_gemm(x, w, kernel="cuda_core")  # noqa: E731
+    check_close("  its CUDA-core kernel", prior(), ops.batched_gemm_plain(x, w), str(x.dtype),
+                gemm_tol(x.dtype, K))
+    row["prior_ms"] = time_ms(prior, iters)
+    log(f"    prior_ms={row['prior_ms']:.4f} (first CUDA-core kernel) prior/kernel="
+        f"{row['prior_ms'] / row['ms']:.2f}")
+    return row
 
 
 def measure_grouped(ops, x, w, bg, bm, err, iters=10):
@@ -683,14 +788,36 @@ def measure_grouped(ops, x, w, bg, bm, err, iters=10):
 def check_batched(ops, gen, dev, dtype, R, M, K, N):
     import torch
 
+    from repro_torch.kernels import batched_gemm as bg
+
     x = torch.randn((R, M, K), generator=gen, device=dev).to(dtype)
     w = torch.randn((R, K, N), generator=gen, device=dev).to(dtype)
     got = ops.batched_gemm(x, w)
     want = ops.batched_gemm_plain(x, w)
     torch.cuda.synchronize()
-    err = check_close(f"batched_gemm {str(dtype)[6:]} {(R, M, K, N)}", got, want, str(dtype),
-                      gemm_tol(dtype, K))
+    err = check_close(f"batched_gemm {str(dtype)[6:]} {(R, M, K, N)} [{bg.variant(dtype, K, N)}]",
+                      got, want, str(dtype), gemm_tol(dtype, K))
     return x, w, err
+
+
+def check_independence(ops, gen, dev, dtype, M, K, N):
+    """Four problems; changing x[2] must leave problems 0, 1 and 3
+    bit-identical."""
+    import torch
+
+    from repro_torch.kernels import batched_gemm as bg
+
+    x = torch.randn((4, M, K), generator=gen, device=dev).to(dtype)
+    w = torch.randn((4, K, N), generator=gen, device=dev).to(dtype)
+    base = ops.batched_gemm(x, w)
+    x2 = x.clone()
+    x2[2] = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    pert = ops.batched_gemm(x2, w)
+    same = [bool(torch.equal(base[r], pert[r])) for r in range(4)]
+    log(f"  batched_gemm {str(dtype)[6:]} {(4, M, K, N)} [{bg.variant(dtype, K, N)}] problem "
+        f"independence: bit-identical per problem after changing x[2]: {same}")
+    if same != [True, True, False, True]:
+        raise PhaseFailed("batched_gemm: a problem's output depends on another's data")
 
 
 def group_inputs(gen, dev, dtype, sizes, bm, K, N):
@@ -736,18 +863,13 @@ def phase_gemm_kernels(ops, dev, seed):
                 x, w, err = check_batched(ops, gen, dev, dtype, R, g.M, g.K, g.N)
                 if dtype == torch.float32:  # Table 1 is float32
                     measure_batched(ops, x, w, err)
-        # bitwise problem independence: changing x[2] leaves 0, 1, 3 as they were
-        x = torch.randn((4, 64, 64), generator=gen, device=dev).to(dtype)
-        w = torch.randn((4, 64, 64), generator=gen, device=dev).to(dtype)
-        base = ops.batched_gemm(x, w)
-        x2 = x.clone()
-        x2[2] = torch.randn((64, 64), generator=gen, device=dev).to(dtype)
-        pert = ops.batched_gemm(x2, w)
-        same = [bool(torch.equal(base[r], pert[r])) for r in range(4)]
-        log(f"  batched_gemm {str(dtype)[6:]} problem independence: bit-identical per problem "
-            f"after changing x[2]: {same}")
-        if same != [True, True, False, True]:
-            raise PhaseFailed("batched_gemm: a problem's output depends on another's data")
+        for case in K1_EDGE_CASES:
+            check_batched(ops, gen, dev, dtype, *case)
+        # bitwise problem independence: changing x[2] leaves 0, 1, 3 as they
+        # were; at M = 100 a 128-row wgmma tile reads the next problem's rows,
+        # and at K = 1152 the simt kernel splits K over a cluster of 4
+        for M, K, N in ((64, 64, 64), (100, 1152, 136)):
+            check_independence(ops, gen, dev, dtype, M, K, N)
         tag = str(dtype)[6:]
         # bm against the 64-row (CUDA cores) and 128-row (wgmma) tiles: 96 is
         # 1.5 of the one, 256 two of the other; K 48 and N 40 are tails
@@ -985,30 +1107,39 @@ def phase_gemm_scheduler(ops, dev, seed):
         raise PhaseFailed("run 1 never launched batched_gemm")
     if counts2["grouped_gemm"][0] <= 0:
         raise PhaseFailed("run 2 never launched grouped_gemm")
-    by_variant = counts2["grouped_gemm"][2]
-    log(f"    run 2 grouped_gemm launches by variant: {by_variant}")
-    if by_variant.get("wgmma", 0) != counts2["grouped_gemm"][0]:
-        raise PhaseFailed(f"run 2: grouped_gemm launches not all wgmma: {by_variant}")
-    launches = {k: counts1[k][0] + counts2[k][0] for k in GEMM_REPLACES}
+    # every launch of the path on the kernel its dtype and shape route to:
+    # run 1 (f32) K1 on simt; run 2 (bf16, K and N multiples of 8) K1 and K2
+    # on wgmma
+    for run, counts, name, want in (("run 1", counts1, "batched_gemm", "simt"),
+                                    ("run 2", counts2, "batched_gemm", "wgmma"),
+                                    ("run 2", counts2, "grouped_gemm", "wgmma")):
+        by_variant = counts[name][2]
+        log(f"    {run} {name} launches by variant: {by_variant}")
+        if by_variant.get(want, 0) != counts[name][0]:
+            raise PhaseFailed(f"{run}: {name} launches not all {want}: {by_variant}")
     plain = {k: counts1[k][1] + counts2[k][1] for k in GEMM_REPLACES}
     if any(plain.values()):
         raise PhaseFailed(f"plain versions were called on the GEMM path: {plain}")
-    # each ragged dispatch's sizes and the layout its cache launched K2 on
+    # each ragged dispatch's sizes and the layout its cache launched K2 on;
+    # each dispatch of one row count, which the cache launched K1 on
     ragged = [(l, sched.cache.ragged_layout(l)) for l in layouts if len(set(l)) > 1]
-    return launches, sizes1, ragged
+    single = [l for l in layouts if len(set(l)) == 1]
+    return (counts1, counts2), sizes1, ragged, single
 
 
-def gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged):
+def gemm_path_kernel_rows(ops, dev, seed, counts, sizes1, ragged, single):
     """K1 and K2 against plain and torch.bmm at the scheduler runs' shapes:
-    K1 at run 1's median dispatch (R padded to its pow2 bucket), K2 at run
-    2's median ragged dispatch (by padded rows), on the layout the cache
-    launched it on."""
+    K1 at run 1's median dispatch (R padded to its pow2 bucket, f32) and at
+    run 2's median dispatch of one row count (bf16), K2 at run 2's median
+    ragged dispatch (by padded rows), on the layout the cache launched it on.
+    Each row's launches are its run's."""
     import torch
 
     from repro_torch.configs.paper_sgemm import PAPER_GEMM_SHAPES
     from repro_torch.core import round_pow2
     from repro_torch.core.superkernel import RAGGED_BM
 
+    counts1, counts2 = counts
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 8)
     g = PAPER_GEMM_SHAPES["resnet18_conv2_2"]
@@ -1016,6 +1147,17 @@ def gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged):
     log(f"  batched_gemm at run 1's median dispatch: R={R} (pow2 bucket), {g.name} f32")
     x, w, err = check_batched(ops, gen, dev, torch.float32, R, g.M, g.K, g.N)
     k1 = measure_batched(ops, x, w, err)
+    if single:
+        by_work = sorted(single, key=lambda l: round_pow2(len(l)) * l[0])
+        sizes = by_work[len(by_work) // 2]
+        R, M = round_pow2(len(sizes)), sizes[0]
+        log(f"  batched_gemm at run 2's median dispatch of one row count: {len(sizes)} x M={M} "
+            f"-> R={R} (pow2 bucket), K={RAGGED_K} N={RAGGED_N} bf16")
+    else:  # no dispatch of one row count happened: a decode-sized problem alone
+        R, M = 1, int(np.median([m for tick in ragged_trace(seed) for _, m in tick if m <= 16]))
+        log(f"  run 2 made no dispatch of one row count; batched_gemm bf16 at R=1, M={M}")
+    x, w, err = check_batched(ops, gen, dev, torch.bfloat16, R, M, RAGGED_K, RAGGED_N)
+    k1b = measure_batched(ops, x, w, err)
     by_rows = sorted(ragged, key=lambda r: r[1][1])
     sizes, (offs, T, bg, G) = by_rows[len(by_rows) // 2]
     log(f"  grouped_gemm at run 2's median ragged dispatch: M={sizes} -> T={T} rows, "
@@ -1031,10 +1173,15 @@ def gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged):
                         RAGGED_BM)
     k2 = measure_grouped(ops, x, w, bg, RAGGED_BM, err)
     rows = []
-    for name, row in (("batched_gemm", k1), ("grouped_gemm", k2)):
+    for name, shape, cnt, row in (
+            ("batched_gemm", "run 1's median dispatch, f32", counts1["batched_gemm"], k1),
+            ("batched_gemm", "run 2's median dispatch of one row count, bf16",
+             counts2["batched_gemm"], k1b),
+            ("grouped_gemm", "run 2's median ragged dispatch, bf16", counts2["grouped_gemm"], k2)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": GEMM_REPLACES[name], "launches": launches[name], **row})
+                     "replaces": GEMM_REPLACES[name], "shape": shape, "launches": cnt[0],
+                     "launches_by_variant": cnt[2], **row})
     return rows
 
 
@@ -1094,10 +1241,12 @@ def phase_gemm(ops, dev, seed, profile=False):
         raise PhaseFailed(f"plain versions were called in the Table 1 sweep: {counts}")
     torch.cuda.empty_cache()
     log(" (c) the scheduler on stochastic GEMM streams (WallClock)")
-    launches, sizes1, ragged = phase_gemm_scheduler(ops, dev, seed)
-    log(f"  GEMM path launches (runs 1 and 2): {launches}")
+    counts, sizes1, ragged, single = phase_gemm_scheduler(ops, dev, seed)
+    log(f"  GEMM path launches (run 1; run 2): "
+        f"{ {k: counts[0][k][0] for k in GEMM_REPLACES} }; "
+        f"{ {k: counts[1][k][0] for k in GEMM_REPLACES} }")
     log("kernels at the GEMM path's shapes")
-    rows = gemm_path_kernel_rows(ops, dev, seed, launches, sizes1, ragged)
+    rows = gemm_path_kernel_rows(ops, dev, seed, counts, sizes1, ragged, single)
     if profile:
         profile_gemm_stream(ops, dev, seed)
     return rows
@@ -1388,8 +1537,9 @@ def phase_rwkv(ops, dev, seed, profile=False):
 # ----------------------------------------------------------------- main
 def build_report(_build):
     """ptxas's report for every kernel (entry function, registers, spills;
-    static shared memory is on the registers line), and the dynamic shared
-    memory the two wgmma kernels ask for."""
+    static shared memory is on the registers line), the dynamic shared
+    memory of the wgmma kernels and of K3's split_kv ring, and how many of
+    K3's clusters fit on the card at once at the serving path's shape."""
     import ctypes
 
     for name in _build.SOURCES:
@@ -1398,10 +1548,22 @@ def build_report(_build):
                 log(f"  ptxas {name}: {line.strip().removeprefix('ptxas info    : ')}")
     gg = _build.load("grouped_gemm").repro_grouped_gemm_smem
     fa = _build.load("flash_attention").repro_flash_attention_smem
+    bg = _build.load("batched_gemm").repro_batched_gemm_smem
+    da = _build.load("decode_attention")
     gg.argtypes, gg.restype = [], ctypes.c_int
-    fa.argtypes, fa.restype = [ctypes.c_int], ctypes.c_int
-    log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; flash_attention wgmma "
-        f"D=64 {fa(64)} bytes, D=128 {fa(128)} bytes")
+    for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
+                  (da.repro_decode_attention_clusters, 4)):
+        fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
+    log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
+        f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma D=64 {fa(64)} bytes, D=128 "
+        f"{fa(128)} bytes; decode_attention split_kv ring D=64 bf16 "
+        f"{da.repro_decode_attention_smem(64, 1)}, D=128 bf16 "
+        f"{da.repro_decode_attention_smem(128, 1)} bytes")
+    clusters = da.repro_decode_attention_clusters(64, 1, 1, 4)
+    log(f"  decode_attention split_kv clusters of 4 resident at once (D=64 bf16, q_per_kv 1): "
+        f"{clusters}")
+    if clusters <= 0:
+        raise PhaseFailed("decode_attention: no cluster of the split_kv kernel fits on the card")
 
 
 def gpu_identity() -> str:
@@ -1450,10 +1612,10 @@ def main(argv=None) -> int:
     secs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
-    if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
-        build_report(_build)
     rows = []
     try:
+        if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
+            build_report(_build)
         if 1 in phases:
             log("phase 1: kernels against their plain versions on the card")
             phase_kernels(ops, dev, args.seed)
@@ -1462,9 +1624,9 @@ def main(argv=None) -> int:
             phase_model(dev, args.seed)
         if 3 in phases:
             log(f"phase 3: serving {REQUESTS} requests for {R_TENANTS} stablelm-1.6b tenants")
-            launches, prompt_lens = phase_serving(dev, args.seed, ops, args.profile)
+            launches, per_mode, prompt_lens = phase_serving(dev, args.seed, ops, args.profile)
             log("kernels at the serving path's shapes")
-            rows += main_path_kernel_rows(ops, dev, args.seed, prompt_lens, launches)
+            rows += main_path_kernel_rows(ops, dev, args.seed, prompt_lens, launches, per_mode)
         if gemm_apart:
             torch.cuda.empty_cache()
             rows += phase_gemm_apart(args.seed, args.profile)

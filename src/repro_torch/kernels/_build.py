@@ -38,15 +38,16 @@ _F = ctypes.c_float
 # C signature of each library's entry point: (argtypes, restype)
 SIGNATURES = {
     "decode_attention": (
-        # q, k, v, lengths, out, B, Hq, Hkv, S, D, dtype, scale, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # q, k, v, lengths, out, B, Hq, Hkv, S, D, dtype, variant, splits,
+        # scale, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention": (
         # q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
         # dtype, variant, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "batched_gemm": (
-        # x, w, out, R, M, N, K, dtype, stream
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # x, w, out, R, M, N, K, dtype, variant, tile_rows, k_splits, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "grouped_gemm": (
         # x, w, tiles, out, n_tiles, T, G, N, K, dtype, variant, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -57,8 +58,9 @@ SIGNATURES = {
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Kernel variants of the ops that have two (K2, K4), by C code: the float32
-# CUDA-core kernel and the bf16 tensor-core (wgmma + TMA) kernel.
+# Kernel variants of K2 and K4, by C code: the float32 CUDA-core kernel and
+# the bf16 tensor-core (wgmma + TMA) kernel. K1 and K3 keep their own
+# (``batched_gemm.VARIANT_CODES``, ``decode_attention.VARIANT_CODES``).
 VARIANT_CODES = {"cuda_core": 0, "wgmma": 1}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

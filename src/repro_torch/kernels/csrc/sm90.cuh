@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels: TMA
-// descriptors and loads, mbarriers, and warpgroup matrix products (wgmma).
+// Hopper (sm_90a) building blocks shared by the port's kernels: TMA
+// descriptors and loads, 1-D bulk copies, cp.async, mbarriers, and warpgroup
+// matrix products (wgmma).
 //
 // Layout pairing, which every user of this header must keep:
 //   * Every operand tile lies in shared memory as TMA wrote it with
@@ -158,6 +159,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; source and
+// destination 16-byte aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 16-byte asynchronous copy (sm_80 cp.async, through L2 only): copies
+// `valid` ? 16 : 0 bytes from `src` and zero-fills the rest of the 16.
+// `src` must be a readable address even when nothing is copied.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1),

@@ -3,12 +3,15 @@
 Wrapper of ``csrc/decode_attention.cu``, the port of the JAX package's
 Pallas ``decode_attention``. Its plain PyTorch version is
 ``ref.decode_attention``; ``ops.decode_attention`` picks between them by
-the device of the tensors.
+the device of the tensors. On the card every call takes the split-KV
+kernel: ``splits(S)`` CTAs of one thread-block cluster share each
+(sequence, kv head)'s live prefix (``key_ranges`` mirrors how) and combine
+their partial softmaxes on chip, in one launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -17,6 +20,37 @@ from repro_torch.kernels import _build
 counter = _build.OpCounter()
 SUPPORTED_HEAD_DIMS = (64, 128)
 MAX_Q_PER_KV = 8
+# C codes of the source's kernels; "single_pass" is the first version of K3 (one
+# block per (sequence, kv head)), launched only when asked for
+# (chip_smoke.py times it as ``prior_ms``).
+VARIANT_CODES = {"single_pass": 0, "split_kv": 1}
+KEY_TILE = 64          # keys per tile: the unit a live prefix is split in
+KEYS_PER_SPLIT = 512   # cache positions per CTA of a cluster
+MAX_SPLITS = 8         # the portable cluster size
+
+
+def variant(dtype: torch.dtype, D: int) -> str:
+    """The kernel that computes decode attention of ``dtype`` at head dim
+    ``D``: split_kv for every dtype and head dim the wrapper takes (a cache
+    of at most 512 positions is one CTA per cluster)."""
+    del dtype, D
+    return "split_kv"
+
+
+def splits(S: int) -> int:
+    """CTAs per (sequence, kv head): one per 512 cache positions, 1 to 8
+    (4 at S = 2048). It depends on the allocated length S alone, never on
+    ``lengths``, which stay on the card."""
+    return max(1, min(MAX_SPLITS, -(-S // KEYS_PER_SPLIT)))
+
+
+def key_ranges(L: int, n_splits: int) -> List[Tuple[int, int]]:
+    """The [start, end) keys each rank of a cluster walks for a sequence of
+    live length L, rank order: ceil(ceil(L / 64) / n_splits) whole 64-key
+    tiles each, cut at L, so the last ranks of a short sequence are empty."""
+    tiles = -(-L // KEY_TILE)
+    per = -(-tiles // n_splits) * KEY_TILE
+    return [(min(q * per, L), min(q * per + per, L)) for q in range(n_splits)]
 
 
 def decode_attention(
@@ -26,11 +60,14 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """q (B,Hq,D), caches (B,Hkv,S,D), lengths (B,) int32 -> (B,Hq,D).
 
-    Launches the CUDA kernel on the tensors' card; raises on anything the
-    kernel does not take (device, dtype, layout, head dim, GQA ratio).
+    Launches a CUDA kernel on the tensors' card: ``variant``'s, or
+    ``kernel`` where given (how ``chip_smoke.py`` times the first, single-pass kernel);
+    raises on anything the kernel does not take (device, dtype, layout,
+    head dim, GQA ratio).
     """
     _build.check_device(q)
     B, Hq, D = q.shape
@@ -51,6 +88,9 @@ def decode_attention(
     for t in (k_cache, v_cache, lengths):
         if t.device != q.device:
             raise ValueError("decode_attention: all tensors must be on one device")
+    kind = kernel or variant(q.dtype, D)
+    if kind not in VARIANT_CODES:
+        raise ValueError(f"decode_attention: no kernel {kind!r}")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")
@@ -58,7 +98,8 @@ def decode_attention(
         status = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
-            _build.DTYPE_CODES[q.dtype], float(scale), _build.stream_of(q))
+            _build.DTYPE_CODES[q.dtype], VARIANT_CODES[kind], splits(S), float(scale),
+            _build.stream_of(q))
     _build.check_status(lib, "decode_attention", status)
-    counter.launches += 1
+    counter.launched(kind)
     return out
