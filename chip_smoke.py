@@ -16,7 +16,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      float32 and bfloat16, at the shapes of the serving path and at the
      edges of K4's tiles, and times the kernel, the plain version and
      ``scaled_dot_product_attention`` (the library yardstick, which the
-     port never calls);
+     port never calls); an attention softcap must give the plain version's
+     output with no kernel launch (the op's rule, as the reference's);
   2. builds stablelm-1.6b at full width (bf16, seeded random weights) and
      compares the kernel path's logits with the plain path's over a
      777-token prefill and 8 decode steps;
@@ -35,18 +36,22 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      ``CUDA_DEVICE_MAX_CONNECTIONS=32``, so that space_only's 32 streams
      get 32 hardware queues; after other phases, which keep CUDA's
      default, it runs in a child process of its own;
-  5. drives the RWKV-6 serving path: (a) holds K5 ``wkv6_scan`` against
-     its plain version in float32 and bfloat16, from a zero and a random
-     state, whole and split in two, and times it at a median prompt; (b)
+  5. drives the RWKV-6 serving path: (a) holds K5 ``wkv6_scan`` (its
+     chunked kernel) against its plain version in float32 and bfloat16,
+     from a zero and a random state, whole and split in two, under strong
+     and weak decay, and times it at a median prompt beside its first,
+     sequential kernel (checked, then timed as ``prior_ms``); (b)
      builds rwkv6-1.6b at full width (seeded random weights, decay made
      data-dependent) and compares the kernel path's logits with the plain
      path's over a 777-token prefill, whole and chunked (512 + 265), and
      8 decode steps: in float32 directly, in bf16 each against the float32
      plain path; (c) serves 16 requests for four rwkv6-1.6b tenants (bf16)
      in ``space_time`` and ``time_only`` mode, with K5's launch counter
-     read around the run and required at 24 per prefill.
+     read around the run and required at 24 per prefill, every launch
+     chunked; with ``--profile``, K5's share of a prefill.
 
-K1, K2 and K4 each have a kernel for the tensor cores, picked by dtype and
+K5 takes its chunked kernel for every shape (``wkv6_scan.variant``). K1, K2
+and K4 each have a kernel for the tensor cores, picked by dtype and
 shape before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 ``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
 register-tiled ``simt`` kernel (K split across a cluster) and K2's and K4's
@@ -58,15 +63,16 @@ at its row-tile, K and N edges and that a problem's output is bit-identical
 whatever the others hold, on both of its kernels. Phase 3 fails unless every
 K4 launch on the serving path took wgmma and every K3 launch split_kv; phase
 4c unless every K1 launch of scheduler run 1 took simt and every K1 and K2
-launch of run 2 wgmma. The K1 to K4 rows of the ``kernels`` line carry the
-``variant``, the ``shape`` they were timed at, their launches by variant, and
-``prior_ms``: the previous kernel's time at the same inputs (K1: its first,
-CUDA-core kernel; K2, K4: the CUDA-core variant; K3: its first, single-pass
-kernel), launched explicitly. Kernel times are device times of back-to-back
-launches queued behind a sleep kernel, so the host's launch cost does not
-pace them. The build prints ptxas's report for every kernel, the dynamic
-shared memory of the wgmma kernels and of K3's ring, and how many of K3's
-clusters fit on the card at once.
+launch of run 2 wgmma; phase 5c unless every K5 launch took chunked. Every
+row of the ``kernels`` line carries the ``variant``, the ``shape`` it was
+timed at, its launches by variant, and ``prior_ms``: the previous kernel's
+time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
+CUDA-core variant; K3: its first, single-pass kernel; K5: its first,
+sequential kernel), launched explicitly. Kernel times are device times of
+back-to-back launches queued behind a sleep kernel, so the host's launch
+cost does not pace them. The build prints ptxas's report for every kernel,
+the dynamic shared memory of the wgmma kernels, K3's ring and K5's chunked
+kernel, and how many of K3's clusters fit on the card at once.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -343,12 +349,35 @@ def decode_edge_lengths(S, B):
     return (lens * (-(-B // len(lens))))[:B]
 
 
+def check_softcap(ops, dev, gen):
+    """An attention softcap goes to the plain version by the op's rule (as
+    the reference's op sends it to its jnp path): the output equals the
+    plain version's and no kernel launches."""
+    import torch
+
+    q, k, v = (torch.randn((1, 8, 300, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    c = ops.COUNTERS["flash_attention"]
+    launches, plain = c.launches, c.plain_calls
+    got = ops.flash_attention(q, k, v, logit_softcap=30.0)
+    want = ops.flash_attention_plain(q, k, v, logit_softcap=30.0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    log(f"  flash_attention bf16 (1, 8, 8, 300, 300, 64) logit_softcap=30.0 [route "
+        f"{ops.flash_attention_route(True, 30.0)}]: equal to the plain version {same}, kernel "
+        f"launches {c.launches - launches}, plain calls {c.plain_calls - plain}")
+    if not same or c.launches != launches or c.plain_calls != plain + 2:
+        raise PhaseFailed("flash_attention with a softcap: not the plain version's result, or "
+                          "a kernel launched")
+
+
 def phase_kernels(ops, dev, seed):
     import torch
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rng = np.random.RandomState(seed)
+    check_softcap(ops, dev, gen)
     for dtype in (torch.float32, torch.bfloat16):
         for S in (777, 1024):
             for window in (0, 512):
@@ -1285,6 +1314,9 @@ WKV_TOL = (2e-4, 2e-3)
 WKV_HEADS, WKV_N = 32, 64                # rwkv6-1.6b: H heads of N = V = 64
 WKV_TS = (1, 17, 128, 777, 1024)
 WKV_SPLIT = 512                          # 777 = 512 + 265
+# decay logits w ~ N(mean, std) besides the default N(-3, 1): strong decay
+# (products of 16 decays underflow to 0 inside a chunk) and weak (d ~ 0.9997)
+WKV_DECAYS = {"strong": (1.0, 1.0), "weak": (-8.0, 0.5)}
 LORA_B_SCALE = 0.1                       # w_lora_b std: a data-dependent decay
 
 
@@ -1298,10 +1330,11 @@ def live_decay_(params, gen):
         layers.normal_(lp["w_lora_b"], LORA_B_SCALE, gen)
 
 
-def wkv_inputs(gen, dev, dtype, T, w_dtype=None):
+def wkv_inputs(gen, dev, dtype, T, w_dtype=None, w_mean=-3.0, w_std=1.0):
     """r, k, v, w as the serving path hands them to K5: (1, T, H, N)
     projections read as (1, H, T, N) views; r, k, v ~ 0.5 N(0, 1) and decay
-    logits w ~ N(-3, 1) (decays from 0.37 to 0.998); u (H, N) ~ 0.3 N(0, 1)."""
+    logits w ~ N(w_mean, w_std) (by default decays from 0.37 to 0.998); u
+    (H, N) ~ 0.3 N(0, 1)."""
     import torch
 
     shape = (1, T, WKV_HEADS, WKV_N)
@@ -1311,7 +1344,7 @@ def wkv_inputs(gen, dev, dtype, T, w_dtype=None):
         return t.to(dt).transpose(1, 2)
 
     r, k, v = proj(0.5), proj(0.5), proj(0.5)
-    w = proj(1.0, -3.0, w_dtype or dtype)
+    w = proj(w_std, w_mean, w_dtype or dtype)
     u = torch.randn((WKV_HEADS, WKV_N), generator=gen, device=dev) * 0.3
     return r, k, v, w, u
 
@@ -1328,23 +1361,32 @@ def wkv_work(T, dtype, w_dtype=None):
     return nbytes, 5 * n * n * bh * T
 
 
-def check_wkv(ops, name, dtype, inputs, s0):
+def check_wkv(ops, name, dtype, inputs, s0, kernel=None):
+    """K5 (``variant``'s kernel, or ``kernel`` launched directly) against
+    its plain version on one case; returns (max error, out, final state)."""
     import torch
 
-    got, gs = ops.wkv6_scan(*inputs, init_state=s0)
+    from repro_torch.kernels import wkv6_scan as wk
+
+    kind = kernel or wk.variant(dtype, inputs[0].shape[-2])
+    if kernel is None:
+        got, gs = ops.wkv6_scan(*inputs, init_state=s0)
+    else:
+        got, gs = wk.wkv6_scan(*inputs, init_state=s0, kernel=kernel)
     want, ws = ops.wkv6_scan_plain(*inputs, init_state=s0)
     torch.cuda.synchronize()
     out_tol = WKV_TOL if dtype == torch.float32 else None
-    err = check_close(f"{name} out", got, want, str(dtype), out_tol)
-    check_close(f"{name} final state", gs, ws, "torch.float32", WKV_TOL)
+    err = check_close(f"{name} [{kind}] out", got, want, str(dtype), out_tol)
+    check_close(f"{name} [{kind}] final state", gs, ws, "torch.float32", WKV_TOL)
     return err, got, gs
 
 
 def phase_wkv_kernel(ops, dev, seed):
     """(a) K5 against its plain version: f32 and bf16, every T of WKV_TS,
     from a zero and a random state; a 777-step scan against 512 steps then
-    265 from the carried state (in one buffer, as the model's cache); the
-    (BH, T, N) form and a float32 w beside bf16 r, k, v."""
+    265 from the carried state (in one buffer, as the model's cache); strong
+    and weak decay at T = 777; the (BH, T, N) form and a float32 w beside
+    bf16 r, k, v."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -1371,6 +1413,12 @@ def phase_wkv_kernel(ops, dev, seed):
                         "torch.float32", WKV_TOL)
             log(f"    split bit-identical to whole: out {bool(torch.equal(split, whole))}, "
                 f"state {bool(torch.equal(buf, whole_state))}")
+        for regime, (mean, std) in WKV_DECAYS.items():
+            inputs = wkv_inputs(gen, dev, dtype, 777, w_mean=mean, w_std=std)
+            name = f"wkv6_scan {tag} T=777 {regime} decay, w ~ N({mean}, {std}),"
+            check_wkv(ops, f"{name} zero state", dtype, inputs, None)
+            s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+            check_wkv(ops, f"{name} random state", dtype, inputs, s0)
         r, k, v, w, u = wkv_inputs(gen, dev, dtype, 777)
         flat = [t.reshape(WKV_HEADS, 777, WKV_N) for t in (r, k, v, w)]  # (BH, T, N) copies
         check_wkv(ops, f"wkv6_scan {tag} (BH, T, N) contiguous, u (BH, N)", dtype,
@@ -1379,29 +1427,42 @@ def phase_wkv_kernel(ops, dev, seed):
     check_wkv(ops, "wkv6_scan bf16 with float32 w", torch.bfloat16, (r, k, v, w, u), None)
 
 
-def measure_wkv(ops, dev, seed, T, launches):
+def measure_wkv(ops, dev, seed, T, launches, by_variant):
     """K5 at a median prompt of the serving run, bf16, as the path calls it
-    (strided views, state updated in place in one buffer)."""
+    (strided views, state updated in place in one buffer), checked and timed
+    beside its plain version; its first, sequential kernel too (checked,
+    then timed as ``prior_ms``), launched explicitly on the same inputs."""
     import torch
+
+    from repro_torch.kernels import wkv6_scan as wk
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 10)
     inputs = wkv_inputs(gen, dev, torch.bfloat16, T)
     state = torch.zeros((WKV_HEADS, WKV_N, WKV_N), device=dev)
-    err, _, _ = check_wkv(ops, f"wkv6_scan bf16 at a median prompt, T={T}", torch.bfloat16,
-                          inputs, state)
-    bound_ms, bound_by = bound(*wkv_work(T, torch.bfloat16), "torch.float32")
+    name = f"wkv6_scan bf16 at a median prompt, T={T}"
+    err, _, _ = check_wkv(ops, name, torch.bfloat16, inputs, state)
+    check_wkv(ops, name, torch.bfloat16, inputs, state, kernel="sequential")
+    nbytes, flops = wkv_work(T, torch.bfloat16)
+    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
     row = {
+        "variant": wk.variant(torch.bfloat16, T),
+        "shape": f"median prompt: {WKV_HEADS} heads, T={T}, bf16",
+        "launches_by_variant": by_variant,
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.wkv6_scan(*inputs, init_state=state, final_state=state), 20),
+        "prior_ms": time_ms(lambda: wk.wkv6_scan(*inputs, init_state=state, final_state=state,
+                                                 kernel="sequential"), 20),
         "plain_ms": time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
                                                         final_state=state), 3, 1),
         "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library: none (no PyTorch "
-        f"call computes WKV6) bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"kernel/bound={row['ms'] / bound_ms:.1f}")
+    log(f"    ms={row['ms']:.4f} prior_ms={row['prior_ms']:.4f} (sequential, "
+        f"{row['prior_ms'] / row['ms']:.2f}x) plain_ms={row['plain_ms']:.4f} library: none (no "
+        f"PyTorch call computes WKV6) bound_ms={bound_ms:.4f} ({bound_by}; bytes "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f}, operations "
+        f"{flops / PEAK_FLOPS['torch.float32'] * 1e3:.4f}) kernel/bound={row['ms'] / bound_ms:.1f}")
     return {"name": "wkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
             "replaces": REPLACES["wkv6_scan"], "launches": launches, **row}
 
@@ -1520,25 +1581,66 @@ def phase_rwkv(ops, dev, seed, profile=False):
     stacked = stacked_tenants(model, dev, seed, live_decay_)
     prompts, lens = serve_prompts(cfg, seed)
     launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
+    by_variant = dict(ops.COUNTERS["wkv6_scan"].variants)
     want = cfg.num_layers * REQUESTS  # one launch per layer per (unchunked) prefill
     for mode, per in zip(("space_time", "time_only"), per_mode):
         if per["wkv6_scan"] != want:
             raise PhaseFailed(f"{mode}: wkv6_scan launched {per['wkv6_scan']} times, "
                               f"not {cfg.num_layers} per prefill ({want})")
-    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {REQUESTS} prefills")
+    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {REQUESTS} prefills; "
+        f"by variant on the serving path: {by_variant}")
+    if by_variant.get("chunked", 0) != launches["wkv6_scan"]:
+        raise PhaseFailed(f"wkv6_scan: {launches['wkv6_scan']} launches on the serving path, not "
+                          f"all chunked: {by_variant}")
     if profile:
         profile_serving(model, stacked, prompts)
+        profile_prefill(model, stacked, prompts)
     del stacked
     torch.cuda.empty_cache()
     log("kernels at the RWKV serving path's shapes")
-    return [measure_wkv(ops, dev, seed, int(np.median(lens)), launches["wkv6_scan"])]
+    return [measure_wkv(ops, dev, seed, int(np.median(lens)), launches["wkv6_scan"], by_variant)]
+
+
+def profile_prefill(model, stacked, prompts):
+    """K5's share of a prefill: torch.profiler over one tenant's prefill of
+    the median prompt (after two unprofiled ones). Prints the host wall
+    time, the device time in kernels, K5's device time and launches, and
+    K5's share of the kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.tenancy import tenant_view
+
+    t, prompt = sorted(prompts, key=lambda p: len(p[1]))[len(prompts) // 2]
+    params = tenant_view(stacked, t)
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=model.device)[None, :]
+    with torch.no_grad():
+        for _ in range(2):
+            model.forward_prefill(params, tokens, CACHE_LEN)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.forward_prefill(params, tokens, CACHE_LEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    k5 = [e for e in kernels if "wkv6_" in e.key]
+    k5_us = sum(e.self_device_time_total for e in k5)
+    log(f"  profile prefill of {tokens.shape[1]} tokens (tenant {t}): wall {wall * 1e3:.3f} ms, "
+        f"kernels {busy_us / 1e3:.3f} ms, K5 {k5_us / 1e3:.3f} ms in "
+        f"{sum(e.count for e in k5)} launches, K5 share of kernel time "
+        f"{k5_us / max(busy_us, 1e-9):.3f}, of wall {k5_us / 1e6 / wall:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
 # ----------------------------------------------------------------- main
 def build_report(_build):
     """ptxas's report for every kernel (entry function, registers, spills;
     static shared memory is on the registers line), the dynamic shared
-    memory of the wgmma kernels and of K3's split_kv ring, and how many of
+    memory of the wgmma kernels, K3's split_kv ring and K5's chunked
+    kernel, and how many of
     K3's clusters fit on the card at once at the serving path's shape."""
     import ctypes
 
@@ -1550,15 +1652,17 @@ def build_report(_build):
     fa = _build.load("flash_attention").repro_flash_attention_smem
     bg = _build.load("batched_gemm").repro_batched_gemm_smem
     da = _build.load("decode_attention")
+    wk = _build.load("wkv6_scan").repro_wkv6_scan_smem
     gg.argtypes, gg.restype = [], ctypes.c_int
     for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
-                  (da.repro_decode_attention_clusters, 4)):
+                  (da.repro_decode_attention_clusters, 4), (wk, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
     log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
         f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma D=64 {fa(64)} bytes, D=128 "
         f"{fa(128)} bytes; decode_attention split_kv ring D=64 bf16 "
         f"{da.repro_decode_attention_smem(64, 1)}, D=128 bf16 "
-        f"{da.repro_decode_attention_smem(128, 1)} bytes")
+        f"{da.repro_decode_attention_smem(128, 1)} bytes; wkv6_scan chunked f32 {wk(0, 1)}, "
+        f"bf16 {wk(1, 0)} bytes")
     clusters = da.repro_decode_attention_clusters(64, 1, 1, 4)
     log(f"  decode_attention split_kv clusters of 4 resident at once (D=64 bf16, q_per_kv 1): "
         f"{clusters}")

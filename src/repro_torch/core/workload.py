@@ -8,8 +8,8 @@ the SAME policy core. ``Workload`` is that common currency: anything
 with a mergeability bucket, a cost estimate, a tenant, an SLO, and a way
 to execute a batch of its peers.
 
-Scheduler-facing protocol (duck-typed; ``Workload`` satisfies it via
-plain fields):
+Scheduler-facing protocol (duck-typed; ``GemmProblem`` satisfies it via
+properties, ``Workload`` via plain fields):
 
     tenant_id        : int — isolation / SLO-accounting domain
     bucket           : Hashable — items sharing a bucket may be merged
@@ -23,9 +23,9 @@ plain fields):
                        may additionally be ragged-merged across bucket
                        boundaries (e.g. GEMMs sharing (op, K, N, dtype))
     execute          : Optional[Callable[[List[Workload]], List[Any]]] —
-                       batch executor; ``None`` marks a bare GEMM problem,
-                       which needs the super-kernel compile cache (not
-                       ported yet: the port's scheduler raises)
+                       batch executor; ``None`` routes the batch through
+                       the scheduler's built-in SuperKernelCache (the
+                       GEMM path)
     arrival_time     : float — stamped by the scheduler at submit
     result / completion_time — filled by the scheduler on completion
 """

@@ -53,14 +53,15 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "wkv6_scan": (
         # r, k, v, w, u, s0, s_out, out, B, H, T, N, V, u_rows, strides,
-        # dtype, w_f32, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
+        # dtype, w_f32, variant, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Kernel variants of K2 and K4, by C code: the float32 CUDA-core kernel and
-# the bf16 tensor-core (wgmma + TMA) kernel. K1 and K3 keep their own
-# (``batched_gemm.VARIANT_CODES``, ``decode_attention.VARIANT_CODES``).
+# the bf16 tensor-core (wgmma + TMA) kernel. K1, K3 and K5 keep their own
+# (``batched_gemm.VARIANT_CODES``, ``decode_attention.VARIANT_CODES``,
+# ``wkv6_scan.VARIANT_CODES``).
 VARIANT_CODES = {"cuda_core": 0, "wgmma": 1}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -54,8 +54,8 @@ def flash_attention(
     _build.check_device(q)
     if logit_softcap != 0.0:
         raise NotImplementedError(
-            "flash_attention: logit_softcap is not in the CUDA kernel yet "
-            "(gemma3 slice, see ROADMAP.md)")
+            "flash_attention: the CUDA kernel computes no logit_softcap, as the Pallas "
+            "kernel computes none; ops.flash_attention sends it to the plain version")
     B, Hq, Sq, D = q.shape
     Bk, Hkv, Skv, Dk = k.shape
     if k.shape != v.shape or (Bk, Dk) != (B, D) or Hq % Hkv:

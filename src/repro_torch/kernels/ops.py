@@ -115,12 +115,22 @@ def flash_attention(
     q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Prefill attention (GQA, causal, optional sliding window, q_offset)."""
-    if q.is_cuda:
+    if not q.is_cuda:
+        _check_cpu(q, "flash_attention")
+    if flash_attention_route(q.is_cuda, logit_softcap) == "kernel":
         return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
-                                   logit_softcap=logit_softcap, q_offset=q_offset)
-    _check_cpu(q, "flash_attention")
+                                   q_offset=q_offset)
     return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
                                  logit_softcap=logit_softcap, q_offset=q_offset)
+
+
+def flash_attention_route(is_cuda: bool, logit_softcap: float) -> str:
+    """Where ``flash_attention`` sends a call, decided before any launch:
+    "kernel" (K4) for CUDA tensors without an attention softcap, else
+    "plain". The reference's op sends ``logit_softcap != 0`` to its jnp
+    path, as the Pallas kernel (and K4) computes no softcap; this is that
+    op-level rule, not a fallback (K4's wrapper raises on a softcap)."""
+    return "kernel" if is_cuda and logit_softcap == 0.0 else "plain"
 
 
 def decode_attention_plain(

@@ -5,7 +5,10 @@ Wrapper of ``csrc/wkv6_scan.cu``, the port of the JAX package's Pallas
 returns the state after the last step, so the serving prefill (fresh or a
 chunked continuation) needs no second scan for the state. Its plain
 PyTorch version is ``ref.wkv6_scan``; ``ops.wkv6_scan`` picks between them
-by the device of the tensors.
+by the device of the tensors. On the card every call takes the chunked
+kernel: chunks of ``CHUNK`` steps, each from the state entering it through
+running products of decays (``csrc/wkv6_scan.cu`` gives the formulas), 16
+value columns a block.
 """
 
 from __future__ import annotations
@@ -19,6 +22,19 @@ from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
 SUPPORTED_N = SUPPORTED_V = 64
+# C codes of the source's kernels; "sequential" is the first version of K5
+# (one dependent step at a time), launched only when asked for
+# (chip_smoke.py times it as ``prior_ms``).
+VARIANT_CODES = {"sequential": 0, "chunked": 1}
+CHUNK = 16  # timesteps per chunk of the chunked kernel; boundaries at multiples of it
+
+
+def variant(dtype: torch.dtype, T: int) -> str:
+    """The kernel that scans ``T`` steps of ``dtype``: chunked for every
+    dtype and length the wrapper takes (a scan shorter than ``CHUNK`` is one
+    masked chunk)."""
+    del dtype, T
+    return "chunked"
 
 
 def _heads4(t: torch.Tensor) -> torch.Tensor:
@@ -40,6 +56,8 @@ def wkv6_scan(
     u: torch.Tensor,
     init_state: Optional[torch.Tensor] = None,
     final_state: Optional[torch.Tensor] = None,
+    *,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, w (BH, T, N) or (B, H, T, N); v (..., T, V); u (H, N) or (BH, N)
     float32; init_state (BH, N, V) float32 or None (zero).
@@ -48,8 +66,10 @@ def wkv6_scan(
     step T, written into ``final_state`` (a float32 buffer of BH*N*V
     elements, which may be ``init_state`` itself) or a new (BH, N, V)
     tensor). The inputs may be strided views with a contiguous last dim.
-    Launches the CUDA kernel on the tensors' card; raises on anything the
-    kernel does not take (device, dtype, N or V other than 64, alignment).
+    Launches a CUDA kernel on the tensors' card: ``variant``'s, or
+    ``kernel`` where given (how ``chip_smoke.py`` times the sequential
+    kernel); raises on anything the kernel does not take (device, dtype, N
+    or V other than 64, alignment).
     """
     _build.check_device(r)
     if r.ndim not in (3, 4) or k.shape != r.shape or w.shape != r.shape \
@@ -66,6 +86,9 @@ def wkv6_scan(
         raise TypeError(f"wkv6_scan: r/k/v dtypes {r.dtype} {k.dtype} {v.dtype}")
     if w.dtype not in (r.dtype, torch.float32):
         raise TypeError(f"wkv6_scan: w must be {r.dtype} or float32, got {w.dtype}")
+    kind = kernel or variant(r.dtype, T)
+    if kind not in VARIANT_CODES:
+        raise ValueError(f"wkv6_scan: no kernel {kind!r}")
     r4, k4, v4, w4 = (_heads4(t) for t in (r, k, v, w))
     B, H = r4.shape[:2]
     BH = B * H
@@ -101,7 +124,8 @@ def wkv6_scan(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if init_state is None else init_state.data_ptr(), final_state.data_ptr(),
             out.data_ptr(), B, H, T, N, V, u.shape[0], ctypes.addressof(packed),
-            _build.DTYPE_CODES[r.dtype], int(w.dtype == torch.float32), _build.stream_of(r))
+            _build.DTYPE_CODES[r.dtype], int(w.dtype == torch.float32), VARIANT_CODES[kind],
+            _build.stream_of(r))
     _build.check_status(lib, "wkv6_scan", status)
-    counter.launches += 1
+    counter.launched(kind)
     return out, final_state

@@ -202,3 +202,36 @@ def test_build_library_names_follow_the_sources():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("is_cuda", [True, False])
+def test_softcap_route_is_an_op_level_rule(is_cuda, cap):
+    """K4 takes CUDA tensors without an attention softcap; a softcap goes to
+    the plain version, as the reference's op sends it to its jnp path, and
+    CPU tensors always do. The rule is decided before any launch."""
+    want = "kernel" if is_cuda and cap == 0.0 else "plain"
+    assert ops.flash_attention_route(is_cuda, cap) == want
+
+
+def test_softcap_op_matches_the_reference_op():
+    """ops.flash_attention with a softcap equals the reference's op (which
+    takes its jnp path there), through one counted plain call."""
+    from repro.kernels import ops as jops
+
+    qkv = _qkv(13, 1, 4, 2, 48, 48, 64)
+    ops.reset_counters()
+    got = ops.flash_attention(*(_t(a) for a in qkv), logit_softcap=30.0)
+    want = jops.flash_attention(*(jnp.asarray(a) for a in qkv), logit_softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert ops.COUNTERS["flash_attention"].plain_calls == 1
+    assert all(c.launches == 0 for c in ops.COUNTERS.values())
+
+
+def test_kernel_wrapper_keeps_refusing_a_softcap(monkeypatch):
+    """Called directly, K4's wrapper raises on a softcap before it looks at
+    anything else (the device check is lifted to reach it on the CPU)."""
+    monkeypatch.setattr(_build, "check_device", lambda t: None)
+    q, k, v = (_t(a) for a in _qkv(14, 1, 4, 2, 24, 24, 64))
+    with pytest.raises(NotImplementedError, match="softcap"):
+        cuda_flash.flash_attention(q, k, v, logit_softcap=30.0)
