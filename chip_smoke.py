@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases 4 --profile   # + where a GEMM dispatch's time goes (K1, K2)
     python3 chip_smoke.py --phases 5      # the RWKV-6 serving path only
     python3 chip_smoke.py --phases 5 --profile   # + where an RWKV decode step's time goes
+    python3 chip_smoke.py --phases 6      # paligemma-3b, then musicgen, qwen2, granite, gemma3
+    python3 chip_smoke.py --phases 6 --profile   # + where a paligemma decode step's time goes
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -48,31 +50,46 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      plain path; (c) serves 16 requests for four rwkv6-1.6b tenants (bf16)
      in ``space_time`` and ``time_only`` mode, with K5's launch counter
      read around the run and required at 24 per prefill, every launch
-     chunked; with ``--profile``, K5's share of a prefill.
+     chunked; with ``--profile``, K5's share of a prefill;
+  6. drives paligemma-3b (head dim 256, 8 query heads on one kv head, a
+     stub SigLIP frontend): (a) at full width (bf16, seeded random weights,
+     18 layers), the kernel path's logits against the plain path's over a
+     prefill of 256 seeded patch embeddings (1152 wide) and 521 tokens,
+     then 8 decode steps; (b) serves the 16 requests of phase 3 for four
+     paligemma-3b tenants in both modes (text only, as the reference's
+     engine), every K4 launch wgmma, 18 per prefill, every K3 launch
+     split_kv; (c) holds musicgen-large (a 64-frame prefix), qwen2-7b and
+     granite-3-8b at full width and 2 layers, and gemma3-27b at full width
+     and 6 layers (one global), kernel path against plain path over a
+     prefill and 4 decode steps.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``). K1, K2
-and K4 each have a kernel for the tensor cores, picked by dtype and
-shape before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
+and K4 each have a kernel for the tensor cores, picked by dtype and shape
+before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 ``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
 register-tiled ``simt`` kernel (K split across a cluster) and K2's and K4's
 CUDA-core kernels. K3 takes its ``split_kv`` kernel for every shape: the live
 prefix of each (sequence, kv head) split across a thread-block cluster and
-combined on chip. Phase 1 checks K3 at its tile and split edges, every GQA
-ratio it takes, and that two launches give the same bits; phase 4a checks K1
-at its row-tile, K and N edges and that a problem's output is bit-identical
-whatever the others hold, on both of its kernels. Phase 3 fails unless every
-K4 launch on the serving path took wgmma and every K3 launch split_kv; phase
-4c unless every K1 launch of scheduler run 1 took simt and every K1 and K2
-launch of run 2 wgmma; phase 5c unless every K5 launch took chunked. Every
-row of the ``kernels`` line carries the ``variant``, the ``shape`` it was
-timed at, its launches by variant, and ``prior_ms``: the previous kernel's
-time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
-CUDA-core variant; K3: its first, single-pass kernel; K5: its first,
-sequential kernel), launched explicitly. Kernel times are device times of
-back-to-back launches queued behind a sleep kernel, so the host's launch
-cost does not pace them. The build prints ptxas's report for every kernel,
-the dynamic shared memory of the wgmma kernels, K3's ring and K5's chunked
-kernel, and how many of K3's clusters fit on the card at once.
+combined on chip. K3 and K4 take head dims 64, 112, 128 and 256; bf16 at
+head dim 112 takes K4's CUDA-core kernel. Phase 1 checks K3 at its tile and split
+edges, every GQA ratio it takes, at every head dim, and that two launches give
+the same bits; phase 4a checks K1 at its row-tile, K and N edges and that a
+problem's output is bit-identical whatever the others hold, on both of its
+kernels. Phases 3 and 6b fail unless every K4 launch on the serving path took
+wgmma, once per layer per prefill, and every K3 launch split_kv; phases 2, 6a
+and 6c unless K4 and K3 launched once per layer per prefill and decode step,
+by the wrapper's rule; phase 4c unless every K1 launch of scheduler run 1 took
+simt and every K1 and K2 launch of run 2 wgmma; phase 5c unless every K5
+launch took chunked. Every row of the ``kernels`` line carries the
+``variant``, the ``shape`` it was timed at, its launches by variant, and
+``prior_ms``: the previous kernel's time at the same inputs (K1: its first,
+CUDA-core kernel; K2, K4: the CUDA-core variant; K3: its first, single-pass
+kernel, null at D = 256, where it has no instance; K5: its first, sequential
+kernel), launched explicitly. Kernel times are device times of back-to-back
+launches queued behind a sleep kernel, so the host's launch cost does not pace
+them. The build prints ptxas's report for every kernel, the dynamic shared
+memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
+of K3's clusters fit on the card at once. Each phase prints its wall time.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
@@ -82,6 +99,7 @@ there is no CUDA card, if the port cannot be imported, or if any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -107,7 +125,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:150",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:84",
 }
-ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phase 3's path
+ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phases 3 and 6's path
+EXTRA_HEAD_DIMS = (112, 256)  # zamba2-7b's and paligemma-3b's head dims
 
 
 SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms at the H100's ~2 GHz
@@ -413,6 +432,21 @@ def phase_kernels(ops, dev, seed):
             check_flash(ops, dev, gen, dtype, 1, 8, 8, 1, 777, D, 0)
             check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
             check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
+        # head dims 112 (zamba2-7b) and 256 (paligemma-3b): K3 at its tile and
+        # split edges at q_per_kv 1 and 8; K4 with lengths off the 64-row and
+        # 64-key tiles, a window, runtime offsets and no causal mask
+        for D in EXTRA_HEAD_DIMS:
+            for S in (777, 2048):
+                for g in (1, 8):
+                    check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D,
+                                 decode_edge_lengths(S, 10))
+            check_flash(ops, dev, gen, dtype, 1, 8, 1, 777, 777, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 2, 2, 130, 130, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 8, 1, 777, 777, D, 512)
+            check_flash(ops, dev, gen, dtype, 2, 8, 1, 100, 300, D, 0)
+            check_flash(ops, dev, gen, dtype, 1, 8, 1, 100, 300, D, 48, q_offset=150)
+            check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
+            check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -444,36 +478,69 @@ def compare_logits(what, got, want):
         raise PhaseFailed(f"model {what}: kernel path and plain path disagree")
 
 
-def phase_model(dev, seed):
+def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
+    """``cfg`` at full width (its dtype, seeded random weights): the kernel
+    path's logits against the plain path's on the same weights, over a
+    prefill of ``prompt_len`` tokens (for a stub frontend, seeded prefix
+    embeddings take the first P positions) and ``decode_steps`` greedy
+    decode steps. Fails unless K4 launched once per attention layer in the
+    prefill and K3 once per layer per decode step, every launch the
+    variant the wrapper's rule gives at the config's head dim."""
     import torch
 
-    from repro_torch.config import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("stablelm-1.6b")
+    t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     plain = build_model(cfg, device=dev, plain_kernels=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen)
     nparams = sum(t.numel() for t in tree_leaves(params))
-    log(f"  stablelm-1.6b {cfg.dtype}: {nparams / 1e9:.3f}B params, "
-        f"{cfg.num_layers} layers, d_model {cfg.d_model}")
     rng = np.random.RandomState(seed)
-    tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, PROMPT_LEN)), device=dev)
+    tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, prompt_len)), device=dev)
+    prefix, what = None, f"prefill {prompt_len} tokens"
+    if cfg.num_prefix_embeddings:
+        P, width = cfg.num_prefix_embeddings, cfg.frontend_embed_dim or cfg.d_model
+        prefix = torch.as_tensor(rng.standard_normal((1, P, width)).astype(np.float32),
+                                 device=dev)
+        what = f"prefill {P} prefix embeddings ({width} wide) + {prompt_len - P} tokens"
+    log(f"  {cfg.name} {cfg.dtype}: {nparams / 1e9:.3f}B params, {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
+    ops.reset_counters()
     with torch.no_grad():
-        lk, ck = model.forward_prefill(params, tokens, CACHE_LEN)
-        lp, cp = plain.forward_prefill(params, tokens, CACHE_LEN)
-        compare_logits(f"prefill {PROMPT_LEN} tokens", lk, lp)
-        lengths = torch.tensor([PROMPT_LEN], device=dev)
-        for step in range(DECODE_STEPS):
+        lk, ck = model.forward_prefill(params, tokens, CACHE_LEN, prefix_embeds=prefix)
+        lp, cp = plain.forward_prefill(params, tokens, CACHE_LEN, prefix_embeds=prefix)
+        compare_logits(f"{cfg.name} {what}", lk, lp)
+        lengths = torch.tensor([prompt_len], device=dev)
+        for step in range(decode_steps):
             tok = lk.argmax(-1)  # both paths decode the same token
             lk, ck = model.forward_decode(params, tok, ck, lengths)
             lp, cp = plain.forward_decode(params, tok, cp, lengths)
-            compare_logits(f"decode step {step}", lk, lp)
+            compare_logits(f"{cfg.name} decode step {step}", lk, lp)
             lengths = lengths + 1
     torch.cuda.synchronize()
+    dtype = model.dtype
+    for name, want, n in (
+            ("flash_attention", fa.variant(dtype, cfg.head_dim), cfg.num_layers),
+            ("decode_attention", da.variant(dtype, cfg.head_dim), cfg.num_layers * decode_steps)):
+        by_variant = dict(ops.COUNTERS[name].variants)
+        if by_variant != {want: n}:
+            raise PhaseFailed(f"{cfg.name}: {name} launches {by_variant}, not {n} {want}")
+    log(f"    kernel launches: flash_attention {cfg.num_layers} {fa.variant(dtype, cfg.head_dim)}, "
+        f"decode_attention {cfg.num_layers * decode_steps} {da.variant(dtype, cfg.head_dim)} "
+        f"(D={cfg.head_dim}); {time.perf_counter() - t0:.1f} s")
+    del params, ck, cp
+    torch.cuda.empty_cache()
+
+
+def phase_model(ops, dev, seed):
+    from repro_torch.config import get_config
+
+    model_vs_plain(ops, get_config("stablelm-1.6b"), dev, seed, PROMPT_LEN, DECODE_STEPS)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -528,26 +595,33 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
     return tokens, reqs, launches
 
 
-def phase_serving(dev, seed, ops, profile=False):
-    """Phase 3; returns (launches over both modes, per mode, prompt lengths).
-    Fails unless every K4 launch took wgmma and every K3 launch split_kv."""
+def phase_serving(dev, seed, ops, arch, profile=False):
+    """Phases 3 and 6b: R_TENANTS tenants of ``arch`` served in both modes;
+    returns (config, launches over both modes, per mode, prompt lengths).
+    Fails unless every K4 launch took wgmma, once per layer per prefill in
+    each mode, and every K3 launch split_kv."""
     from repro_torch.config import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(arch)
     model = build_model(cfg, device=dev)
     stacked = stacked_tenants(model, dev, seed)
     prompts, lens = serve_prompts(cfg, seed)
     launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
     for name, want in (("flash_attention", "wgmma"), ("decode_attention", "split_kv")):
         by_variant = dict(ops.COUNTERS[name].variants)
-        log(f"  {name} launches by variant on the serving path: {by_variant}")
+        log(f"  {name} launches by variant on the serving path (D={cfg.head_dim}): {by_variant}")
         if by_variant.get(want, 0) != launches[name]:
             raise PhaseFailed(f"{name}: {launches[name]} launches on the serving path, not all "
                               f"{want}: {by_variant}")
+    for mode, per in zip(("space_time", "time_only"), per_mode):
+        if per["flash_attention"] != cfg.num_layers * REQUESTS:
+            raise PhaseFailed(f"{mode}: flash_attention launched {per['flash_attention']} times, "
+                              f"not {cfg.num_layers} per prefill")
+    log(f"  flash_attention launches per mode: {cfg.num_layers} layers x {REQUESTS} prefills")
     if profile:
         profile_serving(model, stacked, prompts)
-    return launches, per_mode, lens
+    return cfg, launches, per_mode, lens
 
 
 def stacked_tenants(model, dev, seed, init=None):
@@ -644,29 +718,33 @@ def profile_serving(model, stacked, prompts, steps=8):
         torch.cuda.empty_cache()
 
 
-def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches, per_mode):
-    """Kernel vs plain vs SDPA at the serving path's own shapes (bf16): K3
-    at the merged decode step (space_time) and at one tenant's decode
-    (time_only), each row with its mode's launches; K4 at a median prefill."""
+def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode):
+    """Kernel vs plain vs SDPA at a serving path's own shapes (bf16, ``cfg``'s
+    heads and head dim): K3 at the merged decode step (space_time) and at
+    one tenant's decode (time_only), each row with its mode's launches; K4
+    at a median prefill. ``prior_ms`` is K3's first kernel (where it has an
+    instance at the head dim) and K4's CUDA-core variant."""
     import torch
+
+    from repro_torch.kernels import decode_attention as da
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 100)
     lens_mid = [n + MAX_NEW // 2 for n in prompt_lens]  # mid-generation cache lengths
-    n_heads, head_dim = 32, 64
-    log(f"  decode_attention at the merged decode step: R*B={R_TENANTS * SLOTS}, "
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    prior = D in da.SINGLE_PASS_HEAD_DIMS
+    log(f"  {cfg.name} decode_attention at the merged decode step: R*B={R_TENANTS * SLOTS}, "
         f"cache {CACHE_LEN}, lengths = prompt + {MAX_NEW // 2}")
-    merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * SLOTS, n_heads, n_heads,
-                            CACHE_LEN, head_dim, lens_mid, prior=True)
+    merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * SLOTS, Hq, Hkv, CACHE_LEN,
+                            D, lens_mid, prior=prior)
     alone = lens_mid[::R_TENANTS]  # tenant 0's requests: prompts go to tenants in turn
-    log(f"  decode_attention at a time_only decode step: tenant 0 alone, B={SLOTS}, "
+    log(f"  {cfg.name} decode_attention at a time_only decode step: tenant 0 alone, B={SLOTS}, "
         f"lengths {alone}")
-    single = measure_decode(ops, dev, gen, torch.bfloat16, SLOTS, n_heads, n_heads, CACHE_LEN,
-                            head_dim, alone, prior=True)
+    single = measure_decode(ops, dev, gen, torch.bfloat16, SLOTS, Hq, Hkv, CACHE_LEN, D, alone,
+                            prior=prior)
     s_med = int(np.median(prompt_lens))
-    log(f"  flash_attention at a median prefill: {s_med} tokens")
-    fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, n_heads, n_heads, s_med, s_med,
-                       head_dim, 0, prior=True)
+    log(f"  {cfg.name} flash_attention at a median prefill: {s_med} tokens")
+    fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, Hq, Hkv, s_med, s_med, D, 0, prior=True)
     per_st, per_to = per_mode
     rows = []
     for name, shape, n, row in (
@@ -674,10 +752,11 @@ def main_path_kernel_rows(ops, dev, seed, prompt_lens, launches, per_mode):
             ("decode_attention", "one tenant's decode (time_only)", per_to["decode_attention"],
              single),
             ("flash_attention", "median prefill", launches["flash_attention"], fl)):
+        row.setdefault("prior_ms", None)  # K3's first kernel has no instance at this D
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "shape": shape, "launches": n,
-                     "launches_by_variant": {row["variant"]: n}, **row})
+                     "replaces": REPLACES[name], "shape": f"{cfg.name} {shape}, D={D}",
+                     "launches": n, "launches_by_variant": {row["variant"]: n}, **row})
     return rows
 
 
@@ -1635,13 +1714,69 @@ def profile_prefill(model, stacked, prompts):
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
+# ----------------------------------------------------------------- phase 6
+# paligemma-3b at full width: head dim 256, one kv head for 8
+# query heads, its stub SigLIP frontend fed 256 seeded patch embeddings;
+# then musicgen-large, qwen2-7b, granite-3-8b and gemma3-27b.
+PALI = "paligemma-3b"
+# (arch, layers kept, prompt tokens): full width, depth cut so the whole run
+# stays in time. gemma3 keeps 6 layers, so its sixth (global) layer runs
+# beside five sliding-window ones, and a prompt past its 1024-key window, so
+# K4 masks by the window and the ring caches wrap.
+OTHER_CONFIGS = (("musicgen-large", 2, PROMPT_LEN), ("qwen2-7b", 2, PROMPT_LEN),
+                  ("granite-3-8b", 2, PROMPT_LEN), ("gemma3-27b", 6, 1300))
+OTHER_DECODE_STEPS = 4
+
+
+def phase_pali(ops, dev, seed, profile=False):
+    """Phase 6: (a) paligemma-3b's kernel path against its plain path over
+    a prefill of 256 prefix embeddings + 521 tokens and 8 decode steps; (b)
+    four tenants served in both modes (K4 wgmma at D = 256 once per layer
+    per prefill, K3 split_kv), with its kernels rows; (c) musicgen-large,
+    qwen2-7b, granite-3-8b and gemma3-27b, kernel path against plain path
+    over a prefill and 4 decode steps. Returns the kernels rows."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+
+    cfg = get_config(PALI)
+    if cfg.head_dim != 256:
+        raise PhaseFailed(f"{PALI}: head dim {cfg.head_dim}, not 256")
+    log(f" (a) {PALI} at full width, kernel path vs plain path")
+    model_vs_plain(ops, cfg, dev, seed, PROMPT_LEN, DECODE_STEPS)
+    log(f" (b) serving {REQUESTS} requests for {R_TENANTS} {PALI} tenants (text only, as the "
+        "reference's engine)")
+    cfg, launches, per_mode, lens = phase_serving(dev, seed, ops, PALI, profile)
+    torch.cuda.empty_cache()
+    log(f"kernels at {PALI}'s serving path's shapes")
+    rows = main_path_kernel_rows(ops, dev, seed, cfg, lens, launches, per_mode)
+    log(f" (c) {', '.join(a for a, _, _ in OTHER_CONFIGS)} at full width, cut in depth")
+    for arch, layers, n in OTHER_CONFIGS:
+        full = get_config(arch)
+        log(f"  {arch}: {layers} of {full.num_layers} layers")
+        model_vs_plain(ops, dataclasses.replace(full, num_layers=layers), dev, seed, n,
+                       OTHER_DECODE_STEPS)
+    return rows
+
+
 # ----------------------------------------------------------------- main
+@contextlib.contextmanager
+def phase_wall(n):
+    t = time.perf_counter()
+    yield
+    log(f"phase {n}: {time.perf_counter() - t:.1f} s wall")
+
+
 def build_report(_build):
-    """ptxas's report for every kernel (entry function, registers, spills;
-    static shared memory is on the registers line), the dynamic shared
-    memory of the wgmma kernels, K3's split_kv ring and K5's chunked
-    kernel, and how many of
-    K3's clusters fit on the card at once at the serving path's shape."""
+    """ptxas's report for every kernel instance (entry function, registers,
+    spills; static shared memory is on the registers line), the dynamic
+    shared memory of the wgmma kernels (K4 at D = 64, 128, 256), K3's
+    split_kv ring at every head dim in both dtypes (held equal to the
+    wrapper's ``ring_bytes``) and K5's chunked kernel, and how many of K3's
+    clusters fit on the card at once at stablelm's and paligemma's decode
+    shapes."""
     import ctypes
 
     for name in _build.SOURCES:
@@ -1658,16 +1793,31 @@ def build_report(_build):
                   (da.repro_decode_attention_clusters, 4), (wk, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
     log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
-        f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma D=64 {fa(64)} bytes, D=128 "
-        f"{fa(128)} bytes; decode_attention split_kv ring D=64 bf16 "
-        f"{da.repro_decode_attention_smem(64, 1)}, D=128 bf16 "
-        f"{da.repro_decode_attention_smem(128, 1)} bytes; wkv6_scan chunked f32 {wk(0, 1)}, "
-        f"bf16 {wk(1, 0)} bytes")
-    clusters = da.repro_decode_attention_clusters(64, 1, 1, 4)
-    log(f"  decode_attention split_kv clusters of 4 resident at once (D=64 bf16, q_per_kv 1): "
-        f"{clusters}")
-    if clusters <= 0:
-        raise PhaseFailed("decode_attention: no cluster of the split_kv kernel fits on the card")
+        f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma "
+        + ", ".join(f"D={d} {fa(d)}" for d in (64, 128, 256))
+        + " bytes; decode_attention split_kv ring "
+        + ", ".join(f"D={d} {t} {da.repro_decode_attention_smem(d, c)}"
+                    for d in (64, 112, 128, 256) for t, c in (("f32", 0), ("bf16", 1)))
+        + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes")
+    import torch
+
+    from repro_torch.kernels import decode_attention as dapy
+
+    for d in (64, 112, 128, 256):  # the wrapper's mirror of the ring agrees with the source
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            if da.repro_decode_attention_smem(d, code) != dapy.ring_bytes(dtype, d):
+                raise PhaseFailed(f"decode_attention: ring of D={d} {dtype} is "
+                                  f"{da.repro_decode_attention_smem(d, code)} bytes, the wrapper "
+                                  f"says {dapy.ring_bytes(dtype, d)}")
+    if fa(256) <= 0:
+        raise PhaseFailed("flash_attention: no wgmma kernel at D=256")
+    for d, g in ((64, 1), (256, 8)):  # stablelm's and paligemma's decode steps
+        clusters = da.repro_decode_attention_clusters(d, 1, g, 4)
+        log(f"  decode_attention split_kv clusters of 4 resident at once (D={d} bf16, "
+            f"q_per_kv {g}): {clusters}")
+        if clusters <= 0:
+            raise PhaseFailed("decode_attention: no cluster of the split_kv kernel fits on the "
+                              "card")
 
 
 def gpu_identity() -> str:
@@ -1681,10 +1831,10 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3 and 5, profile steady decode steps of both "
+                    help="after phases 3, 5 and 6, profile steady decode steps of both "
                          "modes; after phase 4, profile the scheduler's two GEMM streams")
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
@@ -1722,25 +1872,39 @@ def main(argv=None) -> int:
             build_report(_build)
         if 1 in phases:
             log("phase 1: kernels against their plain versions on the card")
-            phase_kernels(ops, dev, args.seed)
+            with phase_wall(1):
+                phase_kernels(ops, dev, args.seed)
         if 2 in phases:
             log("phase 2: stablelm-1.6b at full width, kernel path vs plain path")
-            phase_model(dev, args.seed)
+            with phase_wall(2):
+                phase_model(ops, dev, args.seed)
         if 3 in phases:
             log(f"phase 3: serving {REQUESTS} requests for {R_TENANTS} stablelm-1.6b tenants")
-            launches, per_mode, prompt_lens = phase_serving(dev, args.seed, ops, args.profile)
-            log("kernels at the serving path's shapes")
-            rows += main_path_kernel_rows(ops, dev, args.seed, prompt_lens, launches, per_mode)
+            with phase_wall(3):
+                cfg, launches, per_mode, prompt_lens = phase_serving(
+                    dev, args.seed, ops, "stablelm-1.6b", args.profile)
+                log("kernels at the serving path's shapes")
+                rows += main_path_kernel_rows(ops, dev, args.seed, cfg, prompt_lens, launches,
+                                              per_mode)
         if gemm_apart:
             torch.cuda.empty_cache()
-            rows += phase_gemm_apart(args.seed, args.profile)
+            with phase_wall(4):
+                rows += phase_gemm_apart(args.seed, args.profile)
         elif 4 in phases:
             log("phase 4: the GEMM super-kernel path (K1, K2, Table 1, the scheduler)")
-            rows += phase_gemm(ops, dev, args.seed, args.profile)
+            with phase_wall(4):
+                rows += phase_gemm(ops, dev, args.seed, args.profile)
         if 5 in phases:
             torch.cuda.empty_cache()
             log(f"phase 5: the RWKV-6 serving path ({RWKV}, K5)")
-            rows += phase_rwkv(ops, dev, args.seed, args.profile)
+            with phase_wall(5):
+                rows += phase_rwkv(ops, dev, args.seed, args.profile)
+        if 6 in phases:
+            torch.cuda.empty_cache()
+            log(f"phase 6: {PALI} at full width (K3, K4 at D=256), then musicgen-large, "
+                "qwen2-7b, granite-3-8b and gemma3-27b")
+            with phase_wall(6):
+                rows += phase_pali(ops, dev, args.seed, args.profile)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

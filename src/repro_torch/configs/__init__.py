@@ -1,5 +1,21 @@
 """Architectures the port runs; each module registers its config on import."""
 
-from repro_torch.configs import rwkv6_1_6b, stablelm_1_6b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma3_27b,
+    granite_3_8b,
+    musicgen_large,
+    paligemma_3b,
+    qwen2_7b,
+    rwkv6_1_6b,
+    stablelm_1_6b,
+)
 
-PORTED_ARCHS = ("stablelm-1.6b", "rwkv6-1.6b")
+PORTED_ARCHS = (
+    "stablelm-1.6b",
+    "rwkv6-1.6b",
+    "paligemma-3b",
+    "musicgen-large",
+    "qwen2-7b",
+    "granite-3-8b",
+    "gemma3-27b",
+)

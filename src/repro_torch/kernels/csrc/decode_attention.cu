@@ -24,23 +24,28 @@
 //   walks more than ~L/splits keys and a short sequence leaves ranks empty.
 //   A 64-key tile of K (and of V) is one contiguous run of 64*D elements
 //   ((b*Hkv + h)*S*D onward), fetched by one thread as a 1-D bulk copy into a
-//   2-3 stage ring on mbarriers, kept in the input dtype (not widened), and
-//   only the live rows are copied (the mbarrier expects exactly those bytes);
-//   rows at or past L are never read. Every thread works: a key is LPK lanes
-//   (8 to 32, chosen so that q and the accumulator of every query head fit
-//   in 32 registers), each holding D/LPK of its values; the lanes' partial dot
-//   products meet by xor-shuffles, and each lane keeps the P.V sums of its own
-//   D/LPK columns. Every group of LPK lanes runs its own online softmax over
-//   the keys it sees (up to 4 at a time); groups merge by shuffles, warps
-//   through shared memory in warp order, and after cluster.sync() the
-//   cluster's ranks share the G*D outputs and each combines the s partials
-//   (m, l, acc) in rank order through distributed shared memory; a second
-//   cluster.sync() keeps every partial alive until it has been read. One
-//   launch, no workspace, no atomics: bitwise repeatable.
-// * single_pass (the first version, launched only when asked for): one block
-//   of 128 threads per (b, kv head) walking the whole live prefix in 64-key
-//   tiles, each tile loaded synchronously and widened to float32, then
-//   scores, softmax and P.V in turn.
+//   1-3 stage ring on mbarriers (one stage only for float32 at D = 256, whose
+//   64-key K and V tiles take 128 KB), kept in the input dtype (not widened),
+//   and only the live rows are copied (the mbarrier expects exactly those
+//   bytes); rows at or past L are never read. Every thread works: a key is
+//   LPK lanes (8 to 32, chosen so that q and the accumulator of every query
+//   head fit in 32 registers where 32 lanes allow it; 64 at G = 8, D = 256),
+//   each holding one slice of its values; the lanes' partial dot products
+//   meet by xor-shuffles, and each lane keeps the P.V sums of its own
+//   columns. Head dims 64, 128 and 256 split evenly over the lanes; D = 112
+//   takes the layout of 128 columns, and the lanes whose slice lies past the
+//   row hold zeros and load nothing (Cfg::kDP). Every group of LPK lanes
+//   runs its own online softmax over the keys it sees (up to 4 at a time);
+//   groups merge by shuffles, warps through shared memory in warp order,
+//   and after cluster.sync() the cluster's ranks share the G*D outputs and
+//   each combines the s partials (m, l, acc) in rank order through
+//   distributed shared memory; a second cluster.sync() keeps every partial
+//   alive until it has been read. One launch, no workspace, no atomics:
+//   bitwise repeatable.
+// * single_pass (the first version, launched only when asked for; D = 64
+//   and 128 only): one block of 128 threads per (b, kv head) walking the
+//   whole live prefix in 64-key tiles, each tile loaded synchronously and
+//   widened to float32, then scores, softmax and P.V in turn.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -210,28 +215,41 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                  // keys per tile
 constexpr int kWarpKeys = kTile / kWarps;  // keys of each tile that one warp takes
 constexpr int kMaxSplits = 8;              // the portable cluster size
+constexpr int kMaxRing = 200 * 1024;       // the K/V ring's most bytes (227 KB a block)
 
 // The layout of the kernel for dtype BF16, head dim D and up to G query heads
-// per KV head.
+// per KV head. Lanes are laid out for kDP, the power-of-two width at or above
+// D (64, 128 or 256): at D = 112 a row is laid out as 128 columns and the
+// lanes whose slice starts at or past D hold nothing (every slice lies wholly
+// inside the row or wholly past it), so each live slice stays a whole 8-byte
+// or 16-byte-multiple vector at an aligned address.
 template <bool BF16, int D, int G>
 struct Cfg {
   using T = typename Elem<BF16>::T;
+  static constexpr int kDP = D <= 64 ? 64 : (D <= 128 ? 128 : 256);
+  static constexpr bool kPadded = kDP != D;
   // lanes per key: as few as 8 (4 keys per warp step), as many as it takes
-  // to keep G*D/kLPK (q and accumulator values per lane) at 32 or fewer
-  static constexpr int kLPK = G * D / 32 < 8 ? 8 : (G * D / 32 > 32 ? 32 : G * D / 32);
+  // to keep G*kDP/kLPK (q and accumulator values per lane) at 32 or fewer,
+  // up to the whole warp (64 values per lane at G = 8, D = 256)
+  static constexpr int kLPK = G * kDP / 32 < 8 ? 8 : (G * kDP / 32 > 32 ? 32 : G * kDP / 32);
   static constexpr int kKPS = 32 / kLPK;            // keys per warp step
-  static constexpr int kVals = D / kLPK;            // values of a row per lane
+  static constexpr int kVals = kDP / kLPK;          // values of a row per lane
   static constexpr int kSteps = kWarpKeys / kKPS;   // warp steps per tile
   static constexpr int kChunk = kSteps < 4 ? kSteps : 4;  // steps per softmax update
   static constexpr int kTileElems = kTile * D;
   static constexpr int kTileBytes = kTileElems * (int)sizeof(T);
-  static constexpr int kStages = 2 * kTileBytes <= 16384 ? 3 : 2;
+  // 3 stages of small tiles, 2 where two stages of K and V fit in kMaxRing,
+  // else 1 (float32 at D = 256: one 64-key tile of K and V is 128 KB)
+  static constexpr int kStages =
+      2 * kTileBytes <= 16384 ? 3 : (4 * kTileBytes <= kMaxRing ? 2 : 1);
   static constexpr int kSmemBytes = kStages * 2 * kTileBytes;  // the K/V ring
   // After the key loop the ring holds each warp's partial, then the CTA's:
   // acc[G][D], m[G], l[G] in float32.
   static constexpr int kPart = G * (D + 2);
   static_assert((kWarps + 1) * kPart * 4 <= kSmemBytes, "partials reuse the ring");
   static_assert(kVals * sizeof(T) % 8 == 0, "a lane's slice is 8-byte vectors");
+  static_assert(D % kVals == 0, "a slice lies wholly inside the row or wholly past it");
+  static_assert(kTileBytes % 16 == 0, "bulk copies move 16-byte multiples");
 };
 
 // N values of a row slice at p (8-byte aligned; 16 if a multiple of 16
@@ -278,6 +296,7 @@ decode_split(const typename Elem<BF16>::T* __restrict__ q,
   const int lane = tid % 32;
   const int kg = lane / C::kLPK;  // which of the warp step's keys this lane works on
   const int col = (lane % C::kLPK) * C::kVals;  // first of this lane's columns
+  const bool owns = !C::kPadded || col < D;      // false: a lane past the row, holding zeros
 
   // this rank's share of the live prefix: whole 64-key tiles, in rank order
   int L = lengths[b];
@@ -310,7 +329,7 @@ decode_split(const typename Elem<BF16>::T* __restrict__ q,
   float qv[G][C::kVals];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (g < groups) {
+    if (g < groups && owns) {
       load_slice<E>(q + q_base + g * D + col, qv[g]);
     } else {
 #pragma unroll
@@ -342,7 +361,12 @@ decode_split(const typename Elem<BF16>::T* __restrict__ q,
         key[u] = warp * kWarpKeys + (c0 + u) * C::kKPS + kg;
         live[u] = key[u] < n;  // a row past the live ones holds stale data: never used
         float kv[C::kVals];
-        load_slice<E>(ks + key[u] * D + col, kv);
+        if (owns) {
+          load_slice<E>(ks + key[u] * D + col, kv);
+        } else {
+#pragma unroll
+          for (int i = 0; i < C::kVals; ++i) kv[i] = 0.f;
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float d = 0.f;
@@ -373,7 +397,7 @@ decode_split(const typename Elem<BF16>::T* __restrict__ q,
       }
 #pragma unroll
       for (int u = 0; u < C::kChunk; ++u) {
-        if (!live[u]) continue;
+        if (!live[u] || !owns) continue;
         float vv[C::kVals];
         load_slice<E>(vs + key[u] * D + col, vv);
 #pragma unroll
@@ -411,8 +435,10 @@ decode_split(const typename Elem<BF16>::T* __restrict__ q,
   if (kg == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      if (owns) {
 #pragma unroll
-      for (int i = 0; i < C::kVals; ++i) wp[g * D + col + i] = acc[g][i];
+        for (int i = 0; i < C::kVals; ++i) wp[g * D + col + i] = acc[g][i];
+      }
       if (col == 0) {
         wp[G * D + g] = m[g];
         wp[G * D + G + g] = l[g];
@@ -520,15 +546,31 @@ int dispatch_split(const void* q, const void* k, const void* v, const int32_t* l
                    int B, int Hq, int Hkv, int S, int D, int dtype, int splits, float scale,
                    cudaStream_t st, int* clusters) {
   if (splits < 1 || splits > split::kMaxSplits || (long)B * Hkv > 65535) return REPRO_BAD_ARGUMENT;
-  if (dtype == 0 && D == 64)
-    return launch_split<false, 64>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st, clusters);
-  if (dtype == 0 && D == 128)
-    return launch_split<false, 128>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st, clusters);
-  if (dtype == 1 && D == 64)
-    return launch_split<true, 64>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st, clusters);
-  if (dtype == 1 && D == 128)
-    return launch_split<true, 128>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st, clusters);
+#define REPRO_SPLIT(BF16, DIM)                                                                  \
+  if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                      \
+    return launch_split<BF16, DIM>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st,     \
+                                   clusters);
+  REPRO_SPLIT(false, 64)
+  REPRO_SPLIT(false, 112)
+  REPRO_SPLIT(false, 128)
+  REPRO_SPLIT(false, 256)
+  REPRO_SPLIT(true, 64)
+  REPRO_SPLIT(true, 112)
+  REPRO_SPLIT(true, 128)
+  REPRO_SPLIT(true, 256)
+#undef REPRO_SPLIT
   return REPRO_BAD_ARGUMENT;
+}
+
+template <bool BF16>
+int split_smem(int D) {
+  switch (D) {
+    case 64: return split::Cfg<BF16, 64, 1>::kSmemBytes;
+    case 112: return split::Cfg<BF16, 112, 1>::kSmemBytes;
+    case 128: return split::Cfg<BF16, 128, 1>::kSmemBytes;
+    case 256: return split::Cfg<BF16, 256, 1>::kSmemBytes;
+    default: return 0;
+  }
 }
 
 }  // namespace
@@ -567,10 +609,10 @@ int repro_decode_attention_clusters(int D, int dtype, int q_per_kv, int splits) 
   return err == 0 ? n : -1;
 }
 
-// Dynamic shared memory of the split_kv kernel (its K/V ring), in bytes.
+// Dynamic shared memory of the split_kv kernel (its K/V ring), in bytes (0
+// for a head dim it does not take).
 int repro_decode_attention_smem(int D, int dtype) {
-  if (D == 64) return dtype == 1 ? split::Cfg<true, 64, 1>::kSmemBytes : split::Cfg<false, 64, 1>::kSmemBytes;
-  return dtype == 1 ? split::Cfg<true, 128, 1>::kSmemBytes : split::Cfg<false, 128, 1>::kSmemBytes;
+  return dtype == 1 ? split_smem<true>(D) : split_smem<false>(D);
 }
 
 const char* repro_decode_attention_error(int code) {

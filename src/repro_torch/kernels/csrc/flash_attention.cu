@@ -21,7 +21,7 @@
 // picks the variant from dtype and head dim before the launch, never as
 // a fallback:
 //
-// * wgmma (bf16, D = 64 or 128). One consumer warpgroup and one producer
+// * wgmma (bf16, D = 64, 128 or 256). One consumer warpgroup and one producer
 //   warp. The producer loads the Q tile once, then K/V tiles through a
 //   2-stage mbarrier ring, all by TMA over 3-D maps (B*H, S, D), so rows
 //   past Sq or Skv read zeros (no stale NaN meets a zero weight).
@@ -30,15 +30,21 @@
 //   sum by quad shuffles, with element masks only on tiles that cross the
 //   diagonal, the window edge or Skv. P is rounded to bf16 in registers and
 //   is the register A operand of O += P V (m64nDk16, V MN-major through the
-//   transpose bit): the accumulator of one product is the A fragment of the
-//   next (sm90.cuh). That rounding of P to the value dtype is the Pallas
-//   kernel's own (flash_attention.py:70). Query tiles are launched latest
-//   first, so the longest causal rows start first.
-// * CUDA cores (float32). Four threads share one query row, each holding a
-//   strided quarter of q and of the accumulator in registers, so D = 128
-//   fits without spilling; K/V tiles are widened to float32 in shared
-//   memory by 16-byte vector loads; a partial dot product is finished with
-//   two shuffles.
+//   transpose bit; at D = 256 two m64n128k16 halves, boxes 0-1 and 2-3 of V,
+//   into the two halves of a 128-float accumulator): the accumulator of one
+//   product is the A fragment of the next (sm90.cuh). At D = 256 a stage of
+//   K and V is 64 KB and Q 32 KB: ~161 KB of shared memory with 2 stages.
+//   That rounding of P to the value dtype is the Pallas kernel's own
+//   (flash_attention.py:70). Query tiles are launched latest first, so the
+//   longest causal rows start first.
+// * CUDA cores (float32, and bf16 at D = 112, whose 224-byte rows are not
+//   whole 128-byte swizzle rows). Four threads share one query row, each
+//   holding a strided quarter of q and of the accumulator in registers;
+//   K/V tiles are widened to float32 in (static) shared memory by 16-byte
+//   vector loads, BK keys at a time, BK shrinking as D grows (64 keys at
+//   D = 64, 32 at 112 and 128, 16 at 256) so the two tiles stay within 48 KB
+//   and s[BK] + q + acc within registers; a partial dot product is finished
+//   with two shuffles.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -153,7 +159,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int Sq, int Skv, int causal, int window,
            int q_offset, float scale, cudaStream_t stream) {
   using T = typename Elem<BF16>::T;
-  constexpr int BK = D >= 128 ? 32 : 64;  // keeps s[BK] + q + acc in registers
+  // keys per tile: 2 * BK * D floats of static shared memory (<= 48 KB) and
+  // s[BK] + q + acc (BK + D / 2 floats) in registers
+  constexpr int BK = D > 128 ? 16 : (D > 64 ? 32 : 64);
   dim3 grid((Sq + kRows - 1) / kRows, B * Hq);
   flash_kernel<BF16, D, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -181,15 +189,21 @@ struct Smem {
                                 sm90::kAtomBytes;
 };
 
-template <int N>
-__device__ __forceinline__ void mma_sv(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void mma_sv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
-  sm90::wgmma_m64n64k16_rs<1>(o, a, b, 1);
-}
-template <>
-__device__ __forceinline__ void mma_sv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
-  sm90::wgmma_m64n128k16_rs<1>(o, a, b, 1);
+// O (64 x D) += P (k16 slice kk, registers) V (slice kk of the tile at v_s).
+// D = 256 is two m64n128k16 products, V's boxes 0-1 into o[0..63] and boxes
+// 2-3 into o[64..127]: the accumulator of n128 covers columns 8j + ... in
+// d[4j + ...], so the two halves are laid out as one n256 accumulator.
+template <int D>
+__device__ __forceinline__ void mma_sv(float (&o)[D / 2], const uint32_t (&a)[4], const char* v_s,
+                                       int kk) {
+  if constexpr (D == 64) {
+    sm90::wgmma_m64n64k16_rs<1>(o, a, sm90::desc_mn_major(v_s, kk, kBox), 1);
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      sm90::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
+                                   sm90::desc_mn_major(v_s + 2 * h * kBox, kk, kBox), 1);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -335,7 +349,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       for (int i = 0; i < 4; ++i) pa[kk][i] = sm90::pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::mma_sv<D>(o, pa[kk], sm90::desc_mn_major(v_s, kk, tc::kBox));
+    for (int kk = 0; kk < 4; ++kk) tc::mma_sv<D>(o, pa[kk], v_s, kk);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
@@ -400,24 +414,33 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
       return launch_wgmma<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
     if (dtype == 1 && D == 128)
       return launch_wgmma<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+    if (dtype == 1 && D == 256)
+      return launch_wgmma<256>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
     return REPRO_BAD_ARGUMENT;
   }
   if (variant != 0) return REPRO_BAD_ARGUMENT;
-  if (dtype == 0 && D == 64)
-    return launch<false, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<false, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<true, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<true, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+#define REPRO_CUDA_CORE(BF16, DIM)                                                                \
+  if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                        \
+    return launch<BF16, DIM>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+  REPRO_CUDA_CORE(false, 64)
+  REPRO_CUDA_CORE(false, 112)
+  REPRO_CUDA_CORE(false, 128)
+  REPRO_CUDA_CORE(false, 256)
+  REPRO_CUDA_CORE(true, 64)
+  REPRO_CUDA_CORE(true, 112)
+  REPRO_CUDA_CORE(true, 128)
+  REPRO_CUDA_CORE(true, 256)
+#undef REPRO_CUDA_CORE
   return REPRO_BAD_ARGUMENT;
 }
 
 // Dynamic shared memory the wgmma variant asks for at head dim D, in bytes
 // (0 for a head dim it does not take).
 int repro_flash_attention_smem(int D) {
-  return D == 64 ? tc::Smem<64>::kBytes : D == 128 ? tc::Smem<128>::kBytes : 0;
+  return D == 64    ? tc::Smem<64>::kBytes
+         : D == 128 ? tc::Smem<128>::kBytes
+         : D == 256 ? tc::Smem<256>::kBytes
+                    : 0;
 }
 
 const char* repro_flash_attention_error(int code) {

@@ -18,7 +18,8 @@ import torch
 from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 112, 128, 256)
+SINGLE_PASS_HEAD_DIMS = (64, 128)  # the first kernel's instances
 MAX_Q_PER_KV = 8
 # C codes of the source's kernels; "single_pass" is the first version of K3 (one
 # block per (sequence, kv head)), launched only when asked for
@@ -32,7 +33,8 @@ MAX_SPLITS = 8         # the portable cluster size
 def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes decode attention of ``dtype`` at head dim
     ``D``: split_kv for every dtype and head dim the wrapper takes (a cache
-    of at most 512 positions is one CTA per cluster)."""
+    of at most 512 positions is one CTA per cluster; D = 112 lays its lanes
+    out as 128 columns and masks the last 16)."""
     del dtype, D
     return "split_kv"
 
@@ -42,6 +44,28 @@ def splits(S: int) -> int:
     (4 at S = 2048). It depends on the allocated length S alone, never on
     ``lengths``, which stay on the card."""
     return max(1, min(MAX_SPLITS, -(-S // KEYS_PER_SPLIT)))
+
+
+def lane_layout(D: int, q_per_kv: int) -> Tuple[int, int, int]:
+    """split_kv's lanes at head dim ``D`` (the source's ``split::Cfg`` for
+    the kernel that takes ``q_per_kv``: G = 1, 2, 4 or 8): (the width the
+    lanes are laid out for, lanes per key, values per lane). A row of
+    D = 112 is laid out as 128 columns; the lanes whose slice starts at or
+    past D hold nothing."""
+    G = next(g for g in (1, 2, 4, 8) if q_per_kv <= g)
+    width = 64 if D <= 64 else 128 if D <= 128 else 256
+    lanes = min(32, max(8, G * width // 32))
+    return width, lanes, width // lanes
+
+
+def ring_bytes(dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of split_kv (its K/V ring of 64-key tiles): 3
+    stages of tiles of 8 KB or less, 2 where two stages fit in 200 KB, else
+    1 (float32 at D = 256). The source's ``repro_decode_attention_smem``
+    answers the same on the card."""
+    tile = KEY_TILE * D * (2 if dtype == torch.bfloat16 else 4)
+    stages = 3 if 2 * tile <= 16384 else 2 if 4 * tile <= 200 * 1024 else 1
+    return stages * 2 * tile
 
 
 def key_ranges(L: int, n_splits: int) -> List[Tuple[int, int]]:
@@ -91,6 +115,9 @@ def decode_attention(
     kind = kernel or variant(q.dtype, D)
     if kind not in VARIANT_CODES:
         raise ValueError(f"decode_attention: no kernel {kind!r}")
+    if kind == "single_pass" and D not in SINGLE_PASS_HEAD_DIMS:
+        raise ValueError(f"decode_attention: the single_pass kernel takes head dims "
+                         f"{SINGLE_PASS_HEAD_DIMS} only, not {D}")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")

@@ -6,8 +6,10 @@ The JAX model stacks its layers for ``lax.scan``: every leaf of
 The port keeps one dict per layer. Leaves are copied 1:1, dtype included
 (no transposes: both store projections ``(d_in, d_out)``; an RWKV-6
 layer's float32 ``w_base`` and ``u`` stay float32). Caches go by the names
-each layer's kind has (``transformer.cache_slots``). Inputs are numpy
-arrays, so the port never touches a jax array; tests pass
+each layer's kind has (``transformer.cache_slots``). Top-level leaves
+that only some configs have (``lm_head``, the stub frontend's
+``frontend_proj``) go both ways as they are. Inputs are numpy arrays, so
+the port never touches a jax array; tests pass
 ``jax.tree.map(np.asarray, tree)``.
 """
 
@@ -45,6 +47,11 @@ def _layer_sources(cfg: ModelConfig) -> List[Tuple[str, str, Any]]:
     return out
 
 
+# Leaves outside the layers that only some configs have: the untied LM head
+# and the stub frontend's projection.
+TOP_LEVEL = ("lm_head", "frontend_proj")
+
+
 def _to_torch(tree: Any, device, index=None) -> Any:
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, index) for k, v in tree.items()}
@@ -62,13 +69,41 @@ def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -
         "embed": _to_torch(tree["embed"], device),
         "final_norm": _to_torch(tree["final_norm"], device),
     }
-    if "lm_head" in tree:
-        params["lm_head"] = _to_torch(tree["lm_head"], device)
+    for name in TOP_LEVEL:
+        if name in tree:
+            params[name] = _to_torch(tree[name], device)
     layer_list = []
     for group, key, rep in _layer_sources(cfg):
         layer_list.append(_to_torch(tree[group][key], device, rep))
     params["layers"] = layer_list
     return params
+
+
+def _to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_jax_numpy(cfg: ModelConfig, params: Params) -> Dict[str, Any]:
+    """Inverse of ``params_from_jax_numpy``: numpy leaves in the JAX layout
+    (layers stacked per unit position, the tail under ``rem``). numpy has
+    no bfloat16, so bf16 leaves come back as float32."""
+    unit, reps, rem = find_unit(cfg)
+    layers = [_to_numpy(lp) for lp in params["layers"]]
+    tree: Dict[str, Any] = {name: _to_numpy(params[name])
+                            for name in ("embed", "final_norm", *TOP_LEVEL) if name in params}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    tree["unit"] = {f"pos{p}": stack([layers[r * len(unit) + p] for r in range(reps)])
+                    for p in range(len(unit))}
+    tree["rem"] = {f"rem{j}": layers[reps * len(unit) + j] for j in range(rem)}
+    return tree
 
 
 def caches_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -> Caches:

@@ -6,10 +6,15 @@ Params are a plain dict of tensors, the JAX package's pytree with its
 ``lax.scan`` over stacked layers written out as a list, one dict per layer:
 
     {"embed": (V, d), "final_norm": {"scale": (d,)}, "lm_head": (d, V),
+     "frontend_proj": (frontend_embed_dim or d, d),
      "layers": [{"norm1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
                  "norm2": {"scale"}, "mlp": {"up", "gate", "down"}}, ...]}
 
-an RWKV-6 layer's dict being ``rwkv.param_specs``' flat one. Caches map
+an RWKV-6 layer's dict being ``rwkv.param_specs``' flat one, and
+``frontend_proj`` present only for a config with a stub modality frontend
+(``num_prefix_embeddings``: paligemma's patch embeddings, musicgen's
+conditioning frames), which projects the precomputed prefix embeddings
+into the sequence. Caches map
 each cache name to one tensor per layer of the kind that has it, in layer
 order: ``{"k": [...], "v": [...]}`` of ``(B, Hkv, S_alloc, D)`` for
 attention layers, ``{"wkv", "shift_tm", "shift_cm"}`` for RWKV-6 layers
@@ -18,7 +23,8 @@ tenant-stacked cohort. ``models.convert`` maps both to and from the JAX
 layout.
 
 Entry points:
-    forward_prefill          tokens (B, S) -> (last-position logits, caches)
+    forward_prefill          tokens (B, S) [+ prefix_embeds (B, P, fed)]
+                             -> (last-position logits, caches)
     forward_decode           token (B,)    -> (logits (B, V), caches)
     forward_decode_tenants   tokens (R, B) over tenant-stacked params and
                              caches -> (logits (R, B, V), caches): the
@@ -97,9 +103,6 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {unsupported} are not ported yet "
                 "(see ROADMAP.md); attn_mlp and rwkv6 blocks run")
-        if cfg.num_prefix_embeddings:
-            raise NotImplementedError(
-                f"{cfg.name}: modality frontends are not ported yet (see ROADMAP.md)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _torch_dtype(cfg.dtype)
@@ -120,6 +123,8 @@ class Model:
         }
         if not cfg.tie_embeddings:
             spec["lm_head"] = ((d, cfg.vocab_size), "dense")
+        if cfg.num_prefix_embeddings:
+            spec["frontend_proj"] = ((cfg.frontend_embed_dim or d, d), "dense")
         spec["layers"] = [self._block_specs(kind) for kind in self.blocks]
         return spec
 
@@ -240,6 +245,8 @@ class Model:
         cache_len: int,
         caches: Optional[Caches] = None,
         start: Optional[int] = None,
+        *,
+        prefix_embeds: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Caches]:
         """Prefill. Returns (last-position logits (B, V), caches).
 
@@ -247,10 +254,19 @@ class Model:
         continuation: pass the previous chunk's caches and the absolute
         position of this chunk's first token (not for sliding-window ring
         caches).
+
+        ``prefix_embeds`` (B, P, frontend_embed_dim or d_model), for a
+        config with a stub frontend: the first P positions of the embedded
+        sequence become ``prefix_embeds @ frontend_proj`` (their tokens are
+        placeholders), as the reference's prefill does. It is keyword-only
+        here; the reference takes it fourth, before ``caches``.
         """
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed_scale(params["embed"][tokens])
+        if cfg.num_prefix_embeddings and prefix_embeds is not None:
+            pref = torch.matmul(prefix_embeds.to(x.dtype), params["frontend_proj"])
+            x = torch.cat([pref, x[:, prefix_embeds.shape[1]:, :]], dim=1)
         fresh = caches is None
         if fresh:
             caches = self.init_caches(B, cache_len)

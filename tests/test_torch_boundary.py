@@ -59,6 +59,17 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert n >= 20
 
 
+def test_the_scans_cover_every_config_module():
+    """Both scans (the fresh-process import above, the file scan below)
+    reach each architecture's config module."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    for mod in ("stablelm_1_6b", "rwkv6_1_6b", "paligemma_3b", "musicgen_large", "qwen2_7b",
+                "granite_3_8b", "gemma3_27b"):
+        assert f"repro_torch.configs.{mod}" in names
+        assert PORT / "configs" / f"{mod}.py" in files
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -77,31 +88,37 @@ def test_no_file_imports_jax_or_repro(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
 
 
-def test_stablelm_config_equals_the_jax_package():
-    want = jconfig.get_config("stablelm-1.6b")
-    got = tconfig.get_config("stablelm-1.6b")
+# Each ported architecture's headline fields, as its source states them:
+# (layers, d_model, heads, kv heads, head dim (attention's, or rwkv6's
+# SSM head), d_ff, vocab, source).
+PORTED = {
+    "stablelm-1.6b": (24, 2048, 32, 32, 64, 5632, 100352, "hf:stabilityai/stablelm-2-1_6b"),
+    "rwkv6-1.6b": (24, 2048, 0, 0, 64, 7168, 65536, "arXiv:2404.05892"),
+    "paligemma-3b": (18, 2048, 8, 1, 256, 16384, 257216, "arXiv:2407.07726"),
+    "musicgen-large": (48, 2048, 32, 32, 64, 8192, 2048, "arXiv:2306.05284"),
+    "qwen2-7b": (28, 3584, 28, 4, 128, 18944, 152064, "arXiv:2407.10671"),
+    "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155, "hf:ibm-granite/granite-3.0-2b-base"),
+    "gemma3-27b": (62, 5376, 32, 16, 128, 21504, 262144, "hf:google/gemma-3-1b-pt"),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(PORTED))
+def test_config_and_smoke_variant_equal_the_jax_package(arch):
+    """The port's copy of each config equals the reference's field by field
+    (same fields, same order, same values, same parameter count), and so do
+    their smoke variants, at 2 layers and at 6 (gemma3's first global
+    layer)."""
+    want = jconfig.get_config(arch)
+    got = tconfig.get_config(arch)
     assert _plain(got) == _plain(want)
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
-    assert (got.num_layers, got.d_model, got.num_heads, got.num_kv_heads, got.d_ff,
-            got.vocab_size, got.source) == (24, 2048, 32, 32, 5632, 100352,
-                                            "hf:stabilityai/stablelm-2-1_6b")
+    head_dim = got.head_dim or got.ssm.head_dim
+    assert (got.num_layers, got.d_model, got.num_heads, got.num_kv_heads, head_dim,
+            got.d_ff, got.vocab_size, got.source) == PORTED[arch]
     assert got.param_count() == want.param_count()
-
-
-def test_smoke_variant_equals_the_jax_package():
-    want = jconfig.smoke_variant(jconfig.get_config("stablelm-1.6b"))
-    got = tconfig.smoke_variant(tconfig.get_config("stablelm-1.6b"))
-    assert _plain(got) == _plain(want)
-
-
-def test_rwkv_config_and_smoke_variant_equal_the_jax_package():
-    want = jconfig.get_config("rwkv6-1.6b")
-    got = tconfig.get_config("rwkv6-1.6b")
-    assert _plain(got) == _plain(want)
-    assert (got.num_layers, got.d_model, got.d_ff, got.vocab_size, got.ssm.head_dim,
-            got.source) == (24, 2048, 7168, 65536, 64, "arXiv:2404.05892")
-    assert got.param_count() == want.param_count()
-    assert _plain(tconfig.smoke_variant(got)) == _plain(jconfig.smoke_variant(want))
+    for n in (2, 6):
+        assert _plain(tconfig.smoke_variant(got, num_layers=n)) == \
+            _plain(jconfig.smoke_variant(want, num_layers=n))
 
 
 def test_schedule_config_equals_the_jax_package():
@@ -114,10 +131,11 @@ def test_schedule_config_equals_the_jax_package():
 def test_registry_lists_only_ported_archs():
     from repro_torch.configs import PORTED_ARCHS
 
-    assert tconfig.list_configs() == ["rwkv6-1.6b", "stablelm-1.6b"]
+    assert len(PORTED_ARCHS) == 7 and sorted(PORTED_ARCHS) == sorted(PORTED)
     assert sorted(PORTED_ARCHS) == tconfig.list_configs()
-    with pytest.raises(KeyError, match="unknown arch"):
-        tconfig.get_config("gemma3-27b")
+    for arch in ("zamba2-7b", "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            tconfig.get_config(arch)
 
 
 def test_paper_sgemm_equals_the_jax_package():

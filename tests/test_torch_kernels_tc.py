@@ -46,6 +46,7 @@ ATTENTION_CASES = [
     (1, 8, 1, 96, 32),
     (2, 4, 2, 64, 128),
     (1, 7, 1, 80, 64),
+    (1, 8, 1, 130, 256),  # paligemma-3b's GQA ratio and head dim: four boxes a row
 ]
 
 

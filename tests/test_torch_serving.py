@@ -7,7 +7,8 @@ time_only mode. Greedy is an argmax over logits that agree to float32
 rounding, so exact equality is the right check. The same holds for three
 rwkv6-1.6b smoke tenants (recurrent caches: wkv state and token shifts),
 with a data-dependent decay (``w_lora_b`` made non-zero in both), whole and
-with chunked prefill.
+with chunked prefill, and for three paligemma-3b smoke tenants (one kv head,
+tied and scaled embeddings; text only, as the reference's engine serves it).
 """
 
 import numpy as np
@@ -76,16 +77,28 @@ def _serve_jax(jm, jparams, prompts, **cfg):
     return jeng
 
 
-@pytest.fixture(scope="module")
-def tenants():
-    jcfg = jsmoke(jget_config("stablelm-1.6b"))
-    cfg = smoke_variant(get_config("stablelm-1.6b"))
+def _tenants(arch):
+    jcfg = jsmoke(jget_config(arch))
+    cfg = smoke_variant(get_config(arch))
     jm = jbuild_model(jcfg)
     key = jax.random.PRNGKey(0)
     jparams = [jm.init(jax.random.fold_in(key, t)) for t in range(R)]
     tparams = [params_from_jax_numpy(cfg, jax.tree.map(np.asarray, p), device="cpu")
                for p in jparams]
     return cfg, jm, jparams, build_model(cfg, device="cpu"), tparams
+
+
+@pytest.fixture(scope="module")
+def tenants():
+    return _tenants("stablelm-1.6b")
+
+
+@pytest.fixture(scope="module")
+def pali_tenants():
+    """paligemma-3b's smoke variant: tied and scaled embeddings, one kv head
+    for four query heads, a frontend_proj the engine leaves unused (it
+    serves text only, as the reference's engine does)."""
+    return _tenants("paligemma-3b")
 
 
 def _prompts(seed, n=9):
@@ -127,6 +140,21 @@ def test_greedy_tokens_match_jax_engine(tenants, mode):
     # on the CPU every attention call took the plain version
     assert ops.COUNTERS["decode_attention"].plain_calls > 0
     assert ops.COUNTERS["flash_attention"].plain_calls == 9 * cfg.num_layers  # one per prefill layer
+
+
+@pytest.mark.parametrize("mode", ["space_time", "time_only"])
+def test_paligemma_greedy_tokens_match_jax_engine(pali_tenants, mode):
+    cfg, jm, jparams, model, tparams = pali_tenants
+    assert cfg.num_prefix_embeddings and "frontend_proj" in tparams[0]
+    prompts = _prompts(12)
+    jeng = _serve_jax(jm, jparams, prompts, mode=mode)
+    ops.reset_counters()
+    eng = _serve_port(model, tparams, prompts, mode=mode)
+    assert len(eng.finished) == 9
+    assert _tokens(eng) == _tokens(jeng)
+    assert eng.report()["scheduler_dispatches"] == jeng.report()["scheduler_dispatches"]
+    assert eng.steps == jeng.steps
+    assert ops.COUNTERS["flash_attention"].plain_calls == 9 * cfg.num_layers
 
 
 @pytest.mark.parametrize("mode", ["space_time", "time_only"])
