@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases 5 --profile   # + where an RWKV decode step's time goes
     python3 chip_smoke.py --phases 6      # paligemma-3b, then musicgen, qwen2, granite, gemma3
     python3 chip_smoke.py --phases 6 --profile   # + where a paligemma decode step's time goes
+    python3 chip_smoke.py --phases 7      # granite-moe, zamba2 and llama4-maverick
+    python3 chip_smoke.py --phases 7 --profile   # + where their merged decode steps' time goes
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -61,7 +63,21 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      split_kv; (c) holds musicgen-large (a 64-frame prefix), qwen2-7b and
      granite-3-8b at full width and 2 layers, and gemma3-27b at full width
      and 6 layers (one global), kernel path against plain path over a
-     prefill and 4 decode steps.
+     prefill and 4 decode steps;
+  7. drives the last three architectures: (a) granite-moe-1b-a400m (24
+     layers of attention + MoE, top-8 of 32 experts with per-sequence
+     capacity) and zamba2-7b (all 81 layers: 68 Mamba2 layers and one
+     shared attention block of head dim 112 applied at 13 positions) at
+     full width, kernel path against plain path over a whole prefill, a
+     chunked one (512 + 265) and 8 decode steps, in float32 (within
+     MODEL_RTOL) and in bf16 (phase 5b's scheme: each held against the
+     float32 plain path), zamba2's chunked prefill also against its whole
+     one; then llama4-maverick at full width and 2 of 48 layers (a dense
+     layer and an MoE layer of all 128 experts and the shared expert, 37.1
+     GB in bf16), kernel path against plain path; (b) serves the 16
+     requests of phase 3 for four granite-moe tenants (10.7 GB) and four
+     zamba2 tenants (45.9 GB, 8.2 GB of caches) in both modes, with their
+     kernels rows.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``). K1, K2
 and K4 each have a kernel for the tensor cores, picked by dtype and shape
@@ -70,21 +86,28 @@ before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 register-tiled ``simt`` kernel (K split across a cluster) and K2's and K4's
 CUDA-core kernels. K3 takes its ``split_kv`` kernel for every shape: the live
 prefix of each (sequence, kv head) split across a thread-block cluster and
-combined on chip. K3 and K4 take head dims 64, 112, 128 and 256; bf16 at
-head dim 112 takes K4's CUDA-core kernel. Phase 1 checks K3 at its tile and split
-edges, every GQA ratio it takes, at every head dim, and that two launches give
+combined on chip; one launch takes up to 8 query heads per kv head, and a
+larger ratio runs as one launch per head group of 8. K3 and K4 take head
+dims 64, 112, 128 and 256; bf16 at head dim 112 takes K4's CUDA-core kernel.
+Phase 1 checks K3 at its tile and split edges, at q_per_kv 1 to 8 and at 12
+and 16 (two launches a call), at every head dim, and that two launches give
 the same bits; phase 4a checks K1 at its row-tile, K and N edges and that a
 problem's output is bit-identical whatever the others hold, on both of its
-kernels. Phases 3 and 6b fail unless every K4 launch on the serving path took
-wgmma, once per layer per prefill, and every K3 launch split_kv; phases 2, 6a
-and 6c unless K4 and K3 launched once per layer per prefill and decode step,
-by the wrapper's rule; phase 4c unless every K1 launch of scheduler run 1 took
-simt and every K1 and K2 launch of run 2 wgmma; phase 5c unless every K5
-launch took chunked. Every row of the ``kernels`` line carries the
-``variant``, the ``shape`` it was timed at, its launches by variant, and
-``prior_ms``: the previous kernel's time at the same inputs (K1: its first,
-CUDA-core kernel; K2, K4: the CUDA-core variant; K3: its first, single-pass
-kernel, null at D = 256, where it has no instance; K5: its first, sequential
+kernels. Launch checks count attention layers, not layers (zamba2: 13 of
+81; its Mamba2 layers launch no kernel). Phases 3, 6b and 7b fail unless
+every K4 launch on the serving path took the variant the wrapper's rule
+gives (wgmma for stablelm, paligemma and granite-moe; cuda_core for
+zamba2's bf16 D = 112), once per attention layer per prefill, and every K3
+launch split_kv, once per attention layer per decode pass of the model;
+phases 2, 6a, 6c and 7a unless K4 and K3 launched once per attention layer
+per prefill (or chunk) and decode step, by the wrapper's rule; phase 4c
+unless every K1 launch of scheduler run 1 took simt and every K1 and K2
+launch of run 2 wgmma; phase 5c unless every K5 launch took chunked. Every
+row of the ``kernels`` line carries the ``variant``, the ``shape`` it was
+timed at, its launches by variant, and ``prior_ms``: the previous kernel's
+time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
+CUDA-core variant; K3: its first, single-pass kernel, null at D = 112 and
+256, where it has no instance; K5: its first, sequential
 kernel), launched explicitly. Kernel times are device times of back-to-back
 launches queued behind a sleep kernel, so the host's launch cost does not pace
 them. The build prints ptxas's report for every kernel, the dynamic shared
@@ -330,6 +353,22 @@ def check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths):
     return (q, kc, vc, lens), err
 
 
+def check_decode_groups(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths):
+    """K3 at a GQA ratio above one launch's 8 query heads per kv head:
+    ``check_decode``'s checks, and one launch per head group a call."""
+    from repro_torch.kernels import decode_attention as da
+
+    c = ops.COUNTERS["decode_attention"]
+    before = c.launches
+    check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths)  # two calls
+    groups = da.head_groups(Hq // Hkv)
+    per_call = (c.launches - before) / 2
+    log(f"    q_per_kv {Hq // Hkv}: {per_call:g} launches a call over head groups {groups}")
+    if per_call != len(groups):
+        raise PhaseFailed(f"decode_attention at q_per_kv {Hq // Hkv}: {per_call:g} launches a "
+                          f"call, not {len(groups)}")
+
+
 def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20, prior=False):
     """K3 checked and timed beside its plain version and SDPA; with
     ``prior``, its first, single-pass kernel too (checked, then timed as
@@ -421,6 +460,12 @@ def phase_kernels(ops, dev, seed):
                 for D in (64, 128):
                     check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D,
                                  decode_edge_lengths(S, 10))
+        # q_per_kv 12 and 16, more query heads per kv head than one launch
+        # takes: the wrapper launches over two head groups a call
+        for g in (12, 16):
+            for S in (777, 2048):
+                check_decode_groups(ops, dev, gen, dtype, 10, 2 * g, 2, S, 128,
+                                    decode_edge_lengths(S, 10))
         # edges of the 64-row, 64-key tiles: lengths off the tile, fewer keys
         # than a tile, one query, runtime offsets with a window, GQA 7,
         # queries placed before every key, and no causal mask
@@ -478,20 +523,36 @@ def compare_logits(what, got, want):
         raise PhaseFailed(f"model {what}: kernel path and plain path disagree")
 
 
+def attention_layers(cfg) -> int:
+    """Layers that run K4 in a prefill and K3 in a decode step: every block
+    kind with attention (zamba2: its 13 shared-attention positions of 81;
+    its Mamba2 layers run no kernel)."""
+    from repro_torch.models.transformer import ATTENTION_BLOCKS
+
+    return sum(k in ATTENTION_BLOCKS for k in cfg.layer_pattern)
+
+
+def tree_params(params) -> int:
+    """Parameters the model holds, counted from its tree (zamba2's
+    ``cfg.param_count()`` counts per-head B/C projections it does not hold)."""
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
     """``cfg`` at full width (its dtype, seeded random weights): the kernel
     path's logits against the plain path's on the same weights, over a
     prefill of ``prompt_len`` tokens (for a stub frontend, seeded prefix
     embeddings take the first P positions) and ``decode_steps`` greedy
     decode steps. Fails unless K4 launched once per attention layer in the
-    prefill and K3 once per layer per decode step, every launch the
-    variant the wrapper's rule gives at the config's head dim."""
+    prefill and K3 once per attention layer per decode step, every launch
+    the variant the wrapper's rule gives at the config's head dim."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
-    from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
@@ -499,7 +560,7 @@ def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen)
-    nparams = sum(t.numel() for t in tree_leaves(params))
+    nparams = tree_params(params)
     rng = np.random.RandomState(seed)
     tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, prompt_len)), device=dev)
     prefix, what = None, f"prefill {prompt_len} tokens"
@@ -523,16 +584,16 @@ def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
             compare_logits(f"{cfg.name} decode step {step}", lk, lp)
             lengths = lengths + 1
     torch.cuda.synchronize()
-    dtype = model.dtype
+    dtype, n_attn = model.dtype, attention_layers(cfg)
     for name, want, n in (
-            ("flash_attention", fa.variant(dtype, cfg.head_dim), cfg.num_layers),
-            ("decode_attention", da.variant(dtype, cfg.head_dim), cfg.num_layers * decode_steps)):
+            ("flash_attention", fa.variant(dtype, cfg.head_dim), n_attn),
+            ("decode_attention", da.variant(dtype, cfg.head_dim), n_attn * decode_steps)):
         by_variant = dict(ops.COUNTERS[name].variants)
         if by_variant != {want: n}:
             raise PhaseFailed(f"{cfg.name}: {name} launches {by_variant}, not {n} {want}")
-    log(f"    kernel launches: flash_attention {cfg.num_layers} {fa.variant(dtype, cfg.head_dim)}, "
-        f"decode_attention {cfg.num_layers * decode_steps} {da.variant(dtype, cfg.head_dim)} "
-        f"(D={cfg.head_dim}); {time.perf_counter() - t0:.1f} s")
+    log(f"    kernel launches: flash_attention {n_attn} {fa.variant(dtype, cfg.head_dim)}, "
+        f"decode_attention {n_attn * decode_steps} {da.variant(dtype, cfg.head_dim)} "
+        f"(D={cfg.head_dim}, {n_attn} attention layers); {time.perf_counter() - t0:.1f} s")
     del params, ck, cp
     torch.cuda.empty_cache()
 
@@ -552,7 +613,9 @@ MAX_NEW = 32
 
 def run_engine(model, stacked, mode, prompts, ops, kernels):
     """Serve ``prompts`` in ``mode``; every kernel in ``kernels`` must launch.
-    Returns (greedy tokens by request id, requests, launches in this run)."""
+    Returns (greedy tokens by request id, requests, launches in this run,
+    the model's decode passes: one per merged step in space_time, one per
+    tenant per step in time_only)."""
     import torch
 
     from repro_torch.serving import EngineConfig, InferenceRequest, MultiTenantEngine
@@ -560,19 +623,30 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
     eng = MultiTenantEngine(model, stacked_params=stacked, config=EngineConfig(
         num_tenants=R_TENANTS, slots_per_tenant=SLOTS, cache_len=CACHE_LEN, mode=mode))
     reqs = [InferenceRequest(tenant_id=t, prompt=p, max_new_tokens=MAX_NEW) for t, p in prompts]
+    passes = [0]
+    decode = model.forward_decode_tenants  # forward_decode runs through it too
+
+    def counted(*args, **kwargs):
+        passes[0] += 1
+        return decode(*args, **kwargs)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: c.launches for k, c in ops.COUNTERS.items()}
-    with torch.no_grad():
-        for r in reqs:
-            eng.submit(r)
-        t0 = time.perf_counter()
-        first = eng.step()  # admits (prefills) every request, then one decode step
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        eng.run_until_drained()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+    model.forward_decode_tenants = counted
+    try:
+        with torch.no_grad():
+            for r in reqs:
+                eng.submit(r)
+            t0 = time.perf_counter()
+            first = eng.step()  # admits (prefills) every request, then one decode step
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    finally:
+        del model.forward_decode_tenants
     launches = {k: c.launches - before[k] for k, c in ops.COUNTERS.items()}
     rep = eng.report()
     done = [r for r in reqs if len(r.generated) == MAX_NEW]
@@ -592,33 +666,48 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
             raise PhaseFailed(f"{mode}: kernel {k} was never launched on the serving path")
     tokens = {r.request_id: list(r.generated) for r in reqs}
     del eng
-    return tokens, reqs, launches
+    return tokens, reqs, launches, passes[0]
 
 
-def phase_serving(dev, seed, ops, arch, profile=False):
-    """Phases 3 and 6b: R_TENANTS tenants of ``arch`` served in both modes;
-    returns (config, launches over both modes, per mode, prompt lengths).
-    Fails unless every K4 launch took wgmma, once per layer per prefill in
-    each mode, and every K3 launch split_kv."""
+def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
+    """Phases 3, 6b and 7b: R_TENANTS tenants of ``arch`` served in both
+    modes; returns (config, launches over both modes, per mode, prompt
+    lengths). Fails unless every K4 launch took ``flash_variant``, once per
+    attention layer per prefill in each mode, and every K3 launch split_kv,
+    once per attention layer per decode pass of the model."""
+    import torch
+
     from repro_torch.config import get_config
     from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
     model = build_model(cfg, device=dev)
     stacked = stacked_tenants(model, dev, seed)
+    seq_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        model.init_caches(1, CACHE_LEN)))
+    log(f"  caches: {seq_bytes / 1e6:.1f} MB a sequence at {CACHE_LEN} positions, "
+        f"{R_TENANTS * SLOTS * seq_bytes / 1e9:.2f} GB for {R_TENANTS * SLOTS} slots")
+    torch.cuda.empty_cache()
     prompts, lens = serve_prompts(cfg, seed)
-    launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
-    for name, want in (("flash_attention", "wgmma"), ("decode_attention", "split_kv")):
+    launches, per_mode, passes = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
+    for name, want in (("flash_attention", flash_variant), ("decode_attention", "split_kv")):
         by_variant = dict(ops.COUNTERS[name].variants)
         log(f"  {name} launches by variant on the serving path (D={cfg.head_dim}): {by_variant}")
         if by_variant.get(want, 0) != launches[name]:
             raise PhaseFailed(f"{name}: {launches[name]} launches on the serving path, not all "
                               f"{want}: {by_variant}")
-    for mode, per in zip(("space_time", "time_only"), per_mode):
-        if per["flash_attention"] != cfg.num_layers * REQUESTS:
+    n_attn = attention_layers(cfg)
+    for mode, per, n in zip(("space_time", "time_only"), per_mode, passes):
+        if per["flash_attention"] != n_attn * REQUESTS:
             raise PhaseFailed(f"{mode}: flash_attention launched {per['flash_attention']} times, "
-                              f"not {cfg.num_layers} per prefill")
-    log(f"  flash_attention launches per mode: {cfg.num_layers} layers x {REQUESTS} prefills")
+                              f"not {n_attn} per prefill")
+        if per["decode_attention"] != n_attn * n:
+            raise PhaseFailed(f"{mode}: decode_attention launched {per['decode_attention']} "
+                              f"times in {n} decode passes, not {n_attn} per pass")
+    log(f"  launches per mode: flash_attention {n_attn} attention layers x {REQUESTS} prefills; "
+        f"decode_attention {n_attn} x {passes[0]} merged passes (space_time), x {passes[1]} "
+        "per-tenant passes (time_only)")
     if profile:
         profile_serving(model, stacked, prompts)
     return cfg, launches, per_mode, lens
@@ -657,13 +746,16 @@ def serve_prompts(cfg, seed):
 
 def serve_both_modes(model, stacked, prompts, ops, kernels):
     """The serving path's main run: counters zeroed just before, both modes,
-    counters read just after. Returns (launches over both, per mode)."""
+    counters read just after. Returns (launches over both, per mode, the
+    model's decode passes per mode)."""
     import torch
 
     ops.reset_counters()  # the main path starts here
-    tok_st, reqs_st, per_st = run_engine(model, stacked, "space_time", prompts, ops, kernels)
+    tok_st, reqs_st, per_st, passes_st = run_engine(model, stacked, "space_time", prompts, ops,
+                                                    kernels)
     torch.cuda.empty_cache()
-    tok_to, reqs_to, per_to = run_engine(model, stacked, "time_only", prompts, ops, kernels)
+    tok_to, reqs_to, per_to, passes_to = run_engine(model, stacked, "time_only", prompts, ops,
+                                                    kernels)
     launches = {k: c.launches for k, c in ops.COUNTERS.items()}
     plain_calls = {k: c.plain_calls for k, c in ops.COUNTERS.items()}
     if any(plain_calls.values()):
@@ -673,7 +765,7 @@ def serve_both_modes(model, stacked, prompts, ops, kernels):
     log(f"  greedy-token agreement space_time vs time_only: {same}/{REQUESTS * MAX_NEW} "
         "(bf16: exact agreement not required)")
     log(f"  main-path launches (both modes): {launches}; plain-version calls: {plain_calls}")
-    return launches, (per_st, per_to)
+    return launches, (per_st, per_to), (passes_st, passes_to)
 
 
 def profile_serving(model, stacked, prompts, steps=8):
@@ -1392,7 +1484,7 @@ RWKV = "rwkv6-1.6b"
 WKV_TOL = (2e-4, 2e-3)
 WKV_HEADS, WKV_N = 32, 64                # rwkv6-1.6b: H heads of N = V = 64
 WKV_TS = (1, 17, 128, 777, 1024)
-WKV_SPLIT = 512                          # 777 = 512 + 265
+CHUNK_SPLIT = 512                        # chunked prefills: 777 = 512 + 265
 # decay logits w ~ N(mean, std) besides the default N(-3, 1): strong decay
 # (products of 16 decays underflow to 0 inside a chunk) and weak (d ~ 0.9997)
 WKV_DECAYS = {"strong": (1.0, 1.0), "weak": (-8.0, 0.5)}
@@ -1483,7 +1575,7 @@ def phase_wkv_kernel(ops, dev, seed):
             buf = s0.clone()
             parts = [ops.wkv6_scan(*(t[:, :, a:b] for t in inputs[:4]), inputs[4],
                                    init_state=buf, final_state=buf)[0]
-                     for a, b in ((0, WKV_SPLIT), (WKV_SPLIT, T))]
+                     for a, b in ((0, CHUNK_SPLIT), (CHUNK_SPLIT, T))]
             torch.cuda.synchronize()
             split = torch.cat(parts, dim=2)
             check_close(f"wkv6_scan {tag} 512 + 265 from the carried state vs 777 out",
@@ -1546,29 +1638,31 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
             "replaces": REPLACES["wkv6_scan"], "launches": launches, **row}
 
 
-def rwkv_stage_logits(model, params, tokens, decode_tokens):
-    """Logits of a whole prefill, a chunked one (WKV_SPLIT + the rest) and
-    decode steps fed ``decode_tokens`` after the whole prefill, plus the
-    wkv states the whole prefill left."""
+def stage_logits(model, params, tokens, decode_tokens, keep=None):
+    """Logits of a whole prefill, a chunked one (CHUNK_SPLIT + the rest) and
+    decode steps fed ``decode_tokens`` after the whole prefill; and, where
+    ``keep`` names a cache, copies of its tensors after the whole prefill."""
     import torch
 
     out = {}
     logits, caches = model.forward_prefill(params, tokens, CACHE_LEN)
     out["prefill"] = logits
-    states = [c.clone() for c in caches["wkv"]]
-    lc, cc = model.forward_prefill(params, tokens[:, :WKV_SPLIT], CACHE_LEN)
-    out["chunked"], _ = model.forward_prefill(params, tokens[:, WKV_SPLIT:], CACHE_LEN,
-                                              caches=cc, start=WKV_SPLIT)
+    kept = None if keep is None else [c.clone() for c in caches[keep]]
+    _, cc = model.forward_prefill(params, tokens[:, :CHUNK_SPLIT], CACHE_LEN)
+    out["chunked"], _ = model.forward_prefill(params, tokens[:, CHUNK_SPLIT:], CACHE_LEN,
+                                              caches=cc, start=CHUNK_SPLIT)
+    del cc
     lengths = torch.tensor([tokens.shape[1]], device=tokens.device)
     for step, tok in enumerate(decode_tokens):
         out[f"decode step {step}"], caches = model.forward_decode(params, tok, caches, lengths)
         lengths = lengths + 1
-    return out, states
+    return out, kept
 
 
-def phase_rwkv_model(dev, seed):
+def phase_rwkv_model(ops, dev, seed):
     """(b) rwkv6-1.6b at full width: kernel path against plain path on the
-    same seeded weights (data-dependent decay), in float32 and in bf16.
+    same seeded weights (data-dependent decay), in float32 and in bf16
+    (``model_vs_plain_f32_bf16``).
 
     In float32 the two paths differ by float32 rounding alone, and the
     kernel path must be within MODEL_RTOL of the plain path (a wrong scan
@@ -1576,69 +1670,116 @@ def phase_rwkv_model(dev, seed):
     one scan output grows through 24 layers and 777 tokens of recurrent
     state: two bf16 runs whose scans differ only in the order of float32
     sums end several percent apart. So in bf16 both paths are held against
-    the float32 plain path, and the kernel path must be no farther from it
-    than twice the bf16 plain path is (plus 0.1% of the largest |logit|);
-    their distance from each other is printed beside it."""
-    import dataclasses
-
-    import torch
-
+    the float32 plain path (``hold_bf16``)."""
     from repro_torch.config import get_config
-    from repro_torch.models import build_model
-    from repro_torch.tree import tree_leaves, tree_map
-
-    cfg = get_config(RWKV)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = build_model(cfg, device=dev).init(gen)
-    live_decay_(params, gen)
-    nparams = sum(t.numel() for t in tree_leaves(params))
-    log(f"  {RWKV} {cfg.dtype}: {nparams / 1e9:.3f}B params, {cfg.num_layers} layers, "
-        f"d_model {cfg.d_model}, w_lora_b ~ {LORA_B_SCALE} N(0, 1); float32 copy of the "
-        "same weights")
-    rng = np.random.RandomState(seed)
-    tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, PROMPT_LEN)), device=dev)
-    decode_tokens = [torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1,)), device=dev)
-                     for _ in range(DECODE_STEPS)]
 
     def state_gap(a, b):
         return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
 
-    runs = {}
+    kept = model_vs_plain_f32_bf16(ops, get_config(RWKV), dev, seed, init=live_decay_,
+                                   keep="wkv",
+                                   note=f"w_lora_b ~ {LORA_B_SCALE} N(0, 1)")
+    log(f"  wkv state after the whole prefill, max over layers of max |d| / max |S|, kernel vs "
+        f"plain: f32 {state_gap(kept['f32', False], kept['f32', True]):.3e}, bf16 "
+        f"{state_gap(kept['bf16', False], kept['bf16', True]):.3e}")
+
+
+def hold_bf16(what, kernel, plain, ref32):
+    """bf16 kernel-path logits against the float32 plain path's: no farther
+    from them than twice the bf16 plain path is (plus 0.1% of the largest
+    |logit|, so float32-level agreement always passes); the bf16 paths'
+    distance from each other is printed beside it."""
+    ref = ref32.float()
+    scale = float(ref.abs().max())
+    e_k = float((kernel.float() - ref).abs().max())
+    e_p = float((plain.float() - ref).abs().max())
+    e_kp = float((kernel.float() - plain.float()).abs().max())
+    agree = bool((kernel.argmax(-1) == plain.argmax(-1)).all())
+    ok = e_k <= 2 * e_p + 1e-3 * scale
+    log(f"  bf16 {what}: kernel vs plain max_abs_err={e_kp:.4f} ({e_kp / scale:.2%} of max "
+        f"|logit|) argmax_agree={agree}; vs the f32 plain path: kernel {e_k:.4f}, plain "
+        f"{e_p:.4f} (kernel <= 2 x plain: {'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise PhaseFailed(f"model bf16 {what}: the kernel path is farther from float32 than "
+                          "twice the plain path")
+
+
+def model_vs_plain_f32_bf16(ops, cfg, dev, seed, init=None, keep=None, note=""):
+    """``cfg`` at full width on seeded random weights (``init(params, gen)``
+    runs on them if given), the kernel path against the plain path over a
+    whole prefill of PROMPT_LEN tokens, a chunked one (CHUNK_SPLIT + the
+    rest) and DECODE_STEPS decode steps, in float32 (within MODEL_RTOL) and
+    in bf16 (``hold_bf16``: each path against the float32 plain path; a
+    bf16 rounding can flip a top-8-of-32 routing or grow through a
+    recurrent state). The chunked prefill is held against the plain path's
+    whole prefill, except for an MoE config, whose capacity is per chunk,
+    where it is held against the plain path's chunked one. Fails unless
+    each kernel run launched K4 once per attention layer per prefill or
+    chunk and K3 once per attention layer per decode step, by the
+    wrapper's rule at each dtype. Returns the ``keep`` cache's tensors
+    after the whole prefill, by (dtype, plain)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = build_model(cfg, device=dev).init(gen)
+    if init is not None:
+        init(params, gen)
+    n_attn = attention_layers(cfg)
+    log(f"  {cfg.name} {cfg.dtype}: {tree_params(params) / 1e9:.3f}B params in the tree "
+        f"({cfg.param_count() / 1e9:.3f}B by cfg.param_count()), {cfg.num_layers} layers, "
+        f"{n_attn} with attention, d_model {cfg.d_model}{'; ' + note if note else ''}; "
+        "float32 copy of the same weights")
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, PROMPT_LEN)), device=dev)
+    decode_tokens = [torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1,)), device=dev)
+                     for _ in range(DECODE_STEPS)]
+    runs, kept = {}, {}
+    ops.reset_counters()
     with torch.no_grad():
-        for name, c, p in (("bf16", cfg, params),
-                           ("f32", cfg32, tree_map(lambda t: t.float(), params))):
+        for name, c in (("bf16", cfg), ("f32", cfg32)):
+            p = params if name == "bf16" else tree_map(lambda t: t.float(), params)
             for plain in (False, True):
                 model = build_model(c, device=dev, plain_kernels=plain)
-                runs[name, plain] = rwkv_stage_logits(model, p, tokens, decode_tokens)
+                runs[name, plain], kept[name, plain] = stage_logits(model, p, tokens,
+                                                                    decode_tokens, keep)
             del p
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
     del params
-    log(f"  wkv state after the whole prefill, max over layers of max |d| / max |S|, kernel vs "
-        f"plain: f32 {state_gap(runs['f32', False][1], runs['f32', True][1]):.3e}, bf16 "
-        f"{state_gap(runs['bf16', False][1], runs['bf16', True][1]):.3e}")
-    k32, p32 = runs["f32", False][0], runs["f32", True][0]
-    kbf, pbf = runs["bf16", False][0], runs["bf16", True][0]
+    torch.cuda.empty_cache()
+    for op, kernel, per_run in (("flash_attention", fa, 3 * n_attn),
+                                ("decode_attention", da, DECODE_STEPS * n_attn)):
+        want = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            if per_run:
+                v = kernel.variant(dtype, cfg.head_dim)
+                want[v] = want.get(v, 0) + per_run
+        got = dict(ops.COUNTERS[op].variants)
+        log(f"    {op} launches over both kernel runs: {got}")
+        if got != want:
+            raise PhaseFailed(f"{cfg.name}: {op} launches {got}, not {want}")
+    k32, p32 = runs["f32", False], runs["f32", True]
+    kbf, pbf = runs["bf16", False], runs["bf16", True]
+    whole = cfg.moe is None
     for stage in k32:
-        want = "prefill" if stage == "chunked" else stage  # chunked against whole
-        what = (f"chunked prefill {WKV_SPLIT} + {PROMPT_LEN - WKV_SPLIT} vs whole"
-                if stage == "chunked" else f"{stage} ({PROMPT_LEN}-token prompt)")
+        want = "prefill" if stage == "chunked" and whole else stage
+        what = (f"{cfg.name} chunked prefill {CHUNK_SPLIT} + {PROMPT_LEN - CHUNK_SPLIT}"
+                + (" vs whole" if whole else "")
+                if stage == "chunked" else f"{cfg.name} {stage} ({PROMPT_LEN}-token prompt)")
         compare_logits(f"f32 {what}", k32[stage], p32[want])
-        ref = p32[want].float()
-        scale = float(ref.abs().max())
-        e_k = float((kbf[stage].float() - ref).abs().max())
-        e_p = float((pbf[want].float() - ref).abs().max())
-        e_kp = float((kbf[stage].float() - pbf[want].float()).abs().max())
-        agree = bool((kbf[stage].argmax(-1) == pbf[want].argmax(-1)).all())
-        ok = e_k <= 2 * e_p + 1e-3 * scale  # (float32-level agreement always passes)
-        log(f"  bf16 {what}: kernel vs plain max_abs_err={e_kp:.4f} ({e_kp / scale:.2%} of max "
-            f"|logit|) argmax_agree={agree}; vs the f32 plain path: kernel {e_k:.4f}, plain "
-            f"{e_p:.4f} (kernel <= 2 x plain: {'ok' if ok else 'FAIL'})")
-        if not ok:
-            raise PhaseFailed(f"model bf16 {what}: the kernel path is farther from float32 than "
-                              "twice the plain path")
+        hold_bf16(what, kbf[stage], pbf[want], p32[want])
+    log(f"    {time.perf_counter() - t0:.1f} s")
+    return kept
 
 
 def phase_rwkv(ops, dev, seed, profile=False):
@@ -1652,14 +1793,14 @@ def phase_rwkv(ops, dev, seed, profile=False):
     log(" (a) K5 wkv6_scan against its plain version")
     phase_wkv_kernel(ops, dev, seed)
     log(f" (b) {RWKV} at full width, kernel path vs plain path")
-    phase_rwkv_model(dev, seed)
+    phase_rwkv_model(ops, dev, seed)
     torch.cuda.empty_cache()
     log(f" (c) serving {REQUESTS} requests for {R_TENANTS} {RWKV} tenants")
     cfg = get_config(RWKV)
     model = build_model(cfg, device=dev)
     stacked = stacked_tenants(model, dev, seed, live_decay_)
     prompts, lens = serve_prompts(cfg, seed)
-    launches, per_mode = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
+    launches, per_mode, _ = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
     by_variant = dict(ops.COUNTERS["wkv6_scan"].variants)
     want = cfg.num_layers * REQUESTS  # one launch per layer per (unchunked) prefill
     for mode, per in zip(("space_time", "time_only"), per_mode):
@@ -1761,6 +1902,55 @@ def phase_pali(ops, dev, seed, profile=False):
     return rows
 
 
+# ----------------------------------------------------------------- phase 7
+# The last three architectures: granite-moe-1b-a400m (attention + MoE in
+# every layer, top-8 of 32 experts), zamba2-7b (68 Mamba2 layers and one
+# shared attention block of head dim 112 applied at 13 positions) and
+# llama4-maverick (a dense and an MoE layer in turn, 128 experts and a
+# shared expert).
+MOE_ARCH = "granite-moe-1b-a400m"
+ZAMBA = "zamba2-7b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 2  # one period of its pattern: a dense layer, then an MoE layer
+
+
+def phase_new_archs(ops, dev, seed, profile=False):
+    """Phase 7: (a) granite-moe-1b-a400m and zamba2-7b at full width,
+    kernel path against plain path in float32 and bf16, then
+    llama4-maverick at full width and LLAMA4_LAYERS layers in bf16; (b)
+    four tenants of granite-moe and of zamba2 served in both modes (K4 by
+    the wrapper's rule once per attention layer per prefill, K3 split_kv
+    once per attention layer per decode pass), with their kernels rows.
+    Returns the rows."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    log(f" (a) {MOE_ARCH} and {ZAMBA} at full width, kernel path vs plain path, f32 and bf16")
+    for arch in (MOE_ARCH, ZAMBA):
+        model_vs_plain_f32_bf16(ops, get_config(arch), dev, seed)
+    full = get_config(LLAMA4)
+    log(f"  {LLAMA4}: {LLAMA4_LAYERS} of {full.num_layers} layers at full width (a dense layer, "
+        f"then an MoE layer of all {full.moe.num_experts} experts and the shared expert), bf16")
+    cut = dataclasses.replace(full, num_layers=LLAMA4_LAYERS,
+                              block_pattern=full.block_pattern[:LLAMA4_LAYERS])
+    model_vs_plain(ops, cut, dev, seed, PROMPT_LEN, OTHER_DECODE_STEPS)
+    torch.cuda.empty_cache()
+    rows = []
+    for arch in (MOE_ARCH, ZAMBA):
+        log(f" (b) serving {REQUESTS} requests for {R_TENANTS} {arch} tenants")
+        cfg = get_config(arch)
+        cfg, launches, per_mode, lens = phase_serving(
+            dev, seed, ops, arch, profile, flash_variant=fa.variant(torch.bfloat16, cfg.head_dim))
+        torch.cuda.empty_cache()
+        log(f"kernels at {arch}'s serving path's shapes")
+        rows += main_path_kernel_rows(ops, dev, seed, cfg, lens, launches, per_mode)
+    return rows
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -1831,10 +2021,10 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3, 5 and 6, profile steady decode steps of both "
+                    help="after phases 3, 5, 6 and 7, profile steady decode steps of both "
                          "modes; after phase 4, profile the scheduler's two GEMM streams")
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
@@ -1905,6 +2095,12 @@ def main(argv=None) -> int:
                 "qwen2-7b, granite-3-8b and gemma3-27b")
             with phase_wall(6):
                 rows += phase_pali(ops, dev, args.seed, args.profile)
+        if 7 in phases:
+            torch.cuda.empty_cache()
+            log(f"phase 7: {MOE_ARCH} and {ZAMBA} served at full width, {LLAMA4} at "
+                f"{LLAMA4_LAYERS} layers")
+            with phase_wall(7):
+                rows += phase_new_archs(ops, dev, args.seed, args.profile)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,10 +5,15 @@ The JAX model stacks its layers for ``lax.scan``: every leaf of
 ``r * len(unit) + p``; a remainder tail lives under ``params["rem"]``.
 The port keeps one dict per layer. Leaves are copied 1:1, dtype included
 (no transposes: both store projections ``(d_in, d_out)``; an RWKV-6
-layer's float32 ``w_base`` and ``u`` stay float32). Caches go by the names
-each layer's kind has (``transformer.cache_slots``). Top-level leaves
-that only some configs have (``lm_head``, the stub frontend's
-``frontend_proj``) go both ways as they are. Inputs are numpy arrays, so
+layer's float32 ``w_base`` and ``u``, a Mamba2 layer's ``A_log``, ``D`` and
+``dt_bias`` and an MoE router stay float32; expert stacks ``(E, d, f)``
+keep their expert axis). Zamba2's shared attention block has no entry at
+its unit positions in either tree: both keep it once, at the top-level
+``shared_attn``, and the port's hybrid layers are empty dicts. Caches go
+by the names each layer's kind has (``transformer.cache_slots``; hybrid
+positions keep k/v caches of their own in both). Top-level leaves that
+only some configs have (``lm_head``, the stub frontend's
+``frontend_proj``, ``shared_attn``) go both ways as they are. Inputs are numpy arrays, so
 the port never touches a jax array; tests pass
 ``jax.tree.map(np.asarray, tree)``.
 """
@@ -40,16 +45,18 @@ def find_unit(cfg: ModelConfig) -> Tuple[List[Tuple[BlockKind, AttentionKind]], 
 
 
 def _layer_sources(cfg: ModelConfig) -> List[Tuple[str, str, Any]]:
-    """For layer i: ("unit", "pos{p}", rep) or ("rem", "rem{j}", None)."""
+    """For layer i: ("unit", "pos{p}", rep) or ("rem", "rem{j}", None), where
+    the JAX tree keeps its caches (and its params, unless it is a hybrid
+    shared-attention position)."""
     unit, reps, rem = find_unit(cfg)
     out = [("unit", f"pos{p}", r) for r in range(reps) for p in range(len(unit))]
     out += [("rem", f"rem{j}", None) for j in range(rem)]
     return out
 
 
-# Leaves outside the layers that only some configs have: the untied LM head
-# and the stub frontend's projection.
-TOP_LEVEL = ("lm_head", "frontend_proj")
+# Leaves outside the layers that only some configs have: the untied LM head,
+# the stub frontend's projection and Zamba2's shared attention block.
+TOP_LEVEL = ("lm_head", "frontend_proj", "shared_attn")
 
 
 def _to_torch(tree: Any, device, index=None) -> Any:
@@ -72,10 +79,9 @@ def params_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -
     for name in TOP_LEVEL:
         if name in tree:
             params[name] = _to_torch(tree[name], device)
-    layer_list = []
-    for group, key, rep in _layer_sources(cfg):
-        layer_list.append(_to_torch(tree[group][key], device, rep))
-    params["layers"] = layer_list
+    params["layers"] = [
+        {} if kind == BlockKind.HYBRID_SHARED_ATTN else _to_torch(tree[group][key], device, rep)
+        for kind, (group, key, rep) in zip(cfg.layer_pattern, _layer_sources(cfg))]
     return params
 
 
@@ -100,9 +106,11 @@ def params_to_jax_numpy(cfg: ModelConfig, params: Params) -> Dict[str, Any]:
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return np.stack(trees)
 
+    shared = BlockKind.HYBRID_SHARED_ATTN
     tree["unit"] = {f"pos{p}": stack([layers[r * len(unit) + p] for r in range(reps)])
-                    for p in range(len(unit))}
-    tree["rem"] = {f"rem{j}": layers[reps * len(unit) + j] for j in range(rem)}
+                    for p in range(len(unit)) if unit[p][0] != shared}
+    tree["rem"] = {f"rem{j}": layers[reps * len(unit) + j] for j in range(rem)
+                   if unit[j][0] != shared}
     return tree
 
 

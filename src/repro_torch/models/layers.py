@@ -18,6 +18,12 @@ Params = Dict[str, torch.Tensor]
 
 
 # --------------------------------------------------------------------------- init
+# A stack of matrices larger than this many elements (llama4-maverick's
+# experts: 128 x 5120 x 8192) is filled one matrix at a time, so the float32
+# draw never needs a second copy of the whole stack.
+FILL_CHUNK_ELEMENTS = 1 << 28
+
+
 def truncated_normal_(out: torch.Tensor, scale: float, generator: torch.Generator) -> torch.Tensor:
     """Fill ``out`` in place with N(0,1) truncated to [-2, 2], times ``scale``.
 
@@ -25,6 +31,10 @@ def truncated_normal_(out: torch.Tensor, scale: float, generator: torch.Generato
     package's ``truncated_normal(-2, 2) * scale``, drawn from a torch
     generator instead of a jax key: same distribution, other numbers).
     """
+    if out.dim() > 2 and out.numel() > FILL_CHUNK_ELEMENTS:
+        for part in out:
+            truncated_normal_(part, scale, generator)
+        return out
     tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
     out.copy_(tmp.mul_(scale))
@@ -101,6 +111,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # --------------------------------------------------------------------------- mlp
+def mlp_specs(d_model: int, d_ff: int, gated: bool) -> Dict:
+    """``mlp``'s params as (shape, init) leaves (``Model._fill`` reads them)."""
+    spec = {"up": ((d_model, d_ff), "dense"), "down": ((d_ff, d_model), "dense")}
+    if gated:
+        spec["gate"] = ((d_model, d_ff), "dense")
+    return spec
+
+
 def mlp(p: Params, x: torch.Tensor, gated: bool) -> torch.Tensor:
     """x (..., d) @ up/gate, activation, @ down.
 

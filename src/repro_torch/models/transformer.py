@@ -1,24 +1,35 @@
-"""Decoder-only LM assembled from a ModelConfig: attention + MLP blocks
-(``attn_mlp``) and RWKV-6 blocks (``rwkv6``), dispatched per layer as the
-JAX package's ``_apply_block`` does.
+"""Decoder-only LM assembled from a ModelConfig, dispatching per layer on
+the five block kinds as the JAX package's ``_apply_block`` does:
+attention + MLP (``attn_mlp``), attention + mixture of experts
+(``attn_moe``), Mamba2 (``mamba2``), Zamba2's shared attention block
+(``hybrid_shared_attn``) and RWKV-6 (``rwkv6``).
 
 Params are a plain dict of tensors, the JAX package's pytree with its
 ``lax.scan`` over stacked layers written out as a list, one dict per layer:
 
     {"embed": (V, d), "final_norm": {"scale": (d,)}, "lm_head": (d, V),
      "frontend_proj": (frontend_embed_dim or d, d),
+     "shared_attn": {"norm1", "attn", "norm2", "mlp"},
      "layers": [{"norm1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"},
                  "norm2": {"scale"}, "mlp": {"up", "gate", "down"}}, ...]}
 
-an RWKV-6 layer's dict being ``rwkv.param_specs``' flat one, and
-``frontend_proj`` present only for a config with a stub modality frontend
+an ``attn_moe`` layer holding ``moe`` (``moe.param_specs``) in place of
+``mlp``, a ``mamba2`` layer ``{"norm": {"scale"}, "mamba": ...}``
+(``ssm.param_specs``), an RWKV-6 layer ``rwkv.param_specs``' flat dict,
+and a ``hybrid_shared_attn`` layer an empty dict: Zamba2's shared block
+exists once, at the top-level ``shared_attn`` (an attention + MLP block),
+and every hybrid position applies those same weights. ``frontend_proj`` is
+present only for a config with a stub modality frontend
 (``num_prefix_embeddings``: paligemma's patch embeddings, musicgen's
 conditioning frames), which projects the precomputed prefix embeddings
-into the sequence. Caches map
-each cache name to one tensor per layer of the kind that has it, in layer
-order: ``{"k": [...], "v": [...]}`` of ``(B, Hkv, S_alloc, D)`` for
-attention layers, ``{"wkv", "shift_tm", "shift_cm"}`` for RWKV-6 layers
-(``rwkv`` has their shapes), with a leading tenant axis R for a
+into the sequence.
+
+Caches map each cache name to one tensor per layer that has it, in layer
+order (``cache_slots``): ``{"k": [...], "v": [...]}`` of ``(B, Hkv,
+S_alloc, D)`` for every attention layer, hybrid positions included (each
+keeps its own), ``{"conv_x", "conv_B", "conv_C", "ssm"}`` for Mamba2
+layers (``ssm`` has their shapes), ``{"wkv", "shift_tm", "shift_cm"}`` for
+RWKV-6 layers (``rwkv``), with a leading tenant axis R for a
 tenant-stacked cohort. ``models.convert`` maps both to and from the JAX
 layout.
 
@@ -30,7 +41,8 @@ Entry points:
                              caches -> (logits (R, B, V), caches): the
                              space-time merged decode step; every projection
                              is one batched product across tenants and each
-                             layer's attention (or WKV6 step) runs once.
+                             layer's attention (or WKV6 or SSM step) runs
+                             once.
 
 Caches are updated in place; the returned caches are the ones passed in
 (or freshly allocated, for a fresh prefill).
@@ -44,23 +56,32 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config import AttentionKind, BlockKind, ModelConfig
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, moe, rwkv, ssm
 
 Params = Dict[str, Any]
 Caches = Dict[str, List[torch.Tensor]]
 
-PORTED_BLOCKS = (BlockKind.ATTN_MLP, BlockKind.RWKV6)
-CACHE_NAMES = {BlockKind.ATTN_MLP: ("k", "v"), BlockKind.RWKV6: rwkv.CACHE_NAMES}
+ATTENTION_BLOCKS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.HYBRID_SHARED_ATTN)
+CACHE_NAMES = {
+    BlockKind.ATTN_MLP: ("k", "v"),
+    BlockKind.ATTN_MOE: ("k", "v"),
+    BlockKind.HYBRID_SHARED_ATTN: ("k", "v"),
+    BlockKind.MAMBA2: ssm.CACHE_NAMES,
+    BlockKind.RWKV6: rwkv.CACHE_NAMES,
+}
 
 
 def cache_slots(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """Per layer: its cache names and its index in those names' lists."""
-    seen: Dict[BlockKind, int] = {}
+    """Per layer: its cache names and its index in those names' lists.
+    Layers are numbered per cache-name tuple, so every attention layer,
+    whatever its block kind, has a k/v slot of its own."""
+    seen: Dict[Tuple[str, ...], int] = {}
     out = []
     for kind in cfg.layer_pattern:
-        j = seen.get(kind, 0)
-        out.append((CACHE_NAMES[kind], j))
-        seen[kind] = j + 1
+        names = CACHE_NAMES[kind]
+        j = seen.get(names, 0)
+        out.append((names, j))
+        seen[names] = j + 1
     return out
 
 
@@ -97,12 +118,6 @@ class Model:
     """
 
     def __init__(self, cfg: ModelConfig, device=None, plain_kernels: bool = False):
-        unsupported = sorted({k.value for k in cfg.layer_pattern}
-                             - {k.value for k in PORTED_BLOCKS})
-        if unsupported:
-            raise NotImplementedError(
-                f"{cfg.name}: block kinds {unsupported} are not ported yet "
-                "(see ROADMAP.md); attn_mlp and rwkv6 blocks run")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _torch_dtype(cfg.dtype)
@@ -110,7 +125,7 @@ class Model:
         self.blocks = list(cfg.layer_pattern)
         self.kinds = [cfg.attention_kind_at(i) for i in range(cfg.num_layers)]
         self.slots = cache_slots(cfg)
-        self.has_attention = BlockKind.ATTN_MLP in self.blocks
+        self.has_attention = any(k in ATTENTION_BLOCKS for k in self.blocks)
 
     # -------------------------------------------------------------- init
     def _param_specs(self) -> Params:
@@ -125,6 +140,8 @@ class Model:
             spec["lm_head"] = ((d, cfg.vocab_size), "dense")
         if cfg.num_prefix_embeddings:
             spec["frontend_proj"] = ((cfg.frontend_embed_dim or d, d), "dense")
+        if BlockKind.HYBRID_SHARED_ATTN in self.blocks:
+            spec["shared_attn"] = self._block_specs(BlockKind.ATTN_MLP)  # one copy
         spec["layers"] = [self._block_specs(kind) for kind in self.blocks]
         return spec
 
@@ -133,13 +150,19 @@ class Model:
         d = cfg.d_model
         if kind == BlockKind.RWKV6:
             return rwkv.param_specs(cfg)
-        mlp = {"up": ((d, cfg.d_ff), "dense"), "down": ((cfg.d_ff, d), "dense")}
-        if cfg.mlp_gated:
-            mlp["gate"] = ((d, cfg.d_ff), "dense")
+        if kind == BlockKind.MAMBA2:
+            return {"norm": {"scale": ((d,), "ones")}, "mamba": ssm.param_specs(cfg)}
+        if kind == BlockKind.HYBRID_SHARED_ATTN:
+            return {}  # the shared block's weights live at params["shared_attn"]
         attn = {k: (s, "zeros" if k.startswith("b") else "dense")
                 for k, s in attention.attn_param_shapes(cfg).items()}
-        return {"norm1": {"scale": ((d,), "ones")}, "attn": attn,
-                "norm2": {"scale": ((d,), "ones")}, "mlp": mlp}
+        block = {"norm1": {"scale": ((d,), "ones")}, "attn": attn,
+                 "norm2": {"scale": ((d,), "ones")}}
+        if kind == BlockKind.ATTN_MOE:
+            block["moe"] = moe.param_specs(cfg)
+        else:
+            block["mlp"] = layers.mlp_specs(d, cfg.d_ff, cfg.mlp_gated)
+        return block
 
     def _alloc(self, spec: Any, lead: Tuple[int, ...]) -> Any:
         if isinstance(spec, dict):
@@ -170,8 +193,11 @@ class Model:
             layers.uniform_(target, 0.25, 0.75, gen)
         elif kind == "decay_base":  # RWKV decay logit base
             target.fill_(-4.0)
-        elif kind == "bonus":  # RWKV per-head bonus u
+        elif kind in ("bonus", "conv"):  # RWKV's bonus u, Mamba2's conv weights
             layers.normal_(target, 0.1, gen)
+        elif kind == "a_log":  # Mamba2's A = -exp(A_log): log of 1..16 over heads
+            n = target.shape[-1]
+            target.copy_(torch.log(torch.linspace(1.0, 16.0, n, device=target.device)))
         else:
             target.zero_()
 
@@ -199,8 +225,8 @@ class Model:
                     dtype: Optional[torch.dtype] = None) -> Caches:
         """Zeroed caches per layer, by kind (see the module docstring),
         with a leading tenant axis when ``tenants`` is given. ``dtype``
-        overrides the model dtype of the attention and token-shift caches;
-        the WKV state stays float32."""
+        overrides the model dtype of the attention, token-shift and conv
+        caches; the WKV and SSM states stay float32."""
         cfg = self.cfg
         lead = (batch,) if tenants is None else (tenants, batch)
         dtype = dtype or self.dtype
@@ -208,6 +234,8 @@ class Model:
         for block, kind in zip(self.blocks, self.kinds):
             if block == BlockKind.RWKV6:
                 specs = rwkv.cache_specs(cfg)
+            elif block == BlockKind.MAMBA2:
+                specs = ssm.cache_specs(cfg)
             else:
                 s = attention.cache_alloc_len(cfg, kind, seq_len)
                 shape = (cfg.num_kv_heads, s, cfg.head_dim)
@@ -220,6 +248,23 @@ class Model:
     def _layer_cache(self, caches: Caches, i: int) -> Dict[str, torch.Tensor]:
         names, j = self.slots[i]
         return {name: caches[name][j] for name in names}
+
+    def _layer_params(self, params: Params, i: int) -> Params:
+        if self.blocks[i] == BlockKind.HYBRID_SHARED_ATTN:
+            return params["shared_attn"]
+        return params["layers"][i]
+
+    def _ffn(self, kind: BlockKind, lp: Params, h: torch.Tensor, tenants: bool) -> torch.Tensor:
+        """The FFN half of an attention block: on h (B, S, d) of one model in
+        a prefill, or on h (R, B, d) over tenant-stacked weights in a decode
+        step, where each of the B sequences holds one token (MoE capacity is
+        per sequence; the load-balance loss is dropped, as the reference's
+        prefill and decode drop it)."""
+        if kind != BlockKind.ATTN_MOE:
+            return layers.mlp(lp["mlp"], h, self.cfg.mlp_gated)
+        if tenants:
+            return moe.moe_forward(lp["moe"], h[:, :, None], self.cfg)[0][:, :, 0]
+        return moe.moe_forward(_tenant_axis(lp["moe"]), h[None], self.cfg)[0][0]
 
     # -------------------------------------------------------------- pieces
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -275,11 +320,18 @@ class Model:
         if self.has_attention:
             rope = layers.rope_tables(torch.arange(start, start + S, device=tokens.device),
                                       cfg.head_dim, cfg.rope_theta)
-        for i, lp in enumerate(params["layers"]):
-            c = self._layer_cache(caches, i)
-            if self.blocks[i] == BlockKind.RWKV6:
+        for i, kind in enumerate(self.blocks):
+            lp, c = self._layer_params(params, i), self._layer_cache(caches, i)
+            if kind == BlockKind.RWKV6:
                 # honours the incoming state: fresh or a continuation alike
                 x = rwkv.rwkv_prefill(lp, x, cfg, c, self.plain)
+                continue
+            if kind == BlockKind.MAMBA2:
+                h = layers.rmsnorm(lp["norm"]["scale"], x, cfg.norm_eps)
+                y, new = ssm.mamba2_forward(lp["mamba"], h, cfg, None if fresh else c)
+                for name, t in new.items():
+                    c[name].copy_(t)
+                x = x + y
                 continue
             h = layers.rmsnorm(lp["norm1"]["scale"], x, cfg.norm_eps)
             if fresh:
@@ -290,7 +342,7 @@ class Model:
                     lp["attn"], h, cfg, self.kinds[i], c["k"], c["v"], start, rope, self.plain)
             x = x + a
             h = layers.rmsnorm(lp["norm2"]["scale"], x, cfg.norm_eps)
-            x = x + layers.mlp(lp["mlp"], h, cfg.mlp_gated)
+            x = x + self._ffn(kind, lp, h, tenants=False)
         logits = self._logits(params, x[:, -1:, :])
         return logits[:, 0, :], caches
 
@@ -314,16 +366,20 @@ class Model:
         rope = None
         if self.has_attention:
             rope = layers.rope_tables(lengths.reshape(-1, 1), cfg.head_dim, cfg.rope_theta)
-        for i, lp in enumerate(params["layers"]):
-            c = self._layer_cache(caches, i)
-            if self.blocks[i] == BlockKind.RWKV6:
+        for i, kind in enumerate(self.blocks):
+            lp, c = self._layer_params(params, i), self._layer_cache(caches, i)
+            if kind == BlockKind.RWKV6:
                 x = rwkv.rwkv_decode(lp, x, cfg, c)
+                continue
+            if kind == BlockKind.MAMBA2:
+                h = layers.rmsnorm(lp["norm"]["scale"][:, None, :], x, cfg.norm_eps)
+                x = x + ssm.mamba2_decode(lp["mamba"], h, cfg, c)
                 continue
             h = layers.rmsnorm(lp["norm1"]["scale"][:, None, :], x, cfg.norm_eps)
             x = x + attention.attn_decode(
                 lp["attn"], h, cfg, c["k"], c["v"], lengths, rope, self.plain)
             h = layers.rmsnorm(lp["norm2"]["scale"][:, None, :], x, cfg.norm_eps)
-            x = x + layers.mlp(lp["mlp"], h, cfg.mlp_gated)
+            x = x + self._ffn(kind, lp, h, tenants=True)
         return self._logits(params, x), caches
 
     def forward_decode(

@@ -99,6 +99,11 @@ PORTED = {
     "qwen2-7b": (28, 3584, 28, 4, 128, 18944, 152064, "arXiv:2407.10671"),
     "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155, "hf:ibm-granite/granite-3.0-2b-base"),
     "gemma3-27b": (62, 5376, 32, 16, 128, 21504, 262144, "hf:google/gemma-3-1b-pt"),
+    "granite-moe-1b-a400m": (24, 1024, 16, 8, 64, 512, 49155,
+                             "hf:ibm-granite/granite-3.0-1b-a400m-base"),
+    "zamba2-7b": (81, 3584, 32, 32, 112, 14336, 32000, "arXiv:2411.15242"),
+    "llama4-maverick-400b-a17b": (48, 5120, 40, 8, 128, 8192, 202048,
+                                  "hf:meta-llama/Llama-4-Scout-17B-16E"),
 }
 
 
@@ -131,11 +136,12 @@ def test_schedule_config_equals_the_jax_package():
 def test_registry_lists_only_ported_archs():
     from repro_torch.configs import PORTED_ARCHS
 
-    assert len(PORTED_ARCHS) == 7 and sorted(PORTED_ARCHS) == sorted(PORTED)
-    assert sorted(PORTED_ARCHS) == tconfig.list_configs()
-    for arch in ("zamba2-7b", "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            tconfig.get_config(arch)
+    from repro.configs import ASSIGNED_ARCHS
+
+    assert len(PORTED_ARCHS) == 10 and sorted(PORTED_ARCHS) == sorted(PORTED)
+    assert sorted(PORTED_ARCHS) == sorted(ASSIGNED_ARCHS) == tconfig.list_configs()
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfig.get_config("not-an-arch")
 
 
 def test_paper_sgemm_equals_the_jax_package():

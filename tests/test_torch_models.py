@@ -17,11 +17,19 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from repro.config import AttentionKind as JAttentionKind  # noqa: E402
+from repro.config import BlockKind as JBlockKind  # noqa: E402
+from repro.config import SSMConfig as JSSMConfig  # noqa: E402
 from repro.config import get_config as jget_config  # noqa: E402
 from repro.config import smoke_variant as jsmoke  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
 
-from repro_torch.config import AttentionKind, BlockKind, get_config, smoke_variant  # noqa: E402
+from repro_torch.config import (  # noqa: E402
+    AttentionKind,
+    BlockKind,
+    SSMConfig,
+    get_config,
+    smoke_variant,
+)
 from repro_torch.core.tenancy import tenant_view  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -185,10 +193,28 @@ def test_init_stacked_slices_equal_init_and_match_jax_scales():
 
 
 def test_unported_block_kinds_raise():
-    cfg = dataclasses.replace(smoke_variant(get_config("stablelm-1.6b")), family="hybrid",
-                              block_pattern=(BlockKind.MAMBA2, BlockKind.ATTN_MLP))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, device="cpu")
+    """No block kind is left unported: a pattern that mixes mamba2 with
+    attn_mlp (which no assigned config has) builds, and its prefill and
+    decode logits follow the JAX model's."""
+    ssm = {"state_dim": 16, "head_dim": 32, "chunk_size": 16}
+    tcfg = dataclasses.replace(smoke_variant(get_config("stablelm-1.6b")), family="hybrid",
+                               block_pattern=(BlockKind.MAMBA2, BlockKind.ATTN_MLP),
+                               ssm=SSMConfig(**ssm))
+    jcfg = dataclasses.replace(jsmoke(jget_config("stablelm-1.6b")), family="hybrid",
+                               block_pattern=(JBlockKind.MAMBA2, JBlockKind.ATTN_MLP),
+                               ssm=JSSMConfig(**ssm))
+    jm = jbuild_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tm = build_model(tcfg, device="cpu")
+    tp = params_from_jax_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.RandomState(5).randint(1, tcfg.vocab_size, size=(2, 9)).astype(np.int32)
+    jl, jc = jm.forward_prefill(jp, jnp.asarray(toks), cache_len=CACHE_LEN)
+    tl, tc = tm.forward_prefill(tp, torch.from_numpy(toks).long(), cache_len=CACHE_LEN)
+    np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=RTOL, atol=ATOL)
+    tok, lengths = np.asarray([3, 4], np.int32), np.asarray([9, 9], np.int32)
+    jl, _ = jm.forward_decode(jp, jnp.asarray(tok), jc, jnp.asarray(lengths))
+    tl, _ = tm.forward_decode(tp, torch.from_numpy(tok).long(), tc, torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=RTOL, atol=ATOL)
 
 
 def test_default_device_is_the_card():

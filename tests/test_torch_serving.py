@@ -7,8 +7,12 @@ time_only mode. Greedy is an argmax over logits that agree to float32
 rounding, so exact equality is the right check. The same holds for three
 rwkv6-1.6b smoke tenants (recurrent caches: wkv state and token shifts),
 with a data-dependent decay (``w_lora_b`` made non-zero in both), whole and
-with chunked prefill, and for three paligemma-3b smoke tenants (one kv head,
-tied and scaled embeddings; text only, as the reference's engine serves it).
+with chunked prefill, for three paligemma-3b smoke tenants (one kv head,
+tied and scaled embeddings; text only, as the reference's engine serves it),
+and for three granite-moe-1b-a400m (MoE) and three zamba2-7b (Mamba2 caches
+beside k/v caches, one shared attention block applied twice) smoke tenants,
+whole and with chunked prefill (the reference's chunks too: MoE capacity is
+per chunk).
 """
 
 import numpy as np
@@ -27,7 +31,7 @@ from repro.serving import MultiTenantEngine as JEngine  # noqa: E402
 from repro.serving.sampling import apply_top_k as japply_top_k  # noqa: E402
 from repro.serving.sampling import apply_top_p as japply_top_p  # noqa: E402
 
-from repro_torch.config import get_config, smoke_variant  # noqa: E402
+from repro_torch.config import BlockKind, get_config, smoke_variant  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_jax_numpy  # noqa: E402
@@ -77,9 +81,9 @@ def _serve_jax(jm, jparams, prompts, **cfg):
     return jeng
 
 
-def _tenants(arch):
-    jcfg = jsmoke(jget_config(arch))
-    cfg = smoke_variant(get_config(arch))
+def _tenants(arch, num_layers=2):
+    jcfg = jsmoke(jget_config(arch), num_layers=num_layers)
+    cfg = smoke_variant(get_config(arch), num_layers=num_layers)
     jm = jbuild_model(jcfg)
     key = jax.random.PRNGKey(0)
     jparams = [jm.init(jax.random.fold_in(key, t)) for t in range(R)]
@@ -99,6 +103,14 @@ def pali_tenants():
     for four query heads, a frontend_proj the engine leaves unused (it
     serves text only, as the reference's engine does)."""
     return _tenants("paligemma-3b")
+
+
+@pytest.fixture(scope="module")
+def new_arch_tenants():
+    """granite-moe's smoke variant (every layer attention + MoE) and
+    zamba2's at 4 layers (mamba2, shared, mamba2, shared)."""
+    return {"granite-moe-1b-a400m": _tenants("granite-moe-1b-a400m"),
+            "zamba2-7b": _tenants("zamba2-7b", num_layers=4)}
 
 
 def _prompts(seed, n=9):
@@ -185,6 +197,45 @@ def test_rwkv_chunked_prefill_engine_matches_jax(rwkv_tenants):
     chunked = _serve_port(model, tparams, prompts, prefill_chunk=4)
     assert _tokens(chunked) == _tokens(jeng)
     assert ops.COUNTERS["wkv6_scan"].plain_calls == 2 * 6 * cfg.num_layers
+
+
+def _attention_layers(cfg):
+    return sum(k != BlockKind.MAMBA2 for k in cfg.layer_pattern)
+
+
+@pytest.mark.parametrize("mode", ["space_time", "time_only"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b"])
+def test_moe_and_hybrid_greedy_tokens_match_jax_engine(new_arch_tenants, arch, mode):
+    """Nine requests over six slots (recycled slots start from the state a
+    fresh prefill writes): the JAX engine's tokens, one prefill attention
+    call per attention layer (zamba2: its 2 shared positions of 4)."""
+    cfg, jm, jparams, model, tparams = new_arch_tenants[arch]
+    prompts = _prompts(13)
+    jeng = _serve_jax(jm, jparams, prompts, mode=mode)
+    ops.reset_counters()
+    eng = _serve_port(model, tparams, prompts, mode=mode)
+    assert len(eng.finished) == 9
+    assert _tokens(eng) == _tokens(jeng)
+    assert eng.report()["scheduler_dispatches"] == jeng.report()["scheduler_dispatches"]
+    assert eng.steps == jeng.steps
+    assert ops.COUNTERS["flash_attention"].plain_calls == 9 * _attention_layers(cfg)
+    if arch == "zamba2-7b":
+        assert sorted(eng.caches) == ["conv_B", "conv_C", "conv_x", "k", "ssm", "v"]
+        assert "shared_attn" in eng.stacked_params and eng.stacked_params["layers"][1] == {}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b"])
+def test_moe_and_hybrid_chunked_prefill_engine_matches_jax(new_arch_tenants, arch):
+    """Prompts of 6 prefilled in chunks of 4 (4 + 2) in both engines: the
+    second chunk continues the conv tails and SSM state, and its MoE
+    capacity is its own chunk's, as in the reference."""
+    cfg, jm, jparams, model, tparams = new_arch_tenants[arch]
+    prompts = _prompts(14, n=6)
+    jeng = _serve_jax(jm, jparams, prompts, prefill_chunk=4)
+    ops.reset_counters()
+    chunked = _serve_port(model, tparams, prompts, prefill_chunk=4)
+    assert _tokens(chunked) == _tokens(jeng)
+    assert ops.COUNTERS["flash_attention"].plain_calls == 2 * 6 * _attention_layers(cfg)
 
 
 def test_space_time_merges_decode_time_only_does_not(tenants):
