@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 6 --profile   # + where a paligemma decode step's time goes
     python3 chip_smoke.py --phases 7      # granite-moe, zamba2 and llama4-maverick
     python3 chip_smoke.py --phases 7 --profile   # + where their merged decode steps' time goes
+    python3 chip_smoke.py --phases 8      # a live fleet of two stablelm-1.6b engines
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -77,7 +78,23 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      GB in bf16), kernel path against plain path; (b) serves the 16
      requests of phase 3 for four granite-moe tenants (10.7 GB) and four
      zamba2 tenants (45.9 GB, 8.2 GB of caches) in both modes, with their
-     kernels rows.
+     kernels rows;
+  8. measures ``HardwareSpec``'s two launch terms (the host time of an empty
+     launch, and what a synchronize after it adds), then serves a live
+     fleet: two replicas, each a ``MultiTenantEngine`` over the same four
+     full-width stablelm-1.6b tenants (one 13.15 GB stacked weight set, 2
+     slots a tenant, cache 2048), behind ``LiveFleet`` on the wall clock
+     (least_cost routing over a ``FleetCalibrator``, a ``FlightRecorder``,
+     a roofline prior over the "h100" spec). A seeded Poisson trace of 48
+     requests over the four tenants at 16 requests/s (prompts of 128-1024
+     tokens, 8 new tokens each) is submitted at its instants through
+     ``LiveFleet.submit_one``, once with the engines in ``space_time`` and
+     once in ``time_only``. It fails unless every admitted request returns
+     8 tokens inside the vocabulary, both replicas dispatched, the
+     recorder's dispatches equal the pumps' and the exported Chrome trace's,
+     the calibrator holds measured seconds for every dispatched key, and
+     every K3 launch took split_kv and every K4 launch wgmma. It prints a
+     ``fleet`` line, and K3 and K4 rows at the fleet's shapes.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``). K1, K2
 and K4 each have a kernel for the tensor cores, picked by dtype and shape
@@ -114,7 +131,8 @@ them. The build prints ptxas's report for every kernel, the dynamic shared
 memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
 of K3's clusters fit on the card at once. Each phase prints its wall time.
 
-Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
+Prints a ``fleet`` JSON line (phase 8), a ``kernels`` JSON line, the card's
+name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 there is no CUDA card, if the port cannot be imported, or if any phase fails.
 """
@@ -734,10 +752,11 @@ def stacked_tenants(model, dev, seed, init=None):
     return stacked
 
 
-def serve_prompts(cfg, seed):
-    """REQUESTS (tenant, prompt) pairs, prompts of 128-1024 random tokens."""
+def serve_prompts(cfg, seed, n=None):
+    """``n`` (default REQUESTS) (tenant, prompt) pairs, prompts of 128-1024
+    random tokens, tenants in turn."""
     rng = np.random.RandomState(seed)
-    lens = rng.randint(128, 1025, size=REQUESTS)
+    lens = rng.randint(128, 1025, size=REQUESTS if n is None else n)
     prompts = [(i % R_TENANTS, rng.randint(1, cfg.vocab_size, size=int(n)).tolist())
                for i, n in enumerate(lens)]
     log(f"  prompts: lengths {sorted(int(x) for x in lens)}")
@@ -810,29 +829,31 @@ def profile_serving(model, stacked, prompts, steps=8):
         torch.cuda.empty_cache()
 
 
-def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode):
+def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode, slots=SLOTS,
+                          max_new=MAX_NEW, path=""):
     """Kernel vs plain vs SDPA at a serving path's own shapes (bf16, ``cfg``'s
-    heads and head dim): K3 at the merged decode step (space_time) and at
-    one tenant's decode (time_only), each row with its mode's launches; K4
-    at a median prefill. ``prior_ms`` is K3's first kernel (where it has an
-    instance at the head dim) and K4's CUDA-core variant."""
+    heads and head dim, ``slots`` per tenant): K3 at the merged decode step
+    (space_time) and at one tenant's decode (time_only), each row with its
+    mode's launches; K4 at a median prefill. ``prior_ms`` is K3's first
+    kernel (where it has an instance at the head dim) and K4's CUDA-core
+    variant. ``path`` prefixes the rows' shape labels."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 100)
-    lens_mid = [n + MAX_NEW // 2 for n in prompt_lens]  # mid-generation cache lengths
+    lens_mid = [n + max_new // 2 for n in prompt_lens]  # mid-generation cache lengths
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     prior = D in da.SINGLE_PASS_HEAD_DIMS
-    log(f"  {cfg.name} decode_attention at the merged decode step: R*B={R_TENANTS * SLOTS}, "
-        f"cache {CACHE_LEN}, lengths = prompt + {MAX_NEW // 2}")
-    merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * SLOTS, Hq, Hkv, CACHE_LEN,
-                            D, lens_mid, prior=prior)
-    alone = lens_mid[::R_TENANTS]  # tenant 0's requests: prompts go to tenants in turn
-    log(f"  {cfg.name} decode_attention at a time_only decode step: tenant 0 alone, B={SLOTS}, "
+    log(f"  {cfg.name} decode_attention at the merged decode step: R*B={R_TENANTS * slots}, "
+        f"cache {CACHE_LEN}, lengths = prompt + {max_new // 2}")
+    merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * slots, Hq, Hkv, CACHE_LEN,
+                            D, lens_mid[:R_TENANTS * slots], prior=prior)
+    alone = lens_mid[::R_TENANTS][:slots]  # tenant 0's requests: prompts go to tenants in turn
+    log(f"  {cfg.name} decode_attention at a time_only decode step: tenant 0 alone, B={slots}, "
         f"lengths {alone}")
-    single = measure_decode(ops, dev, gen, torch.bfloat16, SLOTS, Hq, Hkv, CACHE_LEN, D, alone,
+    single = measure_decode(ops, dev, gen, torch.bfloat16, slots, Hq, Hkv, CACHE_LEN, D, alone,
                             prior=prior)
     s_med = int(np.median(prompt_lens))
     log(f"  {cfg.name} flash_attention at a median prefill: {s_med} tokens")
@@ -847,7 +868,7 @@ def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode):
         row.setdefault("prior_ms", None)  # K3's first kernel has no instance at this D
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "shape": f"{cfg.name} {shape}, D={D}",
+                     "replaces": REPLACES[name], "shape": f"{path}{cfg.name} {shape}, D={D}",
                      "launches": n, "launches_by_variant": {row["variant"]: n}, **row})
     return rows
 
@@ -1951,6 +1972,249 @@ def phase_new_archs(ops, dev, seed, profile=False):
     return rows
 
 
+# ----------------------------------------------------------------- phase 8
+# A live fleet on the card: two replicas, each a MultiTenantEngine over the
+# same four full-width stablelm-1.6b tenants (one stacked weight set shared
+# by both), behind the port's LiveFleet on the wall clock: least_cost
+# routing over a FleetCalibrator's measured tables, a FlightRecorder, and a
+# roofline prior over the "h100" HardwareSpec. Arrivals are a seeded
+# Poisson trace from the port's sim.traces, submitted at their trace
+# instants through LiveFleet.submit_one, as a server's loop submits them.
+FLEET_ARCH = "stablelm-1.6b"
+FLEET_REPLICAS = 2
+FLEET_SLOTS = 2           # per tenant and engine: 8 sequences an engine
+FLEET_REQUESTS = 48
+FLEET_RATE_HZ = 16.0
+FLEET_NEW = 8
+FLEET_SLO_S = 1.0         # arrival to the 8th token of a request
+FLEET_WINDOW_S = 0.005    # the fleet scheduler's batching window
+FLEET_MAX_PENDING = 16    # cap admission: pending requests per tenant and replica
+FLEET_TAIL_S = 60.0       # the drain's own bound before it force-flushes
+LAUNCH_TERM_ITERS = 1000
+LAUNCH_TERM_REPEATS = 5
+
+
+def launch_terms():
+    """``HardwareSpec``'s two launch terms on this card, in seconds, each the
+    median of LAUNCH_TERM_REPEATS runs of LAUNCH_TERM_ITERS: the host time of
+    one empty kernel launch (``torch.cuda._sleep(0)``, a kernel that spins
+    zero cycles), and what a ``torch.cuda.synchronize()`` after each launch
+    adds to it."""
+    import torch
+
+    for _ in range(100):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    launch, synced = [], []
+    for _ in range(LAUNCH_TERM_REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_TERM_ITERS):
+            torch.cuda._sleep(0)
+        launch.append((time.perf_counter() - t0) / LAUNCH_TERM_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_TERM_ITERS):
+            torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) / LAUNCH_TERM_ITERS)
+    dispatch = float(np.median(launch))
+    return dispatch, float(np.median(synced)) - dispatch
+
+
+def fleet_mix(cfg, weight_bytes):
+    """One ``TenantSpec`` per tenant: a request of a mean prompt (576 tokens)
+    and FLEET_NEW new tokens, priced by the roofline prior at 2 FLOPs a
+    parameter a token and one read of the tenant's weights a decode step.
+    Every tenant shares one bucket, so a replica merges requests of all
+    tenants into one cohort."""
+    from repro_torch.sim.traces import TenantSpec
+
+    tokens = (128 + 1024) / 2 + FLEET_NEW
+    return [TenantSpec(tenant_id=t, name=f"t{t}/request", bucket=("request", cfg.name),
+                       cost=tokens, flops=2.0 * cfg.param_count() * tokens,
+                       bytes=weight_bytes / R_TENANTS * FLEET_NEW, slo_s=FLEET_SLO_S,
+                       kind="request")
+            for t in range(R_TENANTS)]
+
+
+def drive_fleet(fleet, arrivals, prompts):
+    """Submit each arrival at its trace instant (from now) through
+    ``submit_one``, pumping ripened cohorts while it waits, then drain the
+    tail as the server's shutdown does. Returns (submissions, wall s)."""
+    t0 = time.perf_counter()
+    subs = []
+    for (t_s, spec, cost), prompt in zip(arrivals, prompts):
+        due = t0 + t_s
+        while True:
+            fleet.poll()
+            now = time.perf_counter()
+            if now >= due:
+                break
+            nxt = fleet.next_ripe_time()
+            time.sleep(max(0.0, min(due if nxt is None else min(due, nxt), now + 0.002) - now))
+        subs.append(fleet.submit_one(spec, cost, payload=prompt))
+    fleet._drain_wall_tail(timeout_s=FLEET_TAIL_S)
+    return subs, time.perf_counter() - t0
+
+
+def check_fleet(mode, fleet, rec, calibration, subs, vocab, bucket):
+    """Phase 8's checks on one run; returns its counts."""
+    from types import SimpleNamespace
+
+    from repro_torch.obs.trace_export import export_chrome_trace
+    from repro_torch.sim.costmodel import batch_key
+
+    for w, rid, admitted, _reason in subs:
+        toks = w.result
+        if admitted and (toks is None or len(toks) != FLEET_NEW
+                         or not all(0 <= int(x) < vocab for x in toks)):
+            raise PhaseFailed(f"{mode}: an admitted request on replica {rid} returned {toks}, "
+                              f"not {FLEET_NEW} tokens inside the vocabulary")
+    dispatches = [p.scheduler.stats.dispatches for p in fleet.pumps]
+    if min(dispatches) <= 0:
+        raise PhaseFailed(f"{mode}: a replica never dispatched: {dispatches}")
+    shards = [rec.shards[p.replica_id] for p in fleet.pumps]
+    recorded = sum(s.n_dispatches for s in shards)
+    if recorded != sum(dispatches):
+        raise PhaseFailed(f"{mode}: the recorder holds {recorded} dispatches, the pumps "
+                          f"made {sum(dispatches)}")
+    doc = json.loads(export_chrome_trace(rec))
+    in_trace = sum(1 for e in doc["traceEvents"] if e.get("cat") == "dispatch")
+    if in_trace != recorded:
+        raise PhaseFailed(f"{mode}: the Chrome trace holds {in_trace} dispatch events, the "
+                          f"recorder {recorded}")
+    fitted = {}
+    for p, s in zip(fleet.pumps, shards):
+        table = calibration.for_replica(p.replica_id).table
+        for n in set(s._dsp_size):
+            key = batch_key([SimpleNamespace(bucket=bucket)] * n)
+            if not table.get(key, 0.0) > 0.0:
+                raise PhaseFailed(f"{mode}: replica {p.replica_id} dispatched {key} but its "
+                                  f"calibrated table holds {table.get(key)}")
+        fitted[p.replica_id] = dict(sorted(table.items()))
+    return dispatches, recorded, fitted
+
+
+def run_fleet(ops, model, stacked, cfg, mode, prompts, seed, weight_bytes):
+    """One wall-clock LiveFleet run of phase 8's trace with the engines in
+    ``mode`` (the cost prior's strategy too, as the reference's LiveRun
+    ties them). Returns the mode's entry of the ``fleet`` line."""
+    import torch
+
+    from repro_torch.config import ScheduleConfig
+    from repro_torch.launch.roofline import resolve_spec
+    from repro_torch.obs.recorder import FlightRecorder
+    from repro_torch.serving import EngineConfig, MultiTenantEngine
+    from repro_torch.serving.fleet import EngineReplica, LiveFleet
+    from repro_torch.sim.costmodel import FleetCalibrator, RooflineCostModel
+    from repro_torch.sim.fleet import _arrival_stream
+    from repro_torch.sim.traces import PoissonTrace
+
+    def engine(i):
+        return EngineReplica(MultiTenantEngine(model, stacked_params=stacked, config=EngineConfig(
+            num_tenants=R_TENANTS, slots_per_tenant=FLEET_SLOTS, cache_len=CACHE_LEN, mode=mode,
+            seed=seed + i)), replica_id=i, max_new_tokens=FLEET_NEW)
+
+    prior = RooflineCostModel(spec=resolve_spec("h100"), strategy=mode)
+    calibration = FleetCalibrator(prior=prior)
+    rec = FlightRecorder()
+    fleet = LiveFleet(
+        replicas=FLEET_REPLICAS, engine_factory=engine, router="least_cost",
+        schedule=ScheduleConfig(batching_window_s=FLEET_WINDOW_S,
+                                max_superkernel_size=R_TENANTS * FLEET_SLOTS,
+                                max_pending_per_tenant=FLEET_MAX_PENDING,
+                                default_slo_s=FLEET_SLO_S),
+        cost_model=prior, calibration=calibration, recorder=rec)
+    mix = fleet_mix(cfg, weight_bytes)
+    arrivals = list(_arrival_stream(PoissonTrace(mix, FLEET_RATE_HZ, FLEET_REQUESTS, seed=seed)))
+    before = {k: c.launches for k, c in ops.COUNTERS.items()}
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        subs, wall = drive_fleet(fleet, arrivals, [p for _, p in prompts])
+    torch.cuda.synchronize()
+    launches = {k: c.launches - before[k] for k, c in ops.COUNTERS.items()}
+    dispatches, recorded, fitted = check_fleet(mode, fleet, rec, calibration, subs,
+                                               cfg.vocab_size, mix[0].bucket)
+    m = fleet.freeze(wall).summary()
+    reasons = {}
+    for s in rec.shards.values():
+        for r in s._arr_reason:
+            reasons[int(r)] = reasons.get(int(r), 0) + 1
+    admitted = sum(1 for _, _, a, _ in subs if a)
+    tokens = sum(len(w.result) for w, _, a, _ in subs if a)
+    entry = {
+        "mode": mode, "requests": len(subs), "admitted": admitted,
+        "rejected": len(subs) - admitted, "reasons": {str(k): v for k, v in sorted(reasons.items())},
+        "routed": list(fleet.routed_counts), "dispatches": dispatches,
+        "recorded_dispatches": recorded, "p50_s": m["p50_s"], "p95_s": m["p95_s"],
+        "slo_attainment": m["slo_attainment"], "wall_s": wall,
+        "decode_tokens_per_s": tokens / wall,
+        "launches": {k: launches[k] for k in ATTENTION_KERNELS},
+        "calibrated_s": {str(rid): t for rid, t in fitted.items()},
+    }
+    log(f"  {mode}: {admitted}/{len(subs)} admitted (reason codes {entry['reasons']}), routed "
+        f"{entry['routed']}, dispatches {dispatches}, p50 {m['p50_s'] * 1e3:.1f} ms p95 "
+        f"{m['p95_s'] * 1e3:.1f} ms, {entry['decode_tokens_per_s']:.1f} decode tokens/s over "
+        f"{wall:.2f} s, launches {entry['launches']}")
+    for rid, table in fitted.items():
+        log(f"    replica {rid} calibrated: "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in table.items()))
+    del fleet
+    return entry
+
+
+def phase_fleet(ops, dev, seed):
+    """Phase 8: the launch terms, then phase 8's trace through a two-replica
+    LiveFleet in space_time and in time_only. Fails unless every admitted
+    request returns FLEET_NEW tokens inside the vocabulary, both replicas
+    dispatch, the recorder's and the Chrome trace's dispatches equal the
+    pumps', the calibrator holds measured seconds for every dispatched key,
+    and every K3 launch took split_kv and every K4 launch wgmma. Returns
+    (kernels rows, the ``fleet`` line's object)."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core.tenancy import tenant_bytes
+    from repro_torch.models import build_model
+
+    dispatch_s, switch_s = launch_terms()
+    card = gpu_identity()
+    log(f"  launch terms on {card}: dispatch_overhead_s={dispatch_s:.4e} (host time of one empty "
+        f"launch), context_switch_s={switch_s:.4e} (added by a synchronize after it)")
+    cfg = get_config(FLEET_ARCH)
+    model = build_model(cfg, device=dev)
+    stacked = stacked_tenants(model, dev, seed)
+    weight_bytes = tenant_bytes(stacked)
+    prompts, lens = serve_prompts(cfg, seed, FLEET_REQUESTS)
+    log(f"  {FLEET_REPLICAS} replicas x {R_TENANTS} tenants x {FLEET_SLOTS} slots, cache "
+        f"{CACHE_LEN}; {FLEET_REQUESTS} Poisson arrivals at {FLEET_RATE_HZ:g}/s, {FLEET_NEW} new "
+        f"tokens each; window {FLEET_WINDOW_S * 1e3:g} ms, SLO {FLEET_SLO_S:g} s, at most "
+        f"{FLEET_MAX_PENDING} pending a tenant")
+    ops.reset_counters()  # the fleet path starts here
+    runs = []
+    for mode in ("space_time", "time_only"):
+        runs.append(run_fleet(ops, model, stacked, cfg, mode, prompts, seed, weight_bytes))
+        torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in ops.COUNTERS.items()}
+    plain_calls = {k: c.plain_calls for k, c in ops.COUNTERS.items()}
+    log(f"  fleet-path launches (both modes): {launches}; plain-version calls: {plain_calls}")
+    if any(plain_calls.values()):
+        raise PhaseFailed(f"plain versions were called on the fleet path: {plain_calls}")
+    for name, want in (("flash_attention", "wgmma"), ("decode_attention", "split_kv")):
+        by_variant = dict(ops.COUNTERS[name].variants)
+        if launches[name] <= 0 or by_variant.get(want, 0) != launches[name]:
+            raise PhaseFailed(f"{name}: {launches[name]} launches on the fleet path, not all "
+                              f"{want}: {by_variant}")
+    per_mode = tuple(r["launches"] for r in runs)
+    log("kernels at the fleet path's shapes")
+    rows = main_path_kernel_rows(ops, dev, seed, cfg, lens, launches, per_mode,
+                                 slots=FLEET_SLOTS, max_new=FLEET_NEW, path="live fleet, ")
+    doc = {"card": card, "arch": FLEET_ARCH, "replicas": FLEET_REPLICAS,
+           "launch_terms": {"dispatch_overhead_s": dispatch_s, "context_switch_s": switch_s},
+           "runs": runs}
+    return rows, doc
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -2021,7 +2285,7 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3, 5, 6 and 7, profile steady decode steps of both "
@@ -2057,6 +2321,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     rows = []
+    fleet = None
     try:
         if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
             build_report(_build)
@@ -2101,12 +2366,21 @@ def main(argv=None) -> int:
                 f"{LLAMA4_LAYERS} layers")
             with phase_wall(7):
                 rows += phase_new_archs(ops, dev, args.seed, args.profile)
+        if 8 in phases:
+            torch.cuda.empty_cache()
+            log(f"phase 8: a live fleet of {FLEET_REPLICAS} {FLEET_ARCH} engines ({R_TENANTS} "
+                "tenants each) on the wall clock")
+            with phase_wall(8):
+                fleet_rows, fleet = phase_fleet(ops, dev, args.seed)
+                rows += fleet_rows
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     if args.rows_out:
         Path(args.rows_out).write_text(json.dumps(rows))
         return 0
+    if fleet is not None:
+        log(json.dumps({"fleet": fleet}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())

@@ -1,8 +1,7 @@
 """The paper's primary contribution, ported: dynamic space-time scheduling
 behind one execution core.
 
-Components (the JAX package's ``repro.core``, minus the control plane's
-``pump``):
+Components (the JAX package's ``repro.core``):
     workload    -- the generic schedulable item (the common currency)
     clock       -- injectable time sources (wall / deterministic virtual)
     policy      -- pluggable batching windows (fixed / SLO-adaptive / EDF)
@@ -14,6 +13,8 @@ Components (the JAX package's ``repro.core``, minus the control plane's
                    window policy, EDF + preemption, SLO tracking, eviction
     tenancy     -- stacked tenant weights, per-tenant views, TenantManager
     slo         -- per-tenant latency EWMA + predictability metrics
+    pump        -- PumpCore: one scheduler on an injected clock plus the
+                   ripeness drain loop the simulators and the live fleet share
 """
 
 from repro_torch.core.clock import Clock, VirtualClock, WallClock  # noqa: F401
@@ -24,6 +25,7 @@ from repro_torch.core.policy import (  # noqa: F401
     SLOAdaptiveWindowPolicy,
     make_policy,
 )
+from repro_torch.core.pump import PumpCore, drain_fleet_tail, drain_merged  # noqa: F401
 from repro_torch.core.queue import (  # noqa: F401
     GemmProblem,
     KernelQueue,

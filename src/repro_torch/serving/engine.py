@@ -118,6 +118,9 @@ class MultiTenantEngine:
         self.queue: List[InferenceRequest] = []
         self.active: Dict[tuple, InferenceRequest] = {}  # (tenant, slot) -> req
         self.finished: List[InferenceRequest] = []
+        # flight-recorder shard (repro_torch.obs); whoever attaches it also
+        # taps scheduler.on_dispatch -- the engine only records arrivals
+        self.recorder = None
         self.last_token = np.zeros((R, B), np.int64)
         self.steps = 0
         self.decode_tokens = 0
@@ -141,6 +144,10 @@ class MultiTenantEngine:
     def submit(self, req: InferenceRequest, now: Optional[float] = None) -> None:
         req.arrival_time = now if now is not None else time.perf_counter()
         req.state = RequestState.QUEUED
+        if self.recorder is not None:
+            self.recorder.record_arrival(
+                req.arrival_time, req.tenant_id,
+                ("request", len(req.prompt)), True)
         self.queue.append(req)
 
     # ------------------------------------------------------------------ prefill

@@ -12,7 +12,8 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread: pytest's workers already fill every core
 pytest.importorskip("jax")
 
 import repro.config as jconfig  # noqa: E402
@@ -68,6 +69,30 @@ def test_the_scans_cover_every_config_module():
                 "granite_3_8b", "gemma3_27b"):
         assert f"repro_torch.configs.{mod}" in names
         assert PORT / "configs" / f"{mod}.py" in files
+
+
+def test_the_scans_cover_the_control_plane():
+    """The package walk and the file scan reach every control-plane module
+    of the port: the pump, the simulators, the recorder, the partition
+    shares, the hardware spec and the live fleet."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    for mod in ("core.pump", "sim.traces", "sim.router", "sim.costmodel", "sim.metrics",
+                "sim.simulator", "sim.autoscale", "sim.fleet", "sim.shard", "obs.recorder",
+                "obs.telemetry", "obs.trace_export", "partition.shares", "launch.roofline",
+                "serving.fleet"):
+        assert f"repro_torch.{mod}" in names
+        assert PORT / (mod.replace(".", "/") + ".py") in files
+    for pkg in ("sim", "obs", "partition", "launch"):
+        assert f"repro_torch.{pkg}" in names
+
+
+def test_the_hardware_registry_holds_no_tpu_part():
+    from repro_torch.launch import roofline
+
+    names = list(roofline.HARDWARE_SPECS) + [s.name for s in roofline.HARDWARE_SPECS.values()]
+    assert names and not any("v5e" in n or "tpu" in n for n in names)
+    assert roofline.HardwareSpec().name == "h100"
 
 
 def _imports(path):

@@ -16,6 +16,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+torch.set_num_threads(1)  # one thread: pytest's workers already fill every core
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.batched_gemm import batched_gemm as jax_batched_gemm  # noqa: E402

@@ -16,6 +16,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+torch.set_num_threads(1)  # one thread: pytest's workers already fill every core
 
 import repro.config as jconfig  # noqa: E402
 import repro.core as jcore  # noqa: E402
