@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 7      # granite-moe, zamba2 and llama4-maverick
     python3 chip_smoke.py --phases 7 --profile   # + where their merged decode steps' time goes
     python3 chip_smoke.py --phases 8      # a live fleet of two stablelm-1.6b engines
+    python3 chip_smoke.py --phases 9      # the front door: python -m repro_torch, LiveRun, HTTP
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -94,9 +95,30 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      recorder's dispatches equal the pumps' and the exported Chrome trace's,
      the calibrator holds measured seconds for every dispatched key, and
      every K3 launch took split_kv and every K4 launch wgmma. It prints a
-     ``fleet`` line, and K3 and K4 rows at the fleet's shapes.
+     ``fleet`` line, and K3 and K4 rows at the fleet's shapes;
+  9. drives the front door through ``repro_torch.api.cli.main`` in process,
+     with the launch counters read around each step: (a) ``python -m
+     repro_torch specs`` in a subprocess that cannot import jax, and
+     ``check`` on every committed spec with the hardware overrides
+     (``--set cost_model.hardware=h100``; hetero_fleet's card list too);
+     (b) ``simulate --check`` (a same-seed byte-identical rerun) of
+     paper_mix and partitioned_fleet on the H100, and the resolved knee
+     plan; (c) ``calibrate`` on the card, every K1 launch ``simt``, then a
+     calibrated sim replaying the table; (d) live stablelm-1.6b and
+     rwkv6-1.6b smoke specs (float32, as the reference builds them; K3 and
+     K4 at D = 64, K5 at N = V = 32 padded to 64), each run twice, the
+     second starting from the fleet calibration the first saved, and a sim
+     replaying it; (e) the ``LiveRun`` flow over two replicas of four
+     full-width bf16 stablelm-1.6b tenants (the engine factory replaced
+     here by phase 8's), 24 Poisson requests at 16/s, its report held to
+     the CLI's live checks; (f) ``launch/serve.run_server`` in a thread
+     over serve_smoke.json (arch=fake) and over a live stablelm-1.6b smoke
+     spec on the card, 8 concurrent predicts each, /healthz, /v1/report and
+     a clean shutdown (invariants only). It prints a ``front_door`` line
+     and K1, K3, K4 and K5 rows at its paths' shapes.
 
-K5 takes its chunked kernel for every shape (``wkv6_scan.variant``). K1, K2
+K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
+zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
 and K4 each have a kernel for the tensor cores, picked by dtype and shape
 before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 ``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
@@ -105,10 +127,15 @@ CUDA-core kernels. K3 takes its ``split_kv`` kernel for every shape: the live
 prefix of each (sequence, kv head) split across a thread-block cluster and
 combined on chip; one launch takes up to 8 query heads per kv head, and a
 larger ratio runs as one launch per head group of 8. K3 and K4 take head
-dims 64, 112, 128 and 256; bf16 at head dim 112 takes K4's CUDA-core kernel.
+dims 32, 64, 112, 128 and 256; bf16 at head dims 32 and 112 takes K4's
+CUDA-core kernel.
 Phase 1 checks K3 at its tile and split edges, at q_per_kv 1 to 8 and at 12
 and 16 (two launches a call), at every head dim, and that two launches give
-the same bits; phase 4a checks K1 at its row-tile, K and N edges and that a
+the same bits; K5 at the reference kernel tests' head sizes (16, 16), (16,
+32), (8, 8) and at (32, 32) over a median prompt, from a zero and a random
+state, whole and split in two in one buffer (``final_state is
+init_state``); K3 and K4 at D = 32 (MQA, suffix queries, a stale cache
+beyond ``lengths``), each timed beside SDPA and its bound; phase 4a checks K1 at its row-tile, K and N edges and that a
 problem's output is bit-identical whatever the others hold, on both of its
 kernels. Launch checks count attention layers, not layers (zamba2: 13 of
 81; its Mamba2 layers launch no kernel). Phases 3, 6b and 7b fail unless
@@ -131,7 +158,8 @@ them. The build prints ptxas's report for every kernel, the dynamic shared
 memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
 of K3's clusters fit on the card at once. Each phase prints its wall time.
 
-Prints a ``fleet`` JSON line (phase 8), a ``kernels`` JSON line, the card's
+Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
+a ``kernels`` JSON line, the card's
 name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 there is no CUDA card, if the port cannot be imported, or if any phase fails.
@@ -510,6 +538,115 @@ def phase_kernels(ops, dev, seed):
             check_flash(ops, dev, gen, dtype, 1, 8, 1, 100, 300, D, 48, q_offset=150)
             check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
             check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
+    phase_head_sizes(ops, dev, seed)
+
+
+# The head sizes of P6: K5 at the reference kernel tests' (BH, T, N, V) and
+# at the smoke variants' N = V = 32 over a median prompt; K3 and K4 at the
+# reference attention tests' D = 32.
+WKV_P6_CASES = ((2, 64, 16, 16), (4, 70, 16, 32), (1, 33, 8, 8), (32, 742, 32, 32))
+WKV_SMOKE_CASE = (32, 742, 32, 32)
+
+
+def wkv_case_inputs(gen, dev, dtype, BH, T, N, V):
+    """r, k, v ~ 0.5 N(0, 1) (BH, T, N or V), decay logits w ~ N(-3, 1), u
+    (BH, N) ~ 0.3 N(0, 1): ``wkv_inputs``' scales at any head size."""
+    import torch
+
+    def draw(width, scale, shift=0.0):
+        t = torch.randn((BH, T, width), generator=gen, device=dev) * scale + shift
+        return t.to(dtype)
+
+    r, k = draw(N, 0.5), draw(N, 0.5)
+    v, w = draw(V, 0.5), draw(N, 1.0, -3.0)
+    return r, k, v, w, torch.randn((BH, N), generator=gen, device=dev) * 0.3
+
+
+def wkv_case_work(BH, T, N, V, dtype):
+    """(bytes, float32 flops) of one scan of BH heads of (N, V), unpadded:
+    r, k, w, v read and out written once, u, the initial state read and the
+    final state written once; ~5 N V flops per head per step (o: r S and
+    the bonus, S: decay S + k v)."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = BH * T * (3 * N + 2 * V) * esize + 4 * BH * N + 2 * 4 * BH * N * V
+    return nbytes, 5 * N * V * BH * T
+
+
+def check_wkv_case(ops, gen, dev, dtype, BH, T, N, V):
+    """K5 at one (BH, T, N, V) against its plain version, from a zero and a
+    random state, whole and split in two with the state carried in one
+    buffer that is both ``init_state`` and ``final_state``. Returns the
+    inputs and the whole scan's error from the random state."""
+    import torch
+
+    from repro_torch.kernels import wkv6_scan as wk
+
+    tag = f"wkv6_scan {str(dtype)[6:]} (BH, T, N, V)={(BH, T, N, V)} [padded to " \
+          f"{wk.padded_dims(N, V)}]"
+    inputs = wkv_case_inputs(gen, dev, dtype, BH, T, N, V)
+    check_wkv(ops, f"{tag} zero state", dtype, inputs, None)
+    s0 = torch.randn((BH, N, V), generator=gen, device=dev)
+    err, whole, whole_state = check_wkv(ops, f"{tag} random state", dtype, inputs, s0)
+    buf = s0.clone()
+    cut = T // 2
+    parts = []
+    for a, b in ((0, cut), (cut, T)):
+        out, state = ops.wkv6_scan(*(t[:, a:b] for t in inputs[:4]), inputs[4],
+                                   init_state=buf, final_state=buf)
+        if state is not buf:
+            raise PhaseFailed(f"{tag}: the final state is not the caller's buffer")
+        parts.append(out)
+    torch.cuda.synchronize()
+    # the split moves the chunk boundaries, so float32 sums differ in order:
+    # check_wkv's tolerances (bf16 outputs may flip one rounding step)
+    check_close(f"{tag} {cut} + {T - cut} from the carried state vs whole, out",
+                torch.cat(parts, dim=1), whole, str(dtype),
+                WKV_TOL if dtype == torch.float32 else None)
+    check_close(f"{tag} {cut} + {T - cut} vs whole, final state", buf, whole_state,
+                "torch.float32", WKV_TOL)
+    return inputs, s0, err
+
+
+def phase_head_sizes(ops, dev, seed):
+    """P6's shapes on the card, each against its plain version in float32
+    and bf16: K5 at WKV_P6_CASES (timed at the smoke variant's head size
+    beside its bound), K3 at (1, 8, 1, 96, 32) and (1, 2, 1, 64, 32) with a
+    stale cache beyond ``lengths`` (bit-identical outputs), K4 at (1, 8, 1,
+    96, 32) causal and windowed and at suffix queries (32 over 96), K3 and
+    K4 timed beside SDPA and their bounds."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in WKV_P6_CASES:
+            inputs, s0, err = check_wkv_case(ops, gen, dev, dtype, *case)
+            if case != WKV_SMOKE_CASE:
+                continue
+            state = s0.clone()
+            nbytes, flops = wkv_case_work(*case, dtype)
+            bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+            ms = time_ms(lambda: ops.wkv6_scan(*inputs, init_state=state, final_state=state), 20)
+            plain_ms = time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
+                                                           final_state=state), 3, 1)
+            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library: none bound_ms={bound_ms:.4f} "
+                f"({bound_by}) kernel/bound={ms / bound_ms:.1f} (padding copies included)")
+        for B, Hq, Hkv, S, lengths in ((1, 8, 1, 96, [96]), (1, 8, 1, 96, [50]),
+                                       (1, 2, 1, 64, [20])):
+            (q, kc, vc, lens), _ = check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, 32, lengths)
+            kc2, vc2 = kc.clone(), vc.clone()
+            kc2[:, :, lengths[0]:], vc2[:, :, lengths[0]:] = 99.0, -99.0
+            stale = [ops.decode_attention(q, a, b, lens) for a, b in ((kc, vc), (kc2, vc2))]
+            torch.cuda.synchronize()
+            same = bool(torch.equal(*stale))
+            log(f"    stale cache beyond length {lengths[0]}: bit-identical output {same}")
+            if not same:
+                raise PhaseFailed(f"decode_attention D=32 {(B, Hq, Hkv, S)}: the cache beyond "
+                                  "lengths changed the output")
+            measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, 32, lengths, iters=20)
+        for window in (0, 32):
+            measure_flash(ops, dev, gen, dtype, 1, 8, 1, 96, 96, 32, window)
+        measure_flash(ops, dev, gen, dtype, 1, 2, 2, 32, 96, 32, 0)  # suffix queries
 
 
 # ----------------------------------------------------------------- phase 2
@@ -865,11 +1002,7 @@ def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode, 
             ("decode_attention", "one tenant's decode (time_only)", per_to["decode_attention"],
              single),
             ("flash_attention", "median prefill", launches["flash_attention"], fl)):
-        row.setdefault("prior_ms", None)  # K3's first kernel has no instance at this D
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "shape": f"{path}{cfg.name} {shape}, D={D}",
-                     "launches": n, "launches_by_variant": {row["variant"]: n}, **row})
+        rows.append(kernel_row(name, f"{path}{cfg.name} {shape}, D={D}", n, row))
     return rows
 
 
@@ -1542,15 +1675,13 @@ def wkv_inputs(gen, dev, dtype, T, w_dtype=None, w_mean=-3.0, w_std=1.0):
 
 
 def wkv_work(T, dtype, w_dtype=None):
-    """(bytes, float32 flops) of one scan over WKV_HEADS heads: r, k, v, w
-    read and out written once, u, the initial state read and the final state
-    written once; ~5 N V flops per head per step (o: r S and the bonus,
-    S: decay S + k v)."""
-    esize = 2 if "bfloat16" in str(dtype) else 4
-    wsize = 4 if w_dtype is not None and "float32" in str(w_dtype) else esize
-    bh, n = WKV_HEADS, WKV_N
-    nbytes = bh * T * n * (4 * esize + wsize) + 4 * bh * n + 2 * 4 * bh * n * n
-    return nbytes, 5 * n * n * bh * T
+    """(bytes, float32 flops) of one scan over WKV_HEADS heads of N = V =
+    WKV_N (``wkv_case_work``), a float32 w beside bf16 r, k, v read at 4
+    bytes."""
+    nbytes, flops = wkv_case_work(WKV_HEADS, T, WKV_N, WKV_N, dtype)
+    if "float32" in str(w_dtype) and "bfloat16" in str(dtype):
+        nbytes += 2 * WKV_HEADS * T * WKV_N
+    return nbytes, flops
 
 
 def check_wkv(ops, name, dtype, inputs, s0, kernel=None):
@@ -2215,6 +2346,434 @@ def phase_fleet(ops, dev, seed):
     return rows, doc
 
 
+# ----------------------------------------------------------------- phase 9
+# The front door: the port's CLI in process (``repro_torch.api.cli.main``),
+# so the launch counters can be read around each step. Committed specs name
+# the reference's card, so every run of one carries the hardware overrides.
+SPECS_DIR = ROOT / "examples" / "specs"
+SIM_SPEC_FILES = ("paper_mix", "hetero_fleet", "deadline_fleet", "traced_fleet", "replay_smoke",
+                  "partitioned_fleet")
+H100_SETS = ["--set", "cost_model.hardware=h100"]
+H100_FLEET_SETS = H100_SETS + ["--set", 'fleet.specs=["h100","h100_half"]']
+FRONT_SIM_EVENTS = 5000
+CALIBRATE_EVENTS = 300
+LIVE_SMOKE_EVENTS = 24
+LIVE_SMOKE_ARCHS = {"stablelm-1.6b": ("flash_attention", "decode_attention"),
+                    "rwkv6-1.6b": ("wkv6_scan",)}
+LIVE_SMOKE_SETS = ["--set", "mode=live", "--set", "fleet.replicas=2",
+                   "--set", "router.policy=least_cost"]
+FRONT_FULL_REQUESTS = 24
+HTTP_REQUESTS = 8
+
+
+def spec_file(name):
+    return str(SPECS_DIR / f"{name}.json")
+
+
+def front_cli(argv):
+    """One in-process call of the port's CLI; PhaseFailed unless it exits 0."""
+    from repro_torch.api import cli
+
+    log(f"  $ python -m repro_torch {' '.join(argv)}")
+    rc = cli.main(argv)
+    sys.stdout.flush()
+    if rc != 0:
+        raise PhaseFailed(f"python -m repro_torch {' '.join(argv)} exited {rc}")
+
+
+def launches_of(ops):
+    """(launches, launches by variant, plain calls) of every kernel."""
+    return ({k: c.launches for k, c in ops.COUNTERS.items()},
+            {k: dict(c.variants) for k, c in ops.COUNTERS.items()},
+            {k: c.plain_calls for k, c in ops.COUNTERS.items()})
+
+
+def require_launches(what, ops, kernels, variants):
+    """PhaseFailed unless each of ``kernels`` launched, every launch by the
+    variant ``variants`` names, and no plain version ran. Returns the
+    launches."""
+    launches, by_variant, plain = launches_of(ops)
+    log(f"  {what}: launches {launches}; by variant {by_variant}; plain calls {plain}")
+    if any(plain.values()):
+        raise PhaseFailed(f"{what}: plain versions ran on the card: {plain}")
+    for name in kernels:
+        if launches[name] <= 0 or by_variant[name] != {variants[name]: launches[name]}:
+            raise PhaseFailed(f"{what}: {name} launched {by_variant[name]}, not only "
+                              f"{variants[name]}")
+    return launches
+
+
+def kernel_row(name, shape, launches, row):
+    """A ``kernels``-line row: ``row``'s numbers with the kernel's source,
+    the TPU kernel it replaces, its shape label and its launches on the
+    path (``prior_ms`` null where the previous kernel has no instance)."""
+    row.setdefault("prior_ms", None)
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": (REPLACES.get(name) or GEMM_REPLACES[name]), "shape": shape,
+            "launches": launches, "launches_by_variant": {row["variant"]: launches}, **row}
+
+
+def front_checks():
+    """(a) ``python -m repro_torch specs`` in a subprocess, then ``check``
+    on every committed spec with the hardware overrides."""
+    from repro_torch.api.spec import ServeSpec
+
+    # ``python -m repro_torch specs`` in a fresh interpreter in which jax (and
+    # the reference package) cannot be imported, whether or not installed
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import importlib.util, runpy, sys\n"
+            "print('jax installed:', importlib.util.find_spec('jax') is not None)\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            "sys.argv = ['python -m repro_torch', 'specs']\n"
+            "runpy.run_module('repro_torch', run_name='__main__', alter_sys=True)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    log(out.stdout.rstrip())
+    log(f"  python -m repro_torch specs with jax and repro unimportable: exit {out.returncode}")
+    if out.returncode != 0 or "h100_half" not in out.stdout:
+        raise PhaseFailed(f"python -m repro_torch specs failed: {out.stderr.strip()[-2000:]}")
+    for name in SIM_SPEC_FILES:
+        front_cli(["check", "--spec", spec_file(name)]
+                  + (H100_FLEET_SETS if name == "hetero_fleet" else H100_SETS))
+    serve = ServeSpec.load(spec_file("serve_smoke"))
+    log(f"  serve_smoke.json: ServeSpec OK, live arch={serve.system.workload.arch} replicas="
+        f"{serve.system.fleet.replicas} on {serve.system.cost_model.hardware}")
+
+
+def front_sims():
+    """(b) same-seed byte-identical reruns of two committed sim specs on the
+    H100, and the resolved knee plan of the partitioned one."""
+    from repro_torch.api.build import build_mix, build_partition
+    from repro_torch.api.spec import SystemSpec
+
+    for name in ("paper_mix", "partitioned_fleet"):
+        front_cli(["simulate", "--spec", spec_file(name), "--events", str(FRONT_SIM_EVENTS),
+                   "--check"] + H100_SETS)
+    spec = SystemSpec.load(spec_file("partitioned_fleet"), {"cost_model.hardware": "h100"})
+    plan, _ = build_partition(spec, build_mix(spec.workload))
+    log(f"  partitioned_fleet knee plan on h100: {plan.to_json()}")
+    return json.loads(plan.to_json())
+
+
+def front_calibrate(ops, dev, seed, tmp):
+    """(c) ``calibrate`` on the card: every merged GEMM dispatch a K1 simt
+    launch; then a calibrated sim replays the table. Returns (summary, K1
+    row at the most dispatched (bucket, R))."""
+    import torch
+
+    from repro_torch.api.build import build_mix
+    from repro_torch.api.spec import SystemSpec
+    from repro_torch.sim.costmodel import CalibratedCostModel
+
+    costs = tmp / "costs.json"
+    ops.reset_counters()  # the calibrate path starts here
+    front_cli(["calibrate", "--spec", spec_file("paper_mix"), "--events", str(CALIBRATE_EVENTS),
+               "--out", str(costs)] + H100_SETS)
+    torch.cuda.synchronize()
+    launches = require_launches("calibrate", ops, ("batched_gemm",), {"batched_gemm": "simt"})
+    front_cli(["simulate", "--spec", spec_file("paper_mix"), "--events", str(FRONT_SIM_EVENTS),
+               "--check", "--set", "cost_model.kind=calibrated",
+               "--set", f"cost_model.calibration_path={costs}"] + H100_SETS)
+    model = CalibratedCostModel.load(str(costs))
+    spec = SystemSpec.load(spec_file("paper_mix"), {"cost_model.hardware": "h100"})
+    buckets = {repr(t.bucket): t.bucket for t in build_mix(spec.workload)}
+    key = max(sorted(model.counts), key=model.counts.get)
+    bucket_repr, r = key.rsplit("|r", 1)
+    b, R = buckets[bucket_repr], int(r)
+    log(f"  K1 at calibrate's most dispatched key {key} ({model.counts[key]} dispatches): "
+        f"R={R} M={b.M} K={b.K} N={b.N} float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 90)
+    x, w, err = check_batched(ops, gen, dev, torch.float32, R, b.M, b.K, b.N)
+    row = kernel_row("batched_gemm", f"front door calibrate, paper_mix on h100: {key}",
+                     launches["batched_gemm"], measure_batched(ops, x, w, err))
+    summary = {"k1_launches": launches["batched_gemm"], "keys": len(model.table),
+               "fitted_ms": {k: v * 1e3 for k, v in sorted(model.table.items())}}
+    return summary, row
+
+
+def front_live_smoke(ops, dev, seed, tmp):
+    """(d) live runs of the reference's kind: the smoke variants in float32
+    behind two replicas, each spec run twice (the second loads the fleet
+    calibration the first saved), then a sim replays those tables. Returns
+    (summary, rows at the runs' shapes)."""
+    import torch
+
+    from repro_torch.api.build import build_fleet_calibration
+    from repro_torch.api.spec import CostModelSpec
+    from repro_torch.config import get_config, smoke_variant
+
+    summary, rows = {}, []
+    want = {"flash_attention": "cuda_core", "decode_attention": "split_kv",
+            "wkv6_scan": "chunked"}
+    for arch, kernels in LIVE_SMOKE_ARCHS.items():
+        table = tmp / f"fleet_{arch}.json"
+        sets = LIVE_SMOKE_SETS + ["--set", f"workload.arch={arch}",
+                                  "--set", f"cost_model.fleet_calibration_path={table}"]
+        cfg = smoke_variant(get_config(arch))
+        dims = (f"D={cfg.head_dim}" if cfg.num_heads else
+                f"N=V={cfg.ssm.head_dim}, {cfg.d_model // cfg.ssm.head_dim} heads")
+        total = {k: 0 for k in ops.COUNTERS}
+        for run in (1, 2):
+            if run == 2:
+                warm = build_fleet_calibration(CostModelSpec(fleet_calibration_path=str(table)))
+                fitted = {r: len(warm.for_replica(r).table) for r in range(2)}
+                log(f"  {arch}: the second run starts warm from {table.name}: keys per replica "
+                    f"{fitted}")
+                if not any(fitted.values()):
+                    raise PhaseFailed(f"{arch}: the saved fleet calibration holds no table")
+            ops.reset_counters()  # this live run starts here
+            front_cli(["simulate", "--check", "--events", str(LIVE_SMOKE_EVENTS)] + sets)
+            torch.cuda.synchronize()
+            launches = require_launches(f"{arch} smoke ({dims}) live run {run}", ops, kernels,
+                                        want)
+            if not table.exists():
+                raise PhaseFailed(f"{arch}: the live run saved no fleet calibration")
+            for k in total:
+                total[k] += launches[k]
+        summary[arch] = {"dims": dims, "launches": {k: total[k] for k in kernels}}
+        if arch == "stablelm-1.6b":
+            front_cli(["simulate", "--spec", spec_file("paper_mix"), "--events", "2000",
+                       "--check", "--set", "fleet.replicas=2",
+                       "--set", f"cost_model.fleet_calibration_path={table}"] + H100_SETS)
+        rows += live_smoke_rows(ops, dev, seed, cfg, total)
+    return summary, rows
+
+
+def live_smoke_rows(ops, dev, seed, cfg, launches):
+    """Kernel rows at a live smoke run's shapes (float32): K3 at the merged
+    decode step (8 tenants x 2 slots, cache 32, mid-generation lengths), K4
+    at one prefill of the default 8-token prompt, K5 at one such prefill."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 91)
+    label = f"front door live smoke {cfg.name}, float32"
+    f32 = torch.float32
+    if cfg.num_heads:
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        log(f"  {label}: decode_attention at the merged decode step")
+        dec = measure_decode(ops, dev, gen, f32, 16, H, Hkv, 32, D, [12] * 16)
+        log(f"  {label}: flash_attention at a prefill")
+        fl = measure_flash(ops, dev, gen, f32, 1, H, Hkv, 8, 8, D, 0)
+        return [kernel_row("decode_attention", f"{label} merged decode, D={D}",
+                           launches["decode_attention"], dec),
+                kernel_row("flash_attention", f"{label} prefill, D={D}",
+                           launches["flash_attention"], fl)]
+    N = cfg.ssm.head_dim
+    BH, T = cfg.d_model // N, 8
+    log(f"  {label}: wkv6_scan at a prefill, (BH, T, N, V)={(BH, T, N, N)}")
+    inputs, s0, err = check_wkv_case(ops, gen, dev, f32, BH, T, N, N)
+    state = s0.clone()
+    nbytes, flops = wkv_case_work(BH, T, N, N, f32)
+    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    row = {"variant": "chunked", "max_abs_err": err,
+           "ms": time_ms(lambda: ops.wkv6_scan(*inputs, init_state=state, final_state=state), 20),
+           "plain_ms": time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
+                                                           final_state=state), 3, 1),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library: none "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return [kernel_row("wkv6_scan", f"{label} prefill, N=V={N} padded to 64",
+                       launches["wkv6_scan"], row)]
+
+
+def front_full_width(ops, dev, seed, tmp):
+    """(e) the LiveRun flow (spec -> build_fleet -> LiveFleet -> RunReport ->
+    saved calibration) with its engine factory replaced here by phase 8's:
+    two replicas over four full-width bf16 stablelm-1.6b tenants (one
+    stacked weight set), FRONT_FULL_REQUESTS Poisson requests at phase 8's
+    rate submitted at their instants. Returns (summary, K3 and K4 rows)."""
+    import torch
+
+    from repro_torch.api.build import LiveRun, _augment_metrics, build_recorder
+    from repro_torch.api.cli import _check_live_report
+    from repro_torch.api.report import RunReport
+    from repro_torch.api.spec import SystemSpec
+    from repro_torch.config import get_config
+    from repro_torch.core.tenancy import tenant_bytes
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, MultiTenantEngine
+    from repro_torch.serving.fleet import EngineReplica
+    from repro_torch.sim.fleet import _arrival_stream
+    from repro_torch.sim.traces import PoissonTrace
+
+    cfg = get_config(FLEET_ARCH)
+    model = build_model(cfg, device=dev)
+    stacked = stacked_tenants(model, dev, seed)
+    weight_bytes = tenant_bytes(stacked)
+
+    class FullWidthRun(LiveRun):
+        def build_engine_factory(self):
+            def factory(i):
+                return EngineReplica(MultiTenantEngine(
+                    model, stacked_params=stacked, config=EngineConfig(
+                        num_tenants=R_TENANTS, slots_per_tenant=FLEET_SLOTS,
+                        cache_len=CACHE_LEN, mode="space_time", seed=seed + i)),
+                    replica_id=i, max_new_tokens=FLEET_NEW)
+            return factory, EngineReplica.name, cfg.vocab_size
+
+    table = tmp / "fleet_full_width.json"
+    spec = SystemSpec().replace(**{
+        "mode": "live", "workload.arch": FLEET_ARCH, "workload.tenants": R_TENANTS,
+        "workload.events": FRONT_FULL_REQUESTS, "workload.rate_hz": FLEET_RATE_HZ,
+        "workload.seed": seed, "workload.max_new_tokens": FLEET_NEW,
+        "fleet.replicas": FLEET_REPLICAS, "router.policy": "least_cost",
+        "scheduler.batching_window_s": FLEET_WINDOW_S,
+        "scheduler.max_superkernel_size": R_TENANTS * FLEET_SLOTS,
+        "scheduler.max_pending_per_tenant": FLEET_MAX_PENDING,
+        "scheduler.default_slo_s": FLEET_SLO_S,
+        "cost_model.fleet_calibration_path": str(table)})
+    run = FullWidthRun(spec, device=dev)
+    rec = build_recorder(spec)
+    fleet, vocab = run.build_fleet(recorder=rec)
+    mix = fleet_mix(cfg, weight_bytes)
+    arrivals = list(_arrival_stream(PoissonTrace(mix, FLEET_RATE_HZ, FRONT_FULL_REQUESTS,
+                                                 seed=seed)))
+    prompts, lens = serve_prompts(cfg, seed, FRONT_FULL_REQUESTS)
+    ops.reset_counters()  # the full-width front-door path starts here
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        subs, wall = drive_fleet(fleet, arrivals, [p for _, p in prompts])
+    torch.cuda.synchronize()
+    launches = require_launches("full-width front door", ops,
+                                ("flash_attention", "decode_attention"),
+                                {"flash_attention": "wgmma", "decode_attention": "split_kv"})
+    m = fleet.freeze(wall)
+    run.wall_s = wall
+    run.save_calibration(fleet)
+    doc = _augment_metrics(spec, m.to_dict(), m, rec)
+    doc.update(arch=FLEET_ARCH, engine=run.engine_name, wall_s=wall)
+    report = RunReport(executor=run.executor, mode=spec.mode, spec=spec.to_dict(), metrics=doc)
+    problems = _check_live_report(report, spec)
+    for w, rid, admitted, _ in subs:
+        if admitted and (w.result is None or len(w.result) != FLEET_NEW
+                         or not all(0 <= int(x) < vocab for x in w.result)):
+            problems.append(f"an admitted request on replica {rid} returned {w.result}")
+    if not table.exists():
+        problems.append("no fleet calibration saved")
+    if problems:
+        raise PhaseFailed(f"full-width front door: {problems}")
+    s = report.summary
+    summary = {"arch": FLEET_ARCH, "replicas": FLEET_REPLICAS, "tenants": R_TENANTS,
+               "requests": len(subs), "admitted": sum(1 for _, _, a, _ in subs if a),
+               "rate_hz": FLEET_RATE_HZ, "p50_s": s["p50_s"], "p95_s": s["p95_s"],
+               "slo_s": FLEET_SLO_S, "slo_attainment": s["slo_attainment"],
+               "routed": [int(n) for n in m.routed_counts], "wall_s": wall,
+               "launches": {k: launches[k] for k in ATTENTION_KERNELS}}
+    log(f"  full width: {summary['admitted']}/{len(subs)} admitted, routed {summary['routed']}, "
+        f"p50 {s['p50_s'] * 1e3:.1f} ms p95 {s['p95_s'] * 1e3:.1f} ms, attainment at "
+        f"{FLEET_SLO_S:g} s {s['slo_attainment']:.3f}, {wall:.2f} s wall; report check OK")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 92)
+    lens_mid = [lens[i % len(lens)] + FLEET_NEW // 2 for i in range(R_TENANTS * FLEET_SLOTS)]
+    log(f"  {FLEET_ARCH} decode_attention at the front door's merged decode step")
+    dec = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * FLEET_SLOTS, cfg.num_heads,
+                         cfg.num_kv_heads, CACHE_LEN, cfg.head_dim, lens_mid, prior=True)
+    s_med = int(np.median(lens))
+    log(f"  {FLEET_ARCH} flash_attention at a median prefill: {s_med} tokens")
+    fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, cfg.num_heads, cfg.num_kv_heads, s_med,
+                       s_med, cfg.head_dim, 0, prior=True)
+    label = f"front door full width {FLEET_ARCH}"
+    rows = [kernel_row("decode_attention", f"{label} merged decode (space_time), D=64",
+                       launches["decode_attention"], dec),
+            kernel_row("flash_attention", f"{label} median prefill, D=64",
+                       launches["flash_attention"], fl)]
+    del fleet, run, stacked, model
+    return summary, rows
+
+
+def http_round(spec, what, n, want_tokens, vocab, device=None):
+    """``run_server`` in a thread; n concurrent /v1/predict, /healthz,
+    /v1/report, then shutdown. Invariants only."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.serve import run_server
+
+    ready, started = threading.Event(), []
+    thread = threading.Thread(target=run_server, args=(spec,),
+                              kwargs=dict(ready=ready, device=device, started=started),
+                              daemon=True)
+    thread.start()
+    if not ready.wait(300):
+        raise PhaseFailed(f"{what}: the server did not come up")
+    server = started[0]
+    base = f"http://127.0.0.1:{server.port}"
+
+    def predict(i):
+        req = urllib.request.Request(base + "/v1/predict", data=json.dumps(
+            {"tenant_id": i % 4, "prompt": [1 + i, 2, 3]}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        with ThreadPoolExecutor(n) as ex:
+            outs = list(ex.map(predict, range(n)))
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/v1/report", timeout=60) as r:
+            report = json.loads(r.read())
+    finally:
+        server.httpd.shutdown()
+        thread.join(120)
+    bad = [(st, d) for st, d in outs if st != 200 or len(d["tokens"]) != want_tokens
+           or not all(0 <= t < vocab for t in d["tokens"])]
+    replicas = sorted({d["replica"] for _, d in outs})
+    log(f"  {what}: {n} concurrent predicts answered, {want_tokens} tokens each; replicas "
+        f"{replicas}; healthz {health}; report http {report['metrics']['http']}; server "
+        f"thread stopped {not thread.is_alive()}")
+    if bad or health["status"] != "ok" or report["metrics"]["http"]["requests"] != n \
+            or thread.is_alive():
+        raise PhaseFailed(f"{what}: {bad or health or report['metrics']['http']}")
+    return {"requests": n, "replicas": replicas}
+
+
+def front_http(ops, dev):
+    """(f) the HTTP front door over serve_smoke.json (arch=fake), then over
+    a live stablelm-1.6b smoke spec on the card."""
+    import torch
+
+    from repro_torch.api.spec import ServeSpec, SystemSpec
+
+    fake = http_round(ServeSpec.load(spec_file("serve_smoke")), "serve_smoke (fake)",
+                      HTTP_REQUESTS, 8, 32_000)
+    system = SystemSpec().replace(**{"mode": "live", "workload.arch": "stablelm-1.6b",
+                                     "workload.tenants": 4, "fleet.replicas": 2,
+                                     "router.policy": "least_cost"})
+    spec = ServeSpec(system=system, port=0, request_timeout_s=120.0, poll_interval_s=0.01)
+    ops.reset_counters()  # the HTTP path on the card starts here
+    live = http_round(spec, "stablelm-1.6b smoke on the card", HTTP_REQUESTS,
+                      system.workload.max_new_tokens, 1024, device=dev)
+    torch.cuda.synchronize()
+    live["launches"] = require_launches(
+        "HTTP front door", ops, ("flash_attention", "decode_attention"),
+        {"flash_attention": "cuda_core", "decode_attention": "split_kv"})
+    return {"fake": fake, "live": live}
+
+
+def phase_front_door(ops, dev, seed):
+    """Phase 9: the front door (a)-(f). Returns (kernels rows, the
+    ``front_door`` line's object)."""
+    doc = {"card": gpu_identity()}
+    with tempfile.TemporaryDirectory(prefix="front_door_") as d:
+        tmp = Path(d)
+        log("  (a) specs and check")
+        front_checks()
+        log("  (b) simulate --check on h100")
+        doc["knee_plan"] = front_sims()
+        log("  (c) calibrate on the card")
+        doc["calibrate"], k1_row = front_calibrate(ops, dev, seed, tmp)
+        log("  (d) live smoke specs")
+        doc["live_smoke"], smoke_rows = front_live_smoke(ops, dev, seed, tmp)
+        log("  (e) full-width LiveRun flow")
+        doc["full_width"], full_rows = front_full_width(ops, dev, seed, tmp)
+        log("  (f) the HTTP front door")
+        doc["http"] = front_http(ops, dev)
+    return [k1_row] + smoke_rows + full_rows, doc
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -2285,7 +2844,7 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3, 5, 6 and 7, profile steady decode steps of both "
@@ -2321,7 +2880,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     rows = []
-    fleet = None
+    fleet = front = None
     try:
         if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
             build_report(_build)
@@ -2373,6 +2932,12 @@ def main(argv=None) -> int:
             with phase_wall(8):
                 fleet_rows, fleet = phase_fleet(ops, dev, args.seed)
                 rows += fleet_rows
+        if 9 in phases:
+            torch.cuda.empty_cache()
+            log("phase 9: the front door (python -m repro_torch, LiveRun, the HTTP server)")
+            with phase_wall(9):
+                front_rows, front = phase_front_door(ops, dev, args.seed)
+                rows += front_rows
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2381,6 +2946,8 @@ def main(argv=None) -> int:
         return 0
     if fleet is not None:
         log(json.dumps({"fleet": fleet}))
+    if front is not None:
+        log(json.dumps({"front_door": front}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())

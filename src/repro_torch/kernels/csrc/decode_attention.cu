@@ -32,9 +32,9 @@
 //   head fit in 32 registers where 32 lanes allow it; 64 at G = 8, D = 256),
 //   each holding one slice of its values; the lanes' partial dot products
 //   meet by xor-shuffles, and each lane keeps the P.V sums of its own
-//   columns. Head dims 64, 128 and 256 split evenly over the lanes; D = 112
-//   takes the layout of 128 columns, and the lanes whose slice lies past the
-//   row hold zeros and load nothing (Cfg::kDP). Every group of LPK lanes
+//   columns. Head dims 64, 128 and 256 split evenly over the lanes; D = 32
+//   takes the layout of 64 columns and D = 112 that of 128, and the lanes
+//   whose slice lies past the row hold zeros and load nothing (Cfg::kDP). Every group of LPK lanes
 //   runs its own online softmax over the keys it sees (up to 4 at a time);
 //   groups merge by shuffles, warps through shared memory in warp order,
 //   and after cluster.sync() the cluster's ranks share the G*D outputs and
@@ -219,7 +219,8 @@ constexpr int kMaxRing = 200 * 1024;       // the K/V ring's most bytes (227 KB 
 
 // The layout of the kernel for dtype BF16, head dim D and up to G query heads
 // per KV head. Lanes are laid out for kDP, the power-of-two width at or above
-// D (64, 128 or 256): at D = 112 a row is laid out as 128 columns and the
+// D (64, 128 or 256): at D = 32 a row is laid out as 64 columns, at D = 112
+// as 128, and the
 // lanes whose slice starts at or past D hold nothing (every slice lies wholly
 // inside the row or wholly past it), so each live slice stays a whole 8-byte
 // or 16-byte-multiple vector at an aligned address.
@@ -550,10 +551,12 @@ int dispatch_split(const void* q, const void* k, const void* v, const int32_t* l
   if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                      \
     return launch_split<BF16, DIM>(q, k, v, lengths, out, B, Hq, Hkv, S, splits, scale, st,     \
                                    clusters);
+  REPRO_SPLIT(false, 32)
   REPRO_SPLIT(false, 64)
   REPRO_SPLIT(false, 112)
   REPRO_SPLIT(false, 128)
   REPRO_SPLIT(false, 256)
+  REPRO_SPLIT(true, 32)
   REPRO_SPLIT(true, 64)
   REPRO_SPLIT(true, 112)
   REPRO_SPLIT(true, 128)
@@ -565,6 +568,7 @@ int dispatch_split(const void* q, const void* k, const void* v, const int32_t* l
 template <bool BF16>
 int split_smem(int D) {
   switch (D) {
+    case 32: return split::Cfg<BF16, 32, 1>::kSmemBytes;
     case 64: return split::Cfg<BF16, 64, 1>::kSmemBytes;
     case 112: return split::Cfg<BF16, 112, 1>::kSmemBytes;
     case 128: return split::Cfg<BF16, 128, 1>::kSmemBytes;

@@ -37,12 +37,12 @@
 //   That rounding of P to the value dtype is the Pallas kernel's own
 //   (flash_attention.py:70). Query tiles are launched latest first, so the
 //   longest causal rows start first.
-// * CUDA cores (float32, and bf16 at D = 112, whose 224-byte rows are not
-//   whole 128-byte swizzle rows). Four threads share one query row, each
+// * CUDA cores (float32, and bf16 at D = 32 and 112, whose 64- and 224-byte
+//   rows are not whole 128-byte swizzle rows). Four threads share one query row, each
 //   holding a strided quarter of q and of the accumulator in registers;
 //   K/V tiles are widened to float32 in (static) shared memory by 16-byte
 //   vector loads, BK keys at a time, BK shrinking as D grows (64 keys at
-//   D = 64, 32 at 112 and 128, 16 at 256) so the two tiles stay within 48 KB
+//   D = 32 and 64, 32 at 112 and 128, 16 at 256) so the two tiles stay within 48 KB
 //   and s[BK] + q + acc within registers; a partial dot product is finished
 //   with two shuffles.
 #include "common.cuh"
@@ -422,10 +422,12 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 #define REPRO_CUDA_CORE(BF16, DIM)                                                                \
   if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                        \
     return launch<BF16, DIM>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+  REPRO_CUDA_CORE(false, 32)
   REPRO_CUDA_CORE(false, 64)
   REPRO_CUDA_CORE(false, 112)
   REPRO_CUDA_CORE(false, 128)
   REPRO_CUDA_CORE(false, 256)
+  REPRO_CUDA_CORE(true, 32)
   REPRO_CUDA_CORE(true, 64)
   REPRO_CUDA_CORE(true, 112)
   REPRO_CUDA_CORE(true, 128)

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
-SUPPORTED_HEAD_DIMS = (64, 112, 128, 256)
+SUPPORTED_HEAD_DIMS = (32, 64, 112, 128, 256)
 SINGLE_PASS_HEAD_DIMS = (64, 128)  # the first kernel's instances
 MAX_G = 8  # query heads per kv head in one launch (the source's kMaxG)
 # C codes of the source's kernels; "single_pass" is the first version of K3 (one
@@ -35,8 +35,8 @@ MAX_SPLITS = 8         # the portable cluster size
 def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes decode attention of ``dtype`` at head dim
     ``D``: split_kv for every dtype and head dim the wrapper takes (a cache
-    of at most 512 positions is one CTA per cluster; D = 112 lays its lanes
-    out as 128 columns and masks the last 16)."""
+    of at most 512 positions is one CTA per cluster; D = 32 lays its lanes
+    out as 64 columns and D = 112 as 128, masking the columns past D)."""
     del dtype, D
     return "split_kv"
 
@@ -52,8 +52,8 @@ def lane_layout(D: int, q_per_kv: int) -> Tuple[int, int, int]:
     """split_kv's lanes at head dim ``D`` (the source's ``split::Cfg`` for
     the instance that takes one launch's ``q_per_kv``: G = 1, 2, 4 or 8):
     (the width the lanes are laid out for, lanes per key, values per lane). A row of
-    D = 112 is laid out as 128 columns; the lanes whose slice starts at or
-    past D hold nothing."""
+    D = 32 is laid out as 64 columns and one of D = 112 as 128; the lanes
+    whose slice starts at or past D hold nothing."""
     G = next(g for g in (1, 2, 4, 8) if q_per_kv <= g)
     width = 64 if D <= 64 else 128 if D <= 128 else 256
     lanes = min(32, max(8, G * width // 32))

@@ -7,7 +7,7 @@ runs the kernel too. Its plain PyTorch version is ``ref.attention``;
 ``ops.flash_attention`` picks between them by the device of the tensors.
 On the card, ``variant`` picks one of the source's two kernels by dtype
 and head dim before the launch: the bf16 tensor-core kernel (wgmma fed by
-TMA) or the CUDA-core kernel (float32, and bf16 at D = 112).
+TMA) or the CUDA-core kernel (float32, and bf16 at D = 32 and 112).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
-SUPPORTED_HEAD_DIMS = (64, 112, 128, 256)
+SUPPORTED_HEAD_DIMS = (32, 64, 112, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)  # whole 64-column (128-byte) swizzle boxes
 
 
@@ -27,7 +27,8 @@ def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention of ``dtype`` at head dim ``D``:
     wgmma for bf16 at D = 64, 128 and 256 (rows of whole 128-byte swizzle
     boxes, one to four of them), the CUDA-core kernel for float32 and for
-    bf16 at D = 112 (a 224-byte row is not a whole number of boxes)."""
+    bf16 at D = 32 and 112 (a 64- or 224-byte row is not a whole number of
+    boxes)."""
     if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"

@@ -9,6 +9,17 @@ by the device of the tensors. On the card every call takes the chunked
 kernel: chunks of ``CHUNK`` steps, each from the state entering it through
 running products of decays (``csrc/wkv6_scan.cu`` gives the formulas), 16
 value columns a block.
+
+The kernel's heads are N = V = 64 (rwkv6-1.6b's). Smaller heads, as the
+smoke variants (N = V = 32) and the reference's kernel tests (8, 16, 32,
+also N != V) have, run by a fixed rule of the wrapper, decided from the
+shapes before the launch (``padded_dims``): N and V are each padded with
+zeros to 64. Padded r and k are 0, padded w is 0 (a finite decay of
+exp(-1)), padded u and initial-state rows and columns are 0, so padded
+state rows and columns stay 0 and add nothing to the outputs; the outputs'
+padded columns are dropped and the state is copied back into the caller's
+``final_state`` (which may be ``init_state`` itself). At N = V = 32 the
+kernel does four times the state work the head needs.
 """
 
 from __future__ import annotations
@@ -21,7 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
-SUPPORTED_N = SUPPORTED_V = 64
+KERNEL_N = KERNEL_V = 64  # the kernel's head: key (state rows) and value (state columns) dims
+SUPPORTED_HEAD_SIZES = (8, 16, 32, 64)  # N and V each; below 64 by ``padded_dims``
 # C codes of the source's kernels; "sequential" is the first version of K5
 # (one dependent step at a time), launched only when asked for
 # (chip_smoke.py times it as ``prior_ms``).
@@ -35,6 +47,22 @@ def variant(dtype: torch.dtype, T: int) -> str:
     masked chunk)."""
     del dtype, T
     return "chunked"
+
+
+def padded_dims(N: int, V: int) -> Tuple[int, int]:
+    """(N, V) as the kernel runs a head of key dim ``N`` and value dim
+    ``V``: each of 8, 16, 32 and 64 zero-padded to the kernel's 64. Raises
+    on any other size."""
+    if N not in SUPPORTED_HEAD_SIZES or V not in SUPPORTED_HEAD_SIZES:
+        raise ValueError(f"wkv6_scan: N={N} V={V}; the wrapper takes N and V in "
+                         f"{SUPPORTED_HEAD_SIZES}")
+    return KERNEL_N, KERNEL_V
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 def _heads4(t: torch.Tensor) -> torch.Tensor:
@@ -68,8 +96,9 @@ def wkv6_scan(
     tensor). The inputs may be strided views with a contiguous last dim.
     Launches a CUDA kernel on the tensors' card: ``variant``'s, or
     ``kernel`` where given (how ``chip_smoke.py`` times the sequential
-    kernel); raises on anything the kernel does not take (device, dtype, N
-    or V other than 64, alignment).
+    kernel), on heads zero-padded to ``padded_dims(N, V)`` where those
+    differ from (N, V); raises on anything the kernel does not take
+    (device, dtype, N or V outside ``SUPPORTED_HEAD_SIZES``, alignment).
     """
     _build.check_device(r)
     if r.ndim not in (3, 4) or k.shape != r.shape or w.shape != r.shape \
@@ -78,8 +107,7 @@ def wkv6_scan(
                          f"v {tuple(v.shape)} w {tuple(w.shape)}")
     T, N = r.shape[-2:]
     V = v.shape[-1]
-    if N != SUPPORTED_N or V != SUPPORTED_V:
-        raise ValueError(f"wkv6_scan: N={N} V={V}; the kernel takes N = V = 64")
+    kernel_dims = padded_dims(N, V)
     if T == 0:
         raise ValueError("wkv6_scan: empty sequence")
     if r.dtype not in _build.DTYPE_CODES or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -101,6 +129,11 @@ def wkv6_scan(
     if final_state is None:
         final_state = torch.empty((BH, N, V), dtype=torch.float32, device=r.device)
     _state(final_state, BH, N, V, "final_state")
+    for t in (k, v, w, u, final_state) + ((init_state,) if init_state is not None else ()):
+        if t.device != r.device:
+            raise ValueError("wkv6_scan: all tensors must be on one device")
+    if kernel_dims != (N, V):
+        return _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, kernel_dims)
     out = torch.empty_like(v, dtype=r.dtype)  # v's layout (strides preserved)
     out4 = _heads4(out)
     strides = []
@@ -114,9 +147,6 @@ def wkv6_scan(
                 raise ValueError(f"wkv6_scan: {what} must be 16-byte aligned with strides "
                                  f"of whole 16-byte vectors, got strides {t.stride()}")
         strides += [sb, sh, st]
-    for t in (k, v, w, u, final_state) + ((init_state,) if init_state is not None else ()):
-        if t.device != r.device:
-            raise ValueError("wkv6_scan: all tensors must be on one device")
     packed = (ctypes.c_longlong * 15)(*strides)
     lib = _build.load("wkv6_scan")
     with torch.cuda.device(r.device):
@@ -128,4 +158,21 @@ def wkv6_scan(
             _build.stream_of(r))
     _build.check_status(lib, "wkv6_scan", status)
     counter.launched(kind)
+    return out, final_state
+
+
+def _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, dims):
+    """The scan of checked (B, H, T, N) and (B, H, T, V) inputs on heads
+    zero-padded to ``dims`` (``padded_dims``): one launch on padded copies,
+    then the outputs' and the state's live part copied out."""
+    (N, V), (NP, VP) = (r4.shape[-1], v4.shape[-1]), dims
+    BH = r4.shape[0] * r4.shape[1]
+    state = torch.zeros((BH, NP, VP), dtype=torch.float32, device=r4.device)
+    if init_state is not None:
+        state[:, :N, :V] = init_state.view(BH, N, V)
+    out_p, _ = wkv6_scan(*(_pad_last(t, NP) for t in (r4, k4)), _pad_last(v4, VP),
+                         _pad_last(w4, NP), _pad_last(u, NP), state, state, kernel=kind)
+    final_state.view(BH, N, V).copy_(state[:, :N, :V])
+    out = torch.empty_like(v, dtype=r4.dtype)
+    _heads4(out).copy_(out_p[..., :V])
     return out, final_state

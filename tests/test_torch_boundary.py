@@ -74,16 +74,18 @@ def test_the_scans_cover_every_config_module():
 def test_the_scans_cover_the_control_plane():
     """The package walk and the file scan reach every control-plane module
     of the port: the pump, the simulators, the recorder, the partition
-    shares, the hardware spec and the live fleet."""
+    shares, knee and planner, the hardware spec, the live fleet, the API,
+    the CLI and the HTTP front door."""
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     files = set(PORT.rglob("*.py"))
     for mod in ("core.pump", "sim.traces", "sim.router", "sim.costmodel", "sim.metrics",
                 "sim.simulator", "sim.autoscale", "sim.fleet", "sim.shard", "obs.recorder",
-                "obs.telemetry", "obs.trace_export", "partition.shares", "launch.roofline",
-                "serving.fleet"):
+                "obs.telemetry", "obs.trace_export", "partition.shares", "partition.knee",
+                "partition.planner", "launch.roofline", "launch.serve", "serving.fleet",
+                "api.report", "api.spec", "api.build", "api.cli", "__main__"):
         assert f"repro_torch.{mod}" in names
         assert PORT / (mod.replace(".", "/") + ".py") in files
-    for pkg in ("sim", "obs", "partition", "launch"):
+    for pkg in ("sim", "obs", "partition", "launch", "api"):
         assert f"repro_torch.{pkg}" in names
 
 

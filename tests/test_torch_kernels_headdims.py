@@ -84,7 +84,7 @@ def test_attention_plain_version_matches_pallas(D, case):
 
 
 # ----------------------------------------------------------------- host side
-@pytest.mark.parametrize("D", [64, 112, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 def test_both_wrappers_take_the_four_head_dims(D):
     assert D in tda.SUPPORTED_HEAD_DIMS and D in tfa.SUPPORTED_HEAD_DIMS
 
@@ -117,7 +117,7 @@ def test_single_pass_refuses_the_new_dims_with_its_reason(D, monkeypatch):
         tda.decode_attention(q, kc, kc.clone(), lens, kernel="single_pass")
 
 
-@pytest.mark.parametrize("D", [64, 112, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("q_per_kv", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_split_kv_lanes_cover_each_column_once(D, q_per_kv, dtype):
@@ -139,7 +139,7 @@ def test_split_kv_lanes_cover_each_column_once(D, q_per_kv, dtype):
     assert G * vals <= 64
 
 
-@pytest.mark.parametrize("D", [64, 112, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_split_kv_ring_fits_a_block_and_holds_the_partials(D, dtype):
     """The ring (1-3 stages of a 64-key K and V tile) fits in a block's
@@ -152,3 +152,79 @@ def test_split_kv_ring_fits_a_block_and_holds_the_partials(D, dtype):
     assert (4 + 1) * 8 * (D + 2) * 4 <= ring
     if dtype == torch.float32 and D == 256:
         assert ring == tile  # one stage: two would need 256 KB
+
+
+# ----------------------------------------------------------------- D = 32
+# The reference attention tests' head dim 32 (tests/test_kernels_attention.py):
+# the MQA case (1, 8, 1, 96, 32), suffix queries (32 over 96) and a stale
+# cache beyond ``lengths``, at their tolerance and tile sizes.
+@pytest.mark.parametrize("window", [0, 32])
+def test_attention_plain_version_matches_pallas_at_d32(window):
+    rng = np.random.RandomState(32 + window)
+    q, k, v = _randn(rng, 1, 8, 96, 32), _randn(rng, 1, 1, 96, 32), _randn(rng, 1, 1, 96, 32)
+    got = ref.attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+                        window=window).numpy()
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                        window=window, bq=64, bkv=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_suffix_queries_plain_version_matches_pallas_at_d32():
+    rng = np.random.RandomState(33)
+    q, k, v = _randn(rng, 1, 2, 32, 32), _randn(rng, 1, 2, 96, 32), _randn(rng, 1, 2, 96, 32)
+    got = ref.attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True).numpy()
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, bq=32,
+                        bkv=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", [(1, 8, 1, 96, [96]), (3, 8, 1, 96, [1, 63, 65]),
+                                  (2, 2, 1, 64, [20, 64])], ids=str)
+def test_decode_plain_version_matches_pallas_at_d32(case):
+    B, Hq, Hkv, S, lengths = case
+    rng = np.random.RandomState(34 + S)
+    q, kc, vc = _randn(rng, B, Hq, 32), _randn(rng, B, Hkv, S, 32), _randn(rng, B, Hkv, S, 32)
+    lens = np.asarray(lengths, np.int32)
+    got = ref.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc, lens))).numpy()
+    want = pallas_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+                         bkv=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_decode_plain_version_ignores_stale_cache_at_d32():
+    """Cache positions beyond ``lengths`` do not reach the output: the
+    plain version (and the Pallas kernel) give the same bits with them
+    overwritten."""
+    rng = np.random.RandomState(35)
+    q, kc, vc = _randn(rng, 1, 2, 32), _randn(rng, 1, 1, 64, 32), _randn(rng, 1, 1, 64, 32)
+    lens = np.asarray([20], np.int32)
+    kc2, vc2 = kc.copy(), vc.copy()
+    kc2[:, :, 20:], vc2[:, :, 20:] = 99.0, -99.0
+    outs = [ref.decode_attention(*(torch.from_numpy(a) for a in (q, k_, v_, lens))).numpy()
+            for k_, v_ in ((kc, vc), (kc2, vc2))]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    want = pallas_decode(jnp.asarray(q), jnp.asarray(kc2), jnp.asarray(vc2), jnp.asarray(lens),
+                         bkv=32, interpret=True)
+    np.testing.assert_allclose(outs[1], np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_d32_takes_split_kv_and_the_cuda_core_kernel(dtype):
+    """K3 lays D = 32 out as 64 columns (the last 32 lanes' columns dead);
+    K4 takes its CUDA-core kernel for both dtypes (a 64-byte bf16 row is
+    not a whole 128-byte swizzle box)."""
+    assert tda.variant(dtype, 32) == "split_kv"
+    assert tda.lane_layout(32, 1)[0] == 64
+    assert tfa.variant(dtype, 32) == "cuda_core"
+
+
+@pytest.mark.parametrize("D", [16, 48, 96, 192])
+def test_a_head_dim_outside_the_rule_raises(D, monkeypatch):
+    monkeypatch.setattr(tda._build, "check_device", lambda t: None)
+    q = torch.zeros((1, 2, D))
+    kc = torch.zeros((1, 1, 64, D))
+    lens = torch.ones((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dim"):
+        tda.decode_attention(q, kc, kc.clone(), lens)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q[:, :, None], kc, kc.clone())

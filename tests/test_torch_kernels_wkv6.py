@@ -158,3 +158,96 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     r, k, v, w, u = _t(*_inputs(9, 2, 10, 64, 64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_wkv6.wkv6_scan(r, k, v, w, u)
+
+
+# ------------------------------------------- head sizes below 64 (padded_dims)
+@pytest.mark.parametrize("N,V", [(8, 8), (16, 16), (16, 32), (32, 16), (32, 32), (64, 64)])
+def test_padded_dims_pads_each_head_size_to_the_kernels_64(N, V):
+    assert cuda_wkv6.padded_dims(N, V) == (cuda_wkv6.KERNEL_N, cuda_wkv6.KERNEL_V) == (64, 64)
+    assert N in cuda_wkv6.SUPPORTED_HEAD_SIZES and V in cuda_wkv6.SUPPORTED_HEAD_SIZES
+    assert cuda_wkv6.variant(torch.float32, 33) == cuda_wkv6.variant(torch.bfloat16, 1) == \
+        "chunked"
+
+
+@pytest.mark.parametrize("N,V", [(24, 32), (32, 48), (128, 64), (64, 128), (4, 4)])
+def test_a_head_size_outside_the_rule_raises(N, V, monkeypatch):
+    """The rule, not a fallback: a size it does not name raises before any
+    launch, on padded_dims and through the wrapper."""
+    with pytest.raises(ValueError, match=r"takes N and V in \(8, 16, 32, 64\)"):
+        cuda_wkv6.padded_dims(N, V)
+    monkeypatch.setattr(cuda_wkv6._build, "check_device", lambda t: None)
+    r, k, v, w, u = _t(*_inputs(10, 2, 5, N, V))
+    with pytest.raises(ValueError, match="takes N and V"):
+        cuda_wkv6.wkv6_scan(r, k, v, w, u)
+
+
+def _padded_launches(monkeypatch):
+    """The wrapper on CPU tensors with its launch replaced by the plain
+    version: what the padded kernel call receives, and its results. Returns
+    the list each launch's arguments are appended to."""
+    monkeypatch.setattr(cuda_wkv6._build, "check_device", lambda t: None)
+    calls = []
+
+    def launch(r, k, v, w, u, init_state=None, final_state=None, *, kernel=None):
+        calls.append((r, k, v, w, u, init_state, final_state, kernel))
+        out, state = ref.wkv6_scan(r, k, v, w, u, init_state)
+        final_state.copy_(state.view(final_state.shape))
+        return out, final_state
+
+    monkeypatch.setattr(cuda_wkv6, "wkv6_scan", launch)
+    return calls
+
+
+@pytest.mark.parametrize("case", [(2, 64, 16, 16), (4, 70, 16, 32), (1, 33, 8, 8),
+                                  (3, 40, 32, 32), (2, 17, 32, 16)], ids=str)
+def test_the_padded_scan_equals_the_plain_scan(case, monkeypatch):
+    """The reference kernel tests' (BH, T, N, V) and the smoke variant's
+    N = V = 32: one launch on heads zero-padded to 64, from a random state,
+    gives the unpadded scan's outputs and state, and writes the state back
+    into the caller's buffer in place (``final_state is init_state``)."""
+    wrapper = cuda_wkv6.wkv6_scan
+    calls = _padded_launches(monkeypatch)
+    BH, T, N, V = case
+    r, k, v, w, u = _t(*_inputs(11, BH, T, N, V))
+    s0 = torch.from_numpy(_state(12, BH, N, V))
+    want, want_state = ref.wkv6_scan(r, k, v, w, u, s0)
+    buf = s0.clone()
+    got, state = wrapper(r, k, v, w, u, init_state=buf, final_state=buf)
+    assert state is buf and len(calls) == 1
+    rp, kp, vp, wp, up, init, final, kind = calls[0]
+    assert rp.shape == (BH, 1, T, 64) and vp.shape == (BH, 1, T, 64) and up.shape == (BH, 64)
+    assert init is final and init.shape == (BH, 64, 64) and kind == "chunked"
+    assert not rp[..., N:].any() and not wp[..., N:].any() and not vp[..., V:].any()
+    assert not final[:, N:].any() and not final[:, :, V:].any()  # padded state stays 0
+    assert got.shape == v.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=STATE_TOL, atol=STATE_TOL)
+    np.testing.assert_allclose(buf.numpy(), want_state.numpy(), rtol=STATE_TOL, atol=STATE_TOL)
+    # from a zero state, into a new buffer
+    got0, state0 = wrapper(r, k, v, w, u)
+    want0, want_state0 = ref.wkv6_scan(r, k, v, w, u)
+    assert state0.shape == (BH, N, V) and len(calls) == 2
+    np.testing.assert_allclose(got0.numpy(), want0.numpy(), rtol=STATE_TOL, atol=STATE_TOL)
+    np.testing.assert_allclose(state0.numpy(), want_state0.numpy(), rtol=STATE_TOL,
+                               atol=STATE_TOL)
+
+
+def test_the_padded_scan_takes_the_models_head_views(monkeypatch):
+    """rwkv6's smoke prefill as the model hands it to the scan: (B, H, T, N)
+    views of (B, T, H, N) projections, u (H, N), bf16 r, k, v, w and the
+    state a view of the layer's cache, updated in place."""
+    wrapper = cuda_wkv6.wkv6_scan
+    _padded_launches(monkeypatch)
+    B, H, T, N = 2, 8, 21, 32
+    rng = np.random.RandomState(13)
+    r, k, v, w = (torch.from_numpy(rng.standard_normal((B, T, H, N)).astype(np.float32) * 0.5)
+                  .to(torch.bfloat16) for _ in range(4))
+    u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32) * 0.3)
+    cache = torch.from_numpy(rng.standard_normal((B, H, N, N)).astype(np.float32))
+    views = [t.transpose(1, 2) for t in (r, k, v, w)]
+    want, want_state = ref.wkv6_scan(*views, u, cache.clone().view(B * H, N, N))
+    got, state = wrapper(*views, u, init_state=cache, final_state=cache)
+    assert state is cache and got.dtype == torch.bfloat16 and got.shape == views[2].shape
+    assert got.stride() == views[2].stride()  # laid out as v is
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(cache.view(B * H, N, N).numpy(), want_state.numpy(),
+                               rtol=STATE_TOL, atol=STATE_TOL)

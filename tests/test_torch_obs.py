@@ -15,7 +15,7 @@ from test_torch_sim import (  # noqa: E402
     assert_same_text,
     load_spec,
     port_hw,
-    port_metrics,
+    port_run,
     reference_run,
 )
 
@@ -47,8 +47,7 @@ def reference_base(monkeypatch):
 def recorded_pair(name="traced_fleet", **dotted):
     spec = load_spec(name, **dict(TRACED, **dotted))
     _, jrec = reference_run(spec)
-    trec = FlightRecorder(per_request=spec.observability.per_request)
-    port_metrics(spec, recorder=trec)
+    _, trec = port_run(spec)
     return spec, jrec, trec
 
 

@@ -3,13 +3,15 @@ package's, byte for byte.
 
 The committed specs under ``examples/specs/`` are read with the JAX
 package's ``repro.api.spec``; the reference run is built by
-``repro.api.build`` and the port's by ``port_metrics`` below from the same
-values (the port has no ``api`` yet). Hardware enters the port only as
-``HardwareSpec(**asdict(reference_spec))``, and the fleet's speed-factor
-base is set to the reference's, so both price the same card. Each run is
-capped at 3,000 events.
+``repro.api.build`` and the port's by the port's own ``repro_torch.api``
+from the same spec JSON (``port_run`` below). Hardware enters the port
+only as ``HardwareSpec(**asdict(reference_spec))``, under the reference's
+names in the port's registry for the duration of a run, and the fleet's
+speed-factor base is set to the reference's, so both price the same card.
+Each run is capped at 3,000 events.
 """
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -32,14 +34,12 @@ from repro.sim import traces as jtraces  # noqa: E402
 from repro.sim.costmodel import RooflineCostModel as JRoofline  # noqa: E402
 from repro.sim.metrics import to_bench_json as j_bench_json  # noqa: E402
 
-import repro_torch.config as tconfig  # noqa: E402
+from repro_torch.api.spec import SystemSpec as TSystemSpec  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.obs.recorder import FlightRecorder  # noqa: E402
 from repro_torch.partition import PartitionPlan, PartitionShare  # noqa: E402
-from repro_torch.sim import autoscale as tauto  # noqa: E402
 from repro_torch.sim import costmodel as tcost  # noqa: E402
 from repro_torch.sim import fleet as tfleet  # noqa: E402
-from repro_torch.sim import simulator as tsim  # noqa: E402
 from repro_torch.sim import traces as ttraces  # noqa: E402
 from repro_torch.sim.metrics import to_bench_json  # noqa: E402
 from repro_torch.sim.router import ROUTERS  # noqa: E402
@@ -55,75 +55,26 @@ def port_hw(hw) -> troof.HardwareSpec:
     return troof.HardwareSpec(**dataclasses.asdict(jroof.resolve_spec(hw)))
 
 
-def port_mix(w):
-    if w.mix == "sgemm":
-        return ttraces.paper_sgemm_mix(w.tenants)
-    if w.mix == "fleet":
-        return ttraces.fleet_sgemm_mix(w.tenants, zipf_a=w.zipf_a)
-    if w.mix == "serving":
-        return ttraces.prefill_decode_mix(w.tenants)
-    raise ValueError(f"mix {w.mix!r} has no port counterpart here")
+@contextlib.contextmanager
+def reference_cards():
+    """The reference's cards in the port's registry under their own names,
+    for the duration of the block."""
+    saved = dict(troof.HARDWARE_SPECS)
+    troof.HARDWARE_SPECS.update({name: port_hw(name) for name in ("v5e", "v5e_half")})
+    try:
+        yield
+    finally:
+        troof.HARDWARE_SPECS.clear()
+        troof.HARDWARE_SPECS.update(saved)
 
 
-def port_trace(spec: SystemSpec, mix):
-    """``repro.api.build.build_trace`` over the port's generators."""
-    w, cost = spec.workload, spec.cost_model
-    if w.process == "replay":
-        return ttraces.CsvReplayTrace(mix, w.csv_path)
-    rate = w.rate_hz
-    if rate is None:
-        n = spec.fleet.max_replicas
-        merge = spec.scheduler.max_superkernel_size if spec.scheduler else 32
-        if spec.fleet.specs is not None:
-            cycled = [port_hw(spec.fleet.specs[i % len(spec.fleet.specs)]) for i in range(n)]
-            rate = w.rho * tfleet.fleet_capacity_hz(mix, cycled, merge_size=merge)
-        else:
-            rate = w.rho * n * tcost.estimate_capacity_hz(mix, tcost.RooflineCostModel(
-                spec=port_hw(cost.hardware), strategy="space_time",
-                small_kernel_efficiency=cost.small_kernel_efficiency), merge_size=merge)
-    return ttraces.make_trace(w.process, mix, rate, w.events, seed=w.seed)
-
-
-def port_schedule(spec: SystemSpec):
-    if spec.scheduler is None:
-        return None
-    return tconfig.ScheduleConfig(**dataclasses.asdict(spec.scheduler.to_schedule_config()))
-
-
-def port_metrics(spec: SystemSpec, recorder=None):
-    """What ``spec.build().run_metrics()`` computes, through the port."""
-    cost = spec.cost_model
-    assert cost.kind == "roofline" and cost.fleet_calibration_path is None
-    mix = port_mix(spec.workload)
-    trace = port_trace(spec, mix)
-    model = tcost.RooflineCostModel(spec=port_hw(cost.hardware), strategy=cost.strategy,
-                                    small_kernel_efficiency=cost.small_kernel_efficiency)
-    if spec.partition is None and not spec.fleet.is_fleet:
-        sim = tsim.Simulator(schedule=port_schedule(spec), cost_model=model, recorder=recorder)
-        if cost.compile_us > 0.0:
-            cold = tcost.ColdStartCostModel(model, compile_s=cost.compile_us * 1e-6,
-                                            clock=sim.clock)
-            sim.pump.cost_model = cold
-            sim.scheduler.cost_model = cold
-        return sim.run(trace)
-    fleet = spec.fleet
-    autoscaler = None
-    if fleet.autoscale is not None:
-        kw = dataclasses.asdict(fleet.autoscale)
-        autoscaler = tauto.make_autoscaler(kw.pop("policy"), **kw)
-    return tfleet.FleetSimulator(
-        replicas=fleet.replicas,
-        router=spec.router.policy,
-        schedule=port_schedule(spec),
-        cost_model=None if fleet.specs else model,
-        compile_s=cost.compile_us * 1e-6,
-        specs=[port_hw(s) for s in fleet.specs] if fleet.specs else None,
-        strategy=cost.strategy,
-        autoscaler=autoscaler,
-        workers=fleet.workers,
-        recorder=recorder,
-        small_kernel_efficiency=cost.small_kernel_efficiency,
-    ).run(trace)
+def port_run(spec: SystemSpec):
+    """What ``spec.build().run_metrics()`` computes, through the port's
+    ``repro_torch.api`` from the same spec JSON: ``(metrics, the run's
+    recorder or None)``."""
+    with reference_cards():
+        ex = TSystemSpec.from_dict(spec.to_dict()).build()
+        return ex.run_metrics(), ex.last_recorder
 
 
 def assert_same_text(first: str, *others: str) -> None:
@@ -175,13 +126,12 @@ def assert_same_decisions(jrec, trec):
 
 def assert_parity(spec: SystemSpec):
     jm, _ = reference_run(spec)
-    tm = port_metrics(spec)
+    tm, _ = port_run(spec)
     assert_same_text(to_bench_json("parity", {"run": tm}), j_bench_json("parity", {"run": jm}))
     # the same run with recorders on: the decisions behind the bytes
     on = spec.replace(**{"observability.enabled": True})
     jm_on, jrec = reference_run(on)
-    trec = FlightRecorder(per_request=on.observability.per_request)
-    tm_on = port_metrics(on, recorder=trec)
+    tm_on, trec = port_run(on)
     assert_same_text(tm_on.to_json(), jm_on.to_json(), jm.to_json())
     assert_same_decisions(jrec, trec)
     return jm, tm
@@ -281,8 +231,7 @@ import test_torch_sim as T
 from repro_torch.obs.trace_export import export_chrome_trace
 from repro_torch.sim.metrics import to_bench_json
 T.tfleet.BASE_SPEC = T.port_hw("v5e")
-rec = T.FlightRecorder()
-m = T.port_metrics(T.SystemSpec().replace(**T.SHARDED), recorder=rec)
+m, rec = T.port_run(T.SystemSpec().replace(**T.SHARDED))
 sys.stdout.write(to_bench_json("sharded", {{"run": m}}) + "\\n=====\\n" + export_chrome_trace(rec))
 """
 
@@ -316,8 +265,7 @@ def test_two_workers_equal_one_worker_and_the_reference():
     out = run_with_timeout(_SHARDED_CHILD.format(tests=str(ROOT / "tests")), 120.0)
     sharded_json, sharded_trace = out.split("\n=====\n")
     solo = SystemSpec().replace(**dict(SHARDED, **{"fleet.workers": 1}))
-    rec = FlightRecorder()
-    tm = port_metrics(solo, recorder=rec)
+    tm, rec = port_run(solo)
     jm, jrec = reference_run(solo)
     assert_same_text(sharded_json, to_bench_json("sharded", {"run": tm}),
                      j_bench_json("sharded", {"run": jm}))
