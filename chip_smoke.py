@@ -14,6 +14,8 @@
     python3 chip_smoke.py --phases 7 --profile   # + where their merged decode steps' time goes
     python3 chip_smoke.py --phases 8      # a live fleet of two stablelm-1.6b engines
     python3 chip_smoke.py --phases 9      # the front door: python -m repro_torch, LiveRun, HTTP
+    python3 chip_smoke.py --phases 10     # training: K4 and K5 backward kernels, train()
+    python3 chip_smoke.py --phases 10 --profile  # + where a full-width train step's time goes
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -115,7 +117,28 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      over serve_smoke.json (arch=fake) and over a live stablelm-1.6b smoke
      spec on the card, 8 concurrent predicts each, /healthz, /v1/report and
      a clean shutdown (invariants only). It prints a ``front_door`` line
-     and K1, K3, K4 and K5 rows at its paths' shapes.
+     and K1, K3, K4 and K5 rows at its paths' shapes;
+ 10. drives the training path (``training/*``, ``Model.forward_train``),
+     whose attention layers run K4 forward and K4's backward kernel and
+     whose RWKV-6 layers K5 forward and K5's backward kernel, through the
+     ops' autograd route: (a) K4's backward kernel against
+     ``ref.attention_bwd`` and autograd through ``ref.attention``, in
+     float32 and bf16, at stablelm's training shape, GQA at q_per_kv 2 and
+     8 (D 256), D 112 and 32, a sliding window and S off the tiles, timed
+     beside the plain version and SDPA's backward; (b) K5's backward kernel
+     against ``ref.wkv6_scan_bwd`` and autograd through ``ref.wkv6_scan``
+     under strong and weak decay, T off the chunks and N = V = 32 padded,
+     timed beside the plain version; (c) stablelm-1.6b and rwkv6-1.6b at
+     full width cut to 2 layers: loss and every parameter's gradient,
+     kernel path against ``plain_kernels=True``, in float32 and (each
+     against the float32 plain path) bf16; (d) ``train()`` on both at full
+     width and depth in bf16 (4 x 1024 and 4 x 512 tokens, 20 steps,
+     remat "block"), a checkpoint saved after the last step and restored
+     leaf for leaf; it fails unless every loss and grad norm is finite, the
+     last loss is below the first, the forward kernel launched 2 x layers
+     x steps times and the backward kernel layers x steps times, and no op
+     made a plain call. It prints a ``train`` line and the two backward
+     kernels' rows.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
 zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
@@ -159,7 +182,7 @@ memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
 of K3's clusters fit on the card at once. Each phase prints its wall time.
 
 Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
-a ``kernels`` JSON line, the card's
+a ``train`` JSON line (phase 10), a ``kernels`` JSON line, the card's
 name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 there is no CUDA card, if the port cannot be imported, or if any phase fails.
@@ -2774,6 +2797,547 @@ def phase_front_door(ops, dev, seed):
     return [k1_row] + smoke_rows + full_rows, doc
 
 
+# ----------------------------------------------------------------- phase 10
+TRAIN_ARCHS = (("stablelm-1.6b", 4, 1024, "flash_attention"),   # (arch, batch, seq, kernel)
+               ("rwkv6-1.6b", 4, 512, "wkv6_scan"))
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 5
+TRAIN_CUT_LAYERS = 2                  # (c): full width, 2 of 24 layers
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 512
+# Backward kernels against their plain versions, (rtol, atol as a share of
+# the largest |gradient|). f32: the same float32 quantities summed in another
+# order over up to S keys (or T steps) and a GQA group. bf16: both widen the
+# same bf16 inputs and compute in float32, then round each gradient to bf16
+# (relative step 2^-8); against autograd through the plain forward the
+# output O enters delta = rowsum(dO o O) unrounded there, so allow more.
+BWD_TOL = {"torch.float32": (1e-3, 1e-4), "torch.bfloat16": (2e-2, 4e-3)}
+BWD_AUTOGRAD_TOL = {"torch.float32": (1e-3, 1e-4), "torch.bfloat16": (5e-2, 2e-2)}
+# (c): per parameter, ||g_kernel - g_plain|| / ||g_plain|| in float32: only
+# the order of float32 sums differs, through 2 layers and the loss.
+GRAD_RTOL_F32 = 1e-3
+LOSS_RTOL_F32 = 1e-4
+# (a) cases: (B, Hq, Hkv, S, D, window)
+FLASH_BWD_CASES = (
+    (4, 32, 32, 1024, 64, 0),    # stablelm-1.6b's training shape
+    (2, 16, 8, 300, 64, 0),      # granite-moe's GQA (q_per_kv 2), S not a multiple of a tile
+    (1, 8, 1, 520, 256, 0),      # paligemma's q_per_kv 8 at D 256
+    (1, 8, 8, 333, 112, 0),      # zamba2's D 112
+    (2, 4, 2, 200, 32, 0),       # D 32
+    (1, 8, 4, 600, 128, 128),    # a sliding window (gemma3's local layers, narrower)
+)
+# (b) cases: (B, H, T, N, w mean, w std); N = V
+WKV_BWD_CASES = (
+    (4, 32, 512, 64, -3.0, 1.0),  # rwkv6-1.6b's training shape
+    (1, 32, 777, 64, 1.0, 1.0),   # strong decay: decays underflow to 0
+    (1, 32, 300, 64, -8.0, 0.5),  # weak decay
+    (2, 8, 17, 64, -3.0, 1.0),    # T not a multiple of 16
+    (2, 4, 100, 32, -3.0, 1.0),   # N = V = 32, padded to 64
+)
+
+
+def check_grads(name, got, want, dtype_key, tol):
+    """Gradients (a tuple) against another tuple: each within rtol |want| +
+    atol_share * max |want|. Returns the largest max |got - want|."""
+    import torch
+
+    rtol, share = tol
+    worst = 0.0
+    for g, w, label in zip(got, want, ("d0", "d1", "d2", "d3", "d4")):
+        g32, w32 = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g32).all():
+            raise PhaseFailed(f"{name} {label}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
+                              "non-finite values")
+        err = (g32 - w32).abs()
+        scale = float(w32.abs().max())
+        bad = int((err > share * scale + rtol * w32.abs()).sum())
+        worst = max(worst, float(err.max()))
+        if bad:
+            log(f"  {name} {label}: {bad} elements out of tolerance, max_abs_err "
+                f"{float(err.max()):.3e} of max |grad| {scale:.3e}")
+            raise PhaseFailed(f"{name}: {label} out of tolerance")
+    log(f"  {name}: max_abs_err={worst:.3e} (rtol={rtol}, atol={share} x max |grad|) ok")
+    return worst
+
+
+def flash_bwd_work(B, Hq, Hkv, S, D, window, dtype):
+    """(bytes, flops) of K4's backward: q, k, v, o, dO read once and dq, dk,
+    dv written once; 5 products of 2 D flops per visible (query, key) pair
+    (S, dP, dV, dQ, dK: the 5 * 2 * B*Hq*S^2*D of the formula, halved by
+    causality, counted over this mask's visible pairs)."""
+    _, flops_fwd = flash_work(B, Hq, Hkv, S, S, D, True, window, 0, dtype)
+    pairs = flops_fwd // (4 * B * Hq * D)
+    esize = 2 if "bfloat16" in dtype else 4
+    nbytes = esize * 4 * (B * Hq * S * D + B * Hkv * S * D)
+    return nbytes, 10 * B * Hq * D * pairs
+
+
+def wkv_bwd_work(BH, H, T, N, V, dtype):
+    """(bytes, float32 flops) of K5's backward: r, k, v, w, dO read and dr,
+    dk, dv, dw written once, u read and du written once; per head and step
+    ~14 N V flops from the formulas (S_{t-1} recomputed: 3; G_{t-1} = d G +
+    r^T dO: 3; dr, dk, dv, dw: a product-sum over the state each, 2 each)."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = BH * T * (4 * N + 4 * V + V) * esize + 2 * 4 * H * N
+    return nbytes, 14 * N * V * BH * T
+
+
+def sdpa_bwd(q, k, v, do, window):
+    """SDPA's backward at these inputs, the library yardstick (the port
+    never calls it): one autograd call on a causal (or windowed-mask) SDPA
+    output, k and v expanded to every query head outside the timing."""
+    import torch
+    import torch.nn.functional as F
+
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    if window == 0:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    else:
+        S = q.shape[2]
+        pos = torch.arange(S, device=q.device)
+        rel = pos[:, None] - pos[None, :]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=(rel >= 0) & (rel < window))
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def flash_bwd_inputs(gen, dev, dtype, B, Hq, Hkv, S, D):
+    import torch
+
+    q = torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def check_flash_bwd(ops, gen, dev, dtype, B, Hq, Hkv, S, D, window):
+    """K4's backward kernel against ``ref.attention_bwd`` and against
+    autograd through ``ref.attention``, the forward's output from K4 itself
+    (as training hands it over). Returns (inputs, output, max error)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q, k, v, do = flash_bwd_inputs(gen, dev, dtype, B, Hq, Hkv, S, D)
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, do, window=window)
+    want = ref.attention_bwd(q, k, v, o, do, window=window)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(ref.attention(*leaves, window=window), leaves, do)
+    torch.cuda.synchronize()
+    name = (f"flash_attention_bwd {str(dtype)[6:]} {(B, Hq, Hkv, S, D)} window={window} "
+            f"[{fa.bwd_variant(dtype, D)}]")
+    err = check_grads(name + " vs ref.attention_bwd", got, want, str(dtype), BWD_TOL[str(dtype)])
+    check_grads(name + " vs autograd of ref.attention", got, auto, str(dtype),
+                BWD_AUTOGRAD_TOL[str(dtype)])
+    return (q, k, v, o, do), err
+
+
+def wkv_bwd_inputs(gen, dev, dtype, B, H, T, N, w_mean, w_std):
+    """As the model's train path hands K5 its inputs: (B, T, H, N)
+    projections read as (B, H, T, N) views, u (H, N); dO ~ N(0, 1)."""
+    import torch
+
+    def proj(scale, shift=0.0):
+        t = torch.randn((B, T, H, N), generator=gen, device=dev) * scale + shift
+        return t.to(dtype).transpose(1, 2)
+
+    r, k, v = proj(0.5), proj(0.5), proj(0.5)
+    w = proj(w_std, w_mean)
+    u = torch.randn((H, N), generator=gen, device=dev) * 0.3
+    do = torch.randn((B, H, T, N), generator=gen, device=dev).to(dtype)
+    return r, k, v, w, u, do
+
+
+def check_wkv_bwd(ops, gen, dev, dtype, B, H, T, N, w_mean, w_std):
+    """K5's backward kernel against ``ref.wkv6_scan_bwd`` and against
+    autograd through ``ref.wkv6_scan``. Returns (inputs, max error)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6_scan as wk
+
+    inputs = wkv_bwd_inputs(gen, dev, dtype, B, H, T, N, w_mean, w_std)
+    got = wk.wkv6_scan_bwd(*inputs)
+    want = ref.wkv6_scan_bwd(*inputs)
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs[:5]]
+    out, _ = ref.wkv6_scan(*leaves)
+    auto = torch.autograd.grad(out, leaves, inputs[5], allow_unused=True)
+    auto = [torch.zeros_like(x) if a is None else a for x, a in zip(leaves, auto)]
+    torch.cuda.synchronize()
+    name = (f"wkv6_scan_bwd {str(dtype)[6:]} (B, H, T, N)={(B, H, T, N)} w ~ N({w_mean}, "
+            f"{w_std}) [{wk.bwd_variant(dtype, T)}, padded to {wk.padded_dims(N, N)}]")
+    err = check_grads(name + " vs ref.wkv6_scan_bwd", got, want, str(dtype),
+                      BWD_TOL[str(dtype)])
+    check_grads(name + " vs autograd of ref.wkv6_scan", got, auto, str(dtype),
+                BWD_AUTOGRAD_TOL[str(dtype)])
+    return inputs, err
+
+
+def phase_bwd_kernels(ops, dev, seed):
+    """(a) K4's and (b) K5's backward kernels against their plain versions
+    in float32 and bf16 at FLASH_BWD_CASES and WKV_BWD_CASES; each timed
+    at its model's training shape (bf16) beside the plain version, its
+    bound and (K4) SDPA's backward. Returns the two rows, launches unset."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6_scan as wk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_BWD_CASES:
+            inputs, err = check_flash_bwd(ops, gen, dev, dtype, *case)
+            if case == FLASH_BWD_CASES[0] and dtype == torch.bfloat16:
+                timed["flash"] = (case, inputs, err)
+            del inputs
+        for case in WKV_BWD_CASES:
+            inputs, err = check_wkv_bwd(ops, gen, dev, dtype, *case)
+            if case == WKV_BWD_CASES[0] and dtype == torch.bfloat16:
+                timed["wkv"] = (case, inputs, err)
+            del inputs
+        torch.cuda.empty_cache()
+    rows = []
+    (B, Hq, Hkv, S, D, window), (q, k, v, o, do), err = timed.pop("flash")
+    nbytes, flops = flash_bwd_work(B, Hq, Hkv, S, D, window, "torch.bfloat16")
+    bound_ms, bound_by = bound(nbytes, flops, "torch.bfloat16")
+    row = {
+        "variant": fa.bwd_variant(torch.bfloat16, D),
+        "shape": f"stablelm-1.6b training: {(B, Hq, Hkv, S, D)} causal, bf16",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), 10),
+        "plain_ms": time_ms(lambda: ref.attention_bwd(q, k, v, o, do), 3, 1),
+        "library_ms": time_ms(sdpa_bwd(q, k, v, do, window), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "prior_ms": None,
+    }
+    log(f"    flash_attention_bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"sdpa_bwd_ms={row['library_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"kernel/bound={row['ms'] / bound_ms:.1f}")
+    rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": REPLACES["flash_attention"], **row})
+    del q, k, v, o, do
+    (B, H, T, N, _, _), inputs, err = timed.pop("wkv")
+    nbytes, flops = wkv_bwd_work(B * H, H, T, N, N, torch.bfloat16)
+    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    row = {
+        "variant": wk.bwd_variant(torch.bfloat16, T),
+        "shape": f"rwkv6-1.6b training: B={B} H={H} T={T} N=V={N}, bf16",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: wk.wkv6_scan_bwd(*inputs), 10),
+        "plain_ms": time_ms(lambda: ref.wkv6_scan_bwd(*inputs), 2, 1),
+        "library_ms": None,  # no single PyTorch call computes the WKV6 gradient
+        "bound_ms": bound_ms, "bound_by": bound_by, "prior_ms": None,
+    }
+    log(f"    wkv6_scan_bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library: none "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={row['ms'] / bound_ms:.1f}")
+    rows.append({"name": "wkv6_scan_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/wkv6_scan_bwd.cu",
+                 "replaces": REPLACES["wkv6_scan"], **row})
+    return rows
+
+
+def loss_and_grads(model, params, tokens, labels):
+    """``forward_train``'s loss and every parameter's gradient (a list in
+    ``tree_leaves`` order; zeros where the loss does not reach)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.forward_train(params, tokens, labels)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+def leaf_gaps(got, want):
+    """Per leaf ||got - want|| / ||want|| in float32 (0 where both are 0)."""
+    import torch
+
+    out = []
+    for g, w in zip(got, want):
+        den = float(torch.linalg.vector_norm(w.float()))
+        num = float(torch.linalg.vector_norm(g.float() - w.float()))
+        out.append(num / den if den > 0 else (0.0 if num == 0 else float("inf")))
+    return out
+
+
+def train_vs_plain(ops, arch, op, dev, seed):
+    """(c) ``arch`` at full width cut to TRAIN_CUT_LAYERS layers (seeded
+    random weights; RWKV's decay data-dependent): ``forward_train``'s loss
+    and every parameter's gradient, kernel path against ``plain_kernels=True``
+    on the card. In float32 directly (loss within LOSS_RTOL_F32, each
+    gradient within GRAD_RTOL_F32 in norm); in bf16 each path against the
+    float32 plain path: the kernel path's gap no more than twice the bf16
+    plain path's plus 1% (as ``hold_bf16`` holds logits). Fails unless the
+    kernel runs launched the op's forward kernel twice per layer (the block
+    recompute) and its backward kernel once per layer, by variant."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6_scan as wk
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS,
+                              block_pattern=cfg.block_pattern[:TRAIN_CUT_LAYERS]
+                              if cfg.block_pattern else cfg.block_pattern)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = build_model(cfg, device=dev).init(gen)
+    if op == "wkv6_scan":
+        live_decay_(params, gen)
+    rng = np.random.RandomState(seed + 1)
+    shape = (TRAIN_CUT_BATCH, TRAIN_CUT_SEQ)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=shape), device=dev)
+    labels = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=shape), device=dev)
+    ops.reset_counters()
+    runs = {}
+    for name, c in (("bf16", cfg), ("f32", cfg32)):
+        p = params if name == "bf16" else tree_map(lambda t: t.float(), params)
+        for plain in (False, True):
+            runs[name, plain] = loss_and_grads(build_model(c, device=dev, plain_kernels=plain),
+                                               p, tokens, labels)
+        del p
+    torch.cuda.synchronize()
+    n = TRAIN_CUT_LAYERS
+    fwd_variant = fa.variant if op == "flash_attention" else wk.variant
+    bwd_variant = fa.bwd_variant if op == "flash_attention" else wk.bwd_variant
+    width = cfg.head_dim if op == "flash_attention" else TRAIN_CUT_SEQ
+    # the plain runs call the plain forward as often as the kernel runs launch
+    # the kernel; autograd differentiates it, so no backward has a plain call
+    for name, variant, per_run, plain_calls in ((op, fwd_variant, 2 * n, 4 * n),
+                                                (op + "_bwd", bwd_variant, n, 0)):
+        want = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            v = variant(dtype, width)
+            want[v] = want.get(v, 0) + per_run
+        got = dict(ops.COUNTERS[name].variants)
+        log(f"    {name} launches over both kernel runs: {got}")
+        if got != want or ops.COUNTERS[name].plain_calls != plain_calls:
+            raise PhaseFailed(f"{arch} training: {name} launches {got}, not {want}, or plain "
+                              f"calls {ops.COUNTERS[name].plain_calls}, not {plain_calls}")
+    (lk, gk), (lp, gp) = runs["f32", False], runs["f32", True]
+    loss_gap = abs(float(lk) - float(lp)) / abs(float(lp))
+    gaps = leaf_gaps(gk, gp)
+    worst = int(np.argmax(gaps))
+    ok = loss_gap <= LOSS_RTOL_F32 and max(gaps) <= GRAD_RTOL_F32
+    log(f"  f32 {arch} ({n} layers, batch {shape}): loss kernel {float(lk):.6f} plain "
+        f"{float(lp):.6f} (rel {loss_gap:.2e}); {len(gaps)} gradients, worst "
+        f"||g_k - g_p|| / ||g_p|| = {gaps[worst]:.2e} (leaf {worst}) {'ok' if ok else 'FAIL'}")
+    if not all(torch.isfinite(g).all() for g in gk) or not ok:
+        raise PhaseFailed(f"{arch} training f32: the kernel path's loss or gradients disagree")
+    (lkb, gkb), (lpb, gpb) = runs["bf16", False], runs["bf16", True]
+    gap_k, gap_p = leaf_gaps(gkb, gp), leaf_gaps(gpb, gp)
+    bad = [i for i, (a, b) in enumerate(zip(gap_k, gap_p)) if a > 2 * b + 0.01]
+    lgap_k, lgap_p = abs(float(lkb) - float(lp)), abs(float(lpb) - float(lp))
+    log(f"  bf16 {arch}: loss kernel {float(lkb):.6f} plain {float(lpb):.6f} (vs f32 plain: "
+        f"{lgap_k:.2e}, {lgap_p:.2e}); gradients vs the f32 plain path, worst kernel gap "
+        f"{max(gap_k):.2e}, worst plain gap {max(gap_p):.2e}; leaves beyond 2 x plain + 1%: "
+        f"{len(bad)} {'ok' if not bad else 'FAIL'}")
+    if bad or lgap_k > 2 * lgap_p + 1e-3 * abs(float(lp)):
+        raise PhaseFailed(f"{arch} training bf16: the kernel path is farther from float32 than "
+                          "the plain path allows")
+    log(f"    {time.perf_counter() - t0:.1f} s")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
+def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
+    """(d) ``train()`` on ``arch`` at full width and depth in bf16 for
+    TRAIN_STEPS steps of ``SyntheticTokenStream`` (remat "block"), every
+    step logged; a checkpoint saved after the last step, restored and
+    compared leaf for leaf. The launch counters are reset just before and
+    read just after: the op's forward kernel must have launched layers x
+    steps x 2 times (the block recompute), its backward kernel layers x
+    steps times, every launch by the wrapper's variant rule, and no op may
+    have a plain call. Returns (the train record, launches of the backward
+    kernel by variant)."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6_scan as wk
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticTokenStream, train
+    from repro_torch.training import checkpoint as ckpt
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    data = SyntheticTokenStream(cfg.vocab_size, seq, batch, seed=seed)
+    logs, stamps = [], []
+
+    def log_fn(line):
+        stamps.append(time.perf_counter())
+        logs.append(line)
+
+    path = os.path.join(ckpt_dir, f"{arch}.msgpack")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    state = train(model, data, steps=TRAIN_STEPS, seed=seed, base_lr=TRAIN_LR,
+                  warmup_steps=TRAIN_WARMUP, log_every=1, checkpoint_path=path, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    save_s = time.perf_counter() - stamps[-1]  # the last step is logged before the save
+    counts = {name: (c.launches, dict(c.variants), c.plain_calls)
+              for name, c in ops.COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in logs:
+        log(f"    {line}")
+    losses = [float(line.split("loss")[1].split()[0]) for line in logs]
+    norms = [float(line.split("grad_norm")[1].split()[0]) for line in logs]
+    n_layers = cfg.num_layers
+    dt = torch.bfloat16
+    width = cfg.head_dim if op == "flash_attention" else seq
+    fwd_v = (fa.variant if op == "flash_attention" else wk.variant)(dt, width)
+    bwd_v = (fa.bwd_variant if op == "flash_attention" else wk.bwd_variant)(dt, width)
+    want = {op: {fwd_v: n_layers * TRAIN_STEPS * 2}, op + "_bwd": {bwd_v: n_layers * TRAIN_STEPS}}
+    log("  launches over the run: " + ", ".join(
+        f"{k} {v[1]}" for k, v in counts.items() if v[0]) + "; plain calls: "
+        + str({k: v[2] for k, v in counts.items() if v[2]}))
+    for name, (n, variants, plain) in counts.items():
+        if variants != want.get(name, {}) or plain:
+            raise PhaseFailed(f"{arch} train(): {name} launched {variants}, not "
+                              f"{want.get(name, {})}, with {plain} plain calls")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)) or losses[-1] >= losses[0]:
+        raise PhaseFailed(f"{arch} train(): losses {losses} (must be finite and fall), grad "
+                          f"norms {norms}")
+    steps_ms = np.diff(np.asarray(stamps)) * 1e3
+    t1 = time.perf_counter()
+    like = {"params": state.params, "opt": state.opt}
+    restored = ckpt.restore_checkpoint(path, like)
+    leaves, back = ckpt.flatten(like), ckpt.flatten(restored["tree"])
+    same = len(leaves) == len(back) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(leaves, back))
+    size = os.path.getsize(path)
+    restore_s = time.perf_counter() - t1
+    log(f"  checkpoint after step {restored['step']}: {size / 1e9:.2f} GB, {len(leaves)} leaves, "
+        f"restored leaf for leaf equal: {same} ({save_s:.1f} s to save, {restore_s:.1f} s to "
+        "restore and compare)")
+    os.remove(path)
+    if not same or restored["step"] != TRAIN_STEPS - 1:
+        raise PhaseFailed(f"{arch}: the restored checkpoint differs from the trained state")
+    tokens = batch * seq
+    rec = {"arch": arch, "dtype": "bfloat16", "layers": n_layers, "batch": batch, "seq": seq,
+           "steps": TRAIN_STEPS, "params": tree_params(state.params),
+           "median_step_ms": float(np.median(steps_ms)),
+           "tokens_per_s": tokens / (float(np.median(steps_ms)) / 1e3),
+           "wall_s": wall, "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+           "checkpoint_gb": size / 1e9, "checkpoint_save_s": save_s,
+           "checkpoint_restore_s": restore_s,
+           "launches": {k: v[1] for k, v in counts.items() if v[0]}}
+    log(f"  {arch} train(): median step {rec['median_step_ms']:.1f} ms (steps 1-{TRAIN_STEPS - 1}"
+        f"), {rec['tokens_per_s']:.0f} tokens/s, peak memory {rec['peak_mem_gb']:.2f} GB, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {wall:.1f} s wall with the checkpoint save")
+    del state, like, restored, leaves, back
+    torch.cuda.empty_cache()
+    return rec, counts[op + "_bwd"][0], counts[op + "_bwd"][1]
+
+
+def profile_train(arch, batch, seq, dev, seed, steps=3):
+    """Where a full-width bf16 train step's time goes: after two warm-up
+    steps, the host wall of forward + backward and of the optimizer update,
+    each ended by a synchronize; then torch.profiler over ``steps`` whole
+    steps: wall and kernel time a step, the device's idle share (1 - kernel
+    time / wall), kernels a step, and the kernels that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticTokenStream, make_train_step
+    from repro_torch.training.optimizer import adamw_init, adamw_update, lr_schedule
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    opt = adamw_init(params)
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    data = SyntheticTokenStream(cfg.vocab_size, seq, batch, seed=seed)
+    batches = [tuple(torch.as_tensor(a, device=dev).long() for a in data.batch(i))
+               for i in range(2 + 2 * steps)]
+    for tok, lab in batches[:2]:
+        params, opt, _ = step(params, opt, tok, lab)
+    torch.cuda.synchronize()
+    fb, up = [], []
+    leaves = tree_leaves(params)
+    for tok, lab in batches[2:2 + steps]:
+        t0 = time.perf_counter()
+        loss, _ = model.forward_train(params, tok, lab)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, _ = adamw_update(grads, opt, params,
+                                      lr_schedule(opt.step, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        up.append(time.perf_counter() - t1)
+        del grads, loss
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tok, lab in batches[2 + steps:]:
+            params, opt, _ = step(params, opt, tok, lab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"  profile {arch} train step ({batch} x {seq}, bf16): forward + backward "
+        f"{np.median(fb) * 1e3:.1f} ms, optimizer {np.median(up) * 1e3:.1f} ms ({len(leaves)} "
+        f"leaves); profiled wall {wall / steps * 1e3:.1f} ms/step, kernels "
+        f"{busy_us / steps / 1e3:.1f} ms/step, device idle share {1 - busy_us / 1e6 / wall:.3f}, "
+        f"{sum(e.count for e in kernels) / steps:.0f} kernels/step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+            f"{e.count / steps:6.0f}x  {e.key[:90]}")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+
+
+def phase_train(ops, dev, seed, profile=False):
+    """Phase 10: (a, b) the backward kernels, (c) the full-width 2-layer
+    kernel path against the plain path, (d) train() at full width and depth;
+    with ``profile``, where each model's train step's time goes. Returns
+    (the backward kernels' rows, the train record)."""
+    rows = phase_bwd_kernels(ops, dev, seed)
+    for arch, _, _, op in TRAIN_ARCHS:
+        train_vs_plain(ops, arch, op, dev, seed)
+    records = []
+    with tempfile.TemporaryDirectory(prefix="repro_ckpt_") as ckpt_dir:
+        for (arch, batch, seq, op), row in zip(TRAIN_ARCHS, rows):
+            rec, launches, by_variant = train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir)
+            row["launches"] = launches
+            row["launches_by_variant"] = by_variant
+            records.append(rec)
+    if profile:
+        for arch, batch, seq, _ in TRAIN_ARCHS:
+            profile_train(arch, batch, seq, dev, seed)
+    return rows, records
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -2801,7 +3365,9 @@ def build_report(_build):
     bg = _build.load("batched_gemm").repro_batched_gemm_smem
     da = _build.load("decode_attention")
     wk = _build.load("wkv6_scan").repro_wkv6_scan_smem
-    gg.argtypes, gg.restype = [], ctypes.c_int
+    wkb = _build.load("wkv6_scan_bwd").repro_wkv6_scan_bwd_smem
+    for fn in (gg, wkb):
+        fn.argtypes, fn.restype = [], ctypes.c_int
     for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
                   (da.repro_decode_attention_clusters, 4), (wk, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
@@ -2811,7 +3377,8 @@ def build_report(_build):
         + " bytes; decode_attention split_kv ring "
         + ", ".join(f"D={d} {t} {da.repro_decode_attention_smem(d, c)}"
                     for d in (64, 112, 128, 256) for t, c in (("f32", 0), ("bf16", 1)))
-        + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes")
+        + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes; wkv6_scan_bwd "
+        f"chunked {wkb()} bytes")
     import torch
 
     from repro_torch.kernels import decode_attention as dapy
@@ -2844,11 +3411,13 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+                    help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3, 5, 6 and 7, profile steady decode steps of both "
-                         "modes; after phase 4, profile the scheduler's two GEMM streams")
+                         "modes; after phase 4, profile the scheduler's two GEMM streams; after "
+                         "phase 10, profile full-width train steps")
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
                          "lines (how phase 4 reports to the run that started it)")
@@ -2880,7 +3449,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     rows = []
-    fleet = front = None
+    fleet = front = trained = None
     try:
         if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
             build_report(_build)
@@ -2938,6 +3507,12 @@ def main(argv=None) -> int:
             with phase_wall(9):
                 front_rows, front = phase_front_door(ops, dev, args.seed)
                 rows += front_rows
+        if 10 in phases:
+            torch.cuda.empty_cache()
+            log("phase 10: training (K4 and K5 backward kernels, forward_train, train())")
+            with phase_wall(10):
+                train_rows, trained = phase_train(ops, dev, args.seed, args.profile)
+                rows += train_rows
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2948,6 +3523,8 @@ def main(argv=None) -> int:
         log(json.dumps({"fleet": fleet}))
     if front is not None:
         log(json.dumps({"front_door": front}))
+    if trained is not None:
+        log(json.dumps({"train": trained}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())

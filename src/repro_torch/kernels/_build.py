@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan")
+SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan",
+           "flash_attention_bwd", "wkv6_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +56,14 @@ SIGNATURES = {
         # r, k, v, w, u, s0, s_out, out, B, H, T, N, V, u_rows, strides,
         # dtype, w_f32, variant, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I),
+    "flash_attention_bwd": (
+        # q, k, v, o, do, dq, dk, dv, lse, delta, B, Hq, Hkv, S, D, causal,
+        # window, dtype, scale, stream
+        [_P] * 10 + [_I] * 8 + [_F, _P], _I),
+    "wkv6_scan_bwd": (
+        # r, k, v, w, u, do, dr, dk, dv, dw, du, ckpt, part, du_part, BH, T,
+        # u_rows, dtype, w_f32, stream
+        [_P] * 14 + [_I] * 5 + [_P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

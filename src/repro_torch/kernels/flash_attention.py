@@ -8,6 +8,12 @@ runs the kernel too. Its plain PyTorch version is ``ref.attention``;
 On the card, ``variant`` picks one of the source's two kernels by dtype
 and head dim before the launch: the bf16 tensor-core kernel (wgmma fed by
 TMA) or the CUDA-core kernel (float32, and bf16 at D = 32 and 112).
+
+``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``: the
+gradient of K4 for training (queries and keys both at positions 0..S-1),
+which ``ops.flash_attention`` launches from the backward of its autograd
+route. Its plain version is ``ref.attention_bwd``; it counts its launches
+in ``bwd_counter`` by ``bwd_variant``.
 """
 
 from __future__ import annotations
@@ -89,3 +95,81 @@ def flash_attention(
     _build.check_status(lib, "flash_attention", status)
     counter.launched(kind)
     return out
+
+
+bwd_counter = _build.OpCounter()
+
+
+def bwd_variant(dtype: torch.dtype, D: int) -> str:
+    """The backward kernel for ``dtype`` at head dim ``D``: the CUDA-core
+    kernel (float32 arithmetic) for every dtype and head dim the forward
+    takes."""
+    del dtype, D
+    return "cuda_core"
+
+
+def check_bwd(q: torch.Tensor, k: torch.Tensor, *, q_offset: Optional[int] = None) -> None:
+    """Raise unless the backward kernel takes this call: Sq == Skv with the
+    queries at positions 0..S-1 (what training passes), a head dim and dtype
+    the forward takes (a softcap never gets here: ``ops.flash_attention``
+    sends it to the plain version). ``ops.flash_attention`` asks before the
+    forward launch, so a call the backward cannot take never starts."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    if Sq != Skv or (q_offset is not None and int(q_offset) != 0):
+        raise ValueError(f"flash_attention_bwd: takes Sq == Skv with q_offset 0 (training), "
+                         f"got Sq={Sq} Skv={Skv} q_offset={q_offset}")
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {q.shape[-1]} not in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd: dtype {q.dtype} not supported")
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` (Sq == Skv, q_offset 0)
+    given its output ``o`` and the output's gradient ``do``, in the inputs'
+    dtype. Launches ``csrc/flash_attention_bwd.cu`` on the tensors' card (a
+    row pass for each query's log-sum-exp and rowsum(dO o O), then a dK/dV
+    and a dQ kernel); raises on anything it does not take. ``do`` may be
+    strided (autograd hands it over as the next op produced it): it is made
+    contiguous here."""
+    _build.check_device(q)
+    check_bwd(q, k)
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if k.shape != v.shape or k.shape != (B, Hkv, S, D) or Hq % Hkv or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} o {tuple(o.shape)} do {tuple(do.shape)}")
+    do = do.to(q.dtype).contiguous()
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
+        _build.check_tensor(t, what, q.dtype)
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd: all tensors must be on one device")
+    kind = bwd_variant(q.dtype, D)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if S == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    scale = scale if scale is not None else D ** -0.5
+    lib = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        status = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, Hq, Hkv, S, D, int(bool(causal)), int(window), _build.DTYPE_CODES[q.dtype],
+            float(scale), _build.stream_of(q))
+    _build.check_status(lib, "flash_attention_bwd", status)
+    bwd_counter.launched(kind)
+    return dq, dk, dv

@@ -10,6 +10,17 @@ hold the kernels against it on the card.
 Each op keeps an ``OpCounter`` (``COUNTERS``): ``launches`` counts kernel
 launches (incremented by the kernel wrapper, where it launches) and
 ``plain_calls`` counts calls of the plain version.
+
+Training. ``flash_attention`` and ``wkv6_scan`` on CUDA tensors, when
+autograd is recording (``torch.is_grad_enabled()``) and an input
+``requires_grad``, go through a ``torch.autograd.Function`` whose forward
+launches the same K4 or K5 kernel and whose backward launches the op's
+backward kernel (``flash_attention_bwd``, ``wkv6_scan_bwd``; counted under
+``COUNTERS["flash_attention_bwd"]`` and ``["wkv6_scan_bwd"]``). The route
+is decided before any launch: a call the backward kernel does not take
+raises there, never drops to the plain version. Otherwise the forward
+kernel is launched directly, as for serving. On the CPU autograd
+differentiates the plain versions.
 """
 
 from __future__ import annotations
@@ -31,12 +42,52 @@ COUNTERS: Dict[str, _build.OpCounter] = {
     "batched_gemm": _bg.counter,
     "grouped_gemm": _gg.counter,
     "wkv6_scan": _wkv.counter,
+    "flash_attention_bwd": _fa.bwd_counter,
+    "wkv6_scan_bwd": _wkv.bwd_counter,
 }
 
 
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+def _grad_needed(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, K4's backward kernel for the gradient (Sq == Skv, q_offset 0)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=0)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+class _WKV6Scan(torch.autograd.Function):
+    """K5 forward from a zero state, its backward kernel for the gradient;
+    the final state is returned but carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        out, state = _wkv.wkv6_scan(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(state)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        del dstate  # training keeps no state: nothing flows back through it
+        return _wkv.wkv6_scan_bwd(*ctx.saved_tensors, dout)
 
 
 def _check_cpu(t: torch.Tensor, op: str) -> None:
@@ -118,6 +169,9 @@ def flash_attention(
     if not q.is_cuda:
         _check_cpu(q, "flash_attention")
     if flash_attention_route(q.is_cuda, logit_softcap) == "kernel":
+        if _grad_needed(q, k, v):
+            _fa.check_bwd(q, k, q_offset=q_offset)
+            return _FlashAttention.apply(q, k, v, causal, window, scale)
         return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                                    q_offset=q_offset)
     return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
@@ -195,6 +249,9 @@ def wkv6_scan(
     pads T to it); the CUDA kernel stages its own chunks and stops at T.
     """
     if r.is_cuda:
+        if _grad_needed(r, k, v, w, u):
+            _wkv.check_bwd(r, v, init_state, final_state)
+            return _WKV6Scan.apply(r, k, v, w, u)
         return _wkv.wkv6_scan(r, k, v, w, u, init_state, final_state)
     _check_cpu(r, "wkv6_scan")
     return wkv6_scan_plain(r, k, v, w, u, init_state, final_state)

@@ -104,6 +104,47 @@ def attention(
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``attention`` (Sq == Skv, queries at positions 0..S-1)
+    by the explicit formulas, in float32: recompute P; delta = rowsum(dO o O);
+    dV = P^T dO; dS = P o (dO V^T - delta); dQ = dS K scale; dK = dS^T Q
+    scale. ``o`` is the forward's output as the caller holds it (rounded to
+    its dtype). Under GQA, dK and dV sum over each kv head's group of query
+    heads. Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    with _full_f32():
+        qg = q.reshape(B, Hkv, g, Sq, D).float()
+        kf = k.float()[:, :, None]
+        vf = v.float()[:, :, None]
+        dog = do.reshape(B, Hkv, g, Sq, D).float()
+        s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+        mask = _mask(Sq, Skv, 0, causal, window, 0, q.device)
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(l == 0.0, 1.0, l)
+        delta = (dog * o.reshape(B, Hkv, g, Sq, D).float()).sum(dim=-1, keepdim=True)
+        dv = torch.matmul(p.transpose(-1, -2), dog).sum(dim=2)
+        ds = p * (torch.matmul(dog, vf.transpose(-1, -2)) - delta)
+        dq = torch.matmul(ds, kf) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2) * scale
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
 def attention_chunked(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -215,6 +256,63 @@ def wkv6_scan(
             out[:, t] = torch.matmul(rf[:, t, None, :], state + uf * kv)[:, 0]
             state = decay[:, t, :, None] * state + kv
     return out.reshape(*lead, T, V).to(r.dtype), state
+
+
+def wkv6_scan_bwd(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``wkv6_scan`` from a zero initial state, with no
+    gradient into the final state (training keeps none), in float32.
+
+    With d_t = exp(-exp(w_t)), S_t the state after step t and G_t = dL/dS_t
+    (G_T = 0, G_{t-1} = diag(d_t) G_t + r_t^T do_t):
+      dr_t[i] = sum_j (S_{t-1}[i,j] + u_i k_t[i] v_t[j]) do_t[j]
+      dk_t[i] = sum_j G_t[i,j] v_t[j] + u_i r_t[i] (v_t . do_t)
+      dv_t[j] = sum_i G_t[i,j] k_t[i] + (sum_i r_t[i] u_i k_t[i]) do_t[j]
+      dw_t[i] = -exp(w_t[i]) d_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
+      du[i]   = sum_t r_t[i] k_t[i] (v_t . do_t), summed over the rows that
+                share u's row (u (H, N) broadcast over the batch).
+    The states S_{t-1} come from a forward pass that keeps them all. Returns
+    (dr, dk, dv, dw, du) in the dtypes and shapes of (r, k, v, w, u)."""
+    lead = r.shape[:-2]
+    T, N = r.shape[-2:]
+    V = v.shape[-1]
+    bh = math.prod(lead)
+    rf = r.reshape(bh, T, N).float()
+    kf = k.reshape(bh, T, N).float()
+    vf = v.reshape(bh, T, V).float()
+    dof = do.reshape(bh, T, V).float()
+    ew = torch.exp(w.reshape(bh, T, N).float())
+    decay = torch.exp(-ew)
+    uf = _bonus_rows(u, bh)
+    states = torch.empty((T, bh, N, V), dtype=torch.float32, device=r.device)
+    state = torch.zeros((bh, N, V), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        states[t] = state
+        state = decay[:, t, :, None] * state + kf[:, t, :, None] * vf[:, t, None, :]
+    dr, dk, dw = (torch.empty((bh, T, N), device=r.device) for _ in range(3))
+    dv = torch.empty((bh, T, V), device=r.device)
+    du = torch.zeros((bh, N), device=r.device)
+    grad = torch.zeros((bh, N, V), dtype=torch.float32, device=r.device)
+    with _full_f32():
+        for t in range(T - 1, -1, -1):
+            r_t, k_t, v_t, do_t = rf[:, t], kf[:, t], vf[:, t], dof[:, t]
+            vdo = (v_t * do_t).sum(dim=-1, keepdim=True)                  # (bh, 1)
+            dr[:, t] = torch.matmul(states[t], do_t[:, :, None])[..., 0] + uf * k_t * vdo
+            dk[:, t] = torch.matmul(grad, v_t[:, :, None])[..., 0] + uf * r_t * vdo
+            ruk = (r_t * uf * k_t).sum(dim=-1, keepdim=True)
+            dv[:, t] = torch.matmul(k_t[:, None, :], grad)[:, 0] + ruk * do_t
+            dw[:, t] = -ew[:, t] * decay[:, t] * (grad * states[t]).sum(dim=-1)
+            du += r_t * k_t * vdo
+            grad = decay[:, t, :, None] * grad + r_t[:, :, None] * do_t[:, None, :]
+    du = du.reshape(bh // u.shape[0], u.shape[0], N).sum(dim=0)
+    return (dr.reshape(r.shape).to(r.dtype), dk.reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype), dw.reshape(w.shape).to(w.dtype), du.to(u.dtype))
 
 
 def wkv6_step(

@@ -20,6 +20,16 @@ state rows and columns stay 0 and add nothing to the outputs; the outputs'
 padded columns are dropped and the state is copied back into the caller's
 ``final_state`` (which may be ``init_state`` itself). At N = V = 32 the
 kernel does four times the state work the head needs.
+
+``wkv6_scan_bwd`` wraps ``csrc/wkv6_scan_bwd.cu``: the gradient of a scan
+from a zero state with no final-state gradient (training), which
+``ops.wkv6_scan`` launches from the backward of its autograd route. It
+takes the same head sizes by the same padding rule (padded r, k, u and w
+give padded rows that stay zero in the state and in its gradient, padded v
+and do padded columns, so the live gradients are the unpadded problem's;
+the padded entries are dropped). Its plain version is
+``ref.wkv6_scan_bwd``; it counts its launches in ``bwd_counter`` by
+``bwd_variant``.
 """
 
 from __future__ import annotations
@@ -176,3 +186,100 @@ def _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, dims):
     out = torch.empty_like(v, dtype=r4.dtype)
     _heads4(out).copy_(out_p[..., :V])
     return out, final_state
+
+
+bwd_counter = _build.OpCounter()
+BWD_SLICES = KERNEL_V // 16  # value-column slices, one block each, of the backward kernel
+
+
+def bwd_variant(dtype: torch.dtype, T: int) -> str:
+    """The backward kernel for ``T`` steps of ``dtype``: ``chunked`` (state
+    checkpoints every CHUNK steps, each chunk's states and state gradients
+    recomputed in shared memory) for every dtype and length it takes."""
+    del dtype, T
+    return "chunked"
+
+
+def check_bwd(r: torch.Tensor, v: torch.Tensor, init_state, final_state) -> None:
+    """Raise unless the backward kernel takes this scan: from a zero state
+    with no state kept (training), N and V as ``padded_dims`` takes them.
+    ``ops.wkv6_scan`` asks before the forward launch."""
+    if init_state is not None or final_state is not None:
+        raise ValueError("wkv6_scan_bwd: the gradient is taken from a zero initial state "
+                         "with no final state kept (training); got a state")
+    padded_dims(r.shape[-1], v.shape[-1])
+    if r.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"wkv6_scan_bwd: dtype {r.dtype} not supported")
+
+
+def wkv6_scan_bwd(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    do: torch.Tensor,
+):
+    """(dr, dk, dv, dw, du) of ``wkv6_scan(r, k, v, w, u)`` from a zero
+    state, given the outputs' gradient ``do``; each in its input's dtype and
+    shape (du (H, N) summed over the batch for u (H, N)). Shapes as
+    ``wkv6_scan`` takes them; strided inputs are copied contiguous (BH, T,
+    X) and heads zero-padded to ``padded_dims``. Launches
+    ``csrc/wkv6_scan_bwd.cu`` on the tensors' card: the chunked backward
+    kernel, then a kernel that sums its per-slice partials; raises on
+    anything it does not take."""
+    _build.check_device(r)
+    if r.ndim not in (3, 4) or k.shape != r.shape or w.shape != r.shape \
+            or v.ndim != r.ndim or v.shape[:-1] != r.shape[:-1] or do.shape != v.shape:
+        raise ValueError(f"wkv6_scan_bwd: shapes r {tuple(r.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} w {tuple(w.shape)} do {tuple(do.shape)}")
+    check_bwd(r, v, None, None)
+    T, N = r.shape[-2:]
+    V = v.shape[-1]
+    NP, VP = padded_dims(N, V)
+    if T == 0:
+        raise ValueError("wkv6_scan_bwd: empty sequence")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv6_scan_bwd: r/k/v dtypes {r.dtype} {k.dtype} {v.dtype}")
+    if w.dtype not in (r.dtype, torch.float32):
+        raise TypeError(f"wkv6_scan_bwd: w must be {r.dtype} or float32, got {w.dtype}")
+    BH = r.numel() // (T * N)
+    if u.dtype != torch.float32 or u.ndim != 2 or u.shape[1] != N or BH % u.shape[0]:
+        raise ValueError(f"wkv6_scan_bwd: u must be float32 (H, {N}) or (BH, {N}), "
+                         f"got {tuple(u.shape)} {u.dtype}")
+    for t in (k, v, w, u, do):
+        if t.device != r.device:
+            raise ValueError("wkv6_scan_bwd: all tensors must be on one device")
+
+    def flat(t, width, dtype=None):
+        t = t.reshape(BH, T, t.shape[-1]).to(dtype or t.dtype)
+        return (_pad_last(t, width) if t.shape[-1] != width else t).contiguous()
+
+    r3, k3, w3 = flat(r, NP), flat(k, NP), flat(w, NP)
+    v3, do3 = flat(v, VP), flat(do, VP, r.dtype)
+    u2 = (_pad_last(u, NP) if N != NP else u).contiguous()
+    kind = bwd_variant(r.dtype, T)
+    dr3, dk3, dw3 = torch.empty_like(r3), torch.empty_like(k3), torch.empty_like(w3)
+    dv3 = torch.empty_like(v3)
+    du2 = torch.empty_like(u2)
+    n_chunks = -(-T // CHUNK)
+    ckpt = torch.empty((BH, n_chunks, NP, VP), dtype=torch.float32, device=r.device)
+    part = torch.empty((3, BWD_SLICES, BH, T, NP), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((BH, BWD_SLICES, NP), dtype=torch.float32, device=r.device)
+    lib = _build.load("wkv6_scan_bwd")
+    with torch.cuda.device(r.device):
+        status = lib.repro_wkv6_scan_bwd(
+            r3.data_ptr(), k3.data_ptr(), v3.data_ptr(), w3.data_ptr(), u2.data_ptr(),
+            do3.data_ptr(), dr3.data_ptr(), dk3.data_ptr(), dv3.data_ptr(), dw3.data_ptr(),
+            du2.data_ptr(), ckpt.data_ptr(), part.data_ptr(), du_part.data_ptr(),
+            BH, T, u2.shape[0], _build.DTYPE_CODES[r.dtype], int(w.dtype == torch.float32),
+            _build.stream_of(r))
+    _build.check_status(lib, "wkv6_scan_bwd", status)
+    bwd_counter.launched(kind)
+
+    def back(t, like, width):
+        t = t[..., :width] if t.shape[-1] != width else t
+        return t.reshape(like.shape)
+
+    return (back(dr3, r, N), back(dk3, k, N), back(dv3, v, V), back(dw3, w, N),
+            du2[:, :N].contiguous() if N != NP else du2)

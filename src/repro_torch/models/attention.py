@@ -1,4 +1,5 @@
-"""GQA attention block: prefill (flash kernel) and one-token decode (decode kernel).
+"""GQA attention block: train-mode attention and prefill (flash kernel),
+one-token decode (decode kernel).
 
 Cache contract (the JAX package's, per layer): ``k``/``v`` of shape
 ``(B, Hkv, S_alloc, D)``, where ``S_alloc`` is the full sequence length
@@ -58,6 +59,26 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     B, H, S, D = o.shape
     return o.transpose(1, 2).reshape(B, S, H * D)
+
+
+def attn_forward(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    kind: AttentionKind,
+    rope: Tuple[torch.Tensor, torch.Tensor],
+    plain: bool = False,
+) -> torch.Tensor:
+    """Train-mode attention over whole sequences (positions 0..S-1), with no
+    cache: nothing is written in place, so autograd can walk it. x (B, S,
+    d); rope: ``layers.rope_tables`` of positions 0..S-1. Under autograd
+    on the card, ``ops.flash_attention`` runs K4 forward and its backward
+    kernel."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q = layers.apply_rope(q, *rope).contiguous()
+    k = layers.apply_rope(k, *rope).contiguous()
+    o = _flash(plain)(q, k, v.contiguous(), causal=True, window=_window(cfg, kind))
+    return torch.matmul(_merge_heads(o), p["wo"])
 
 
 def attn_prefill(

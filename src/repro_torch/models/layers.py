@@ -1,4 +1,5 @@
-"""Shared primitive layers: init, RMSNorm, per-head norm, RoPE, gated MLP.
+"""Shared primitive layers: init, RMSNorm, per-head norm, RoPE, gated MLP,
+the next-token cross-entropy.
 
 Plain functions of (params, inputs) over dicts of tensors, numerically the
 JAX package's ``repro.models.layers``: weights are stored ``(d_in, d_out)``
@@ -9,7 +10,7 @@ normalises in the residual dtype; RoPE is the half-split form.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -131,3 +132,20 @@ def mlp(p: Params, x: torch.Tensor, gated: bool) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default form
     return torch.matmul(h, p["down"])
+
+
+# --------------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32. logits (B, S, V), labels
+    (B, S); ``mask`` (B, S) or broadcastable, 1 where a position counts.
+    The gold logit is picked by a gather (the reference's iota-compare-select
+    form exists to keep vocab-sharded logits local; the value is the same)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

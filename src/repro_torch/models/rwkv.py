@@ -16,7 +16,10 @@ through one ``wkv6_scan`` launch, which writes the state after the last
 token straight into the cache: the JAX package runs the jnp oracle there
 plus a second scan for the state. Like the JAX prefill, it hands the scan
 ``w`` rounded to the model dtype (the JAX decode step keeps it float32).
-``rwkv_decode`` is one token for R tenants x B slots: each projection is
+``rwkv_train`` is the train mode: from a zero previous token and a zero
+state, keeping no state; under autograd on the card, ``ops.wkv6_scan`` runs
+K5 forward and its backward kernel. ``rwkv_decode`` is one token for R
+tenants x B slots: each projection is
 one batched product across tenants and ``wkv6_step`` runs once over all
 R*B*H heads.
 """
@@ -140,6 +143,28 @@ def rwkv_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache,
     x = x + _channel_mix(p, h, _token_shift(h, cache["shift_cm"]), _same)
     cache["shift_cm"].copy_(h[:, -1])
     return x
+
+
+def rwkv_train(p: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False) -> torch.Tensor:
+    """Train mode: x (B, S, d) -> the block's output, from a zero previous
+    token and a zero WKV state, with ``w`` rounded to r's dtype as the
+    reference's train path passes it; no state is kept."""
+    H, N = dims(cfg)
+    B, S, d = x.shape
+    h = layers.rmsnorm(p["norm_tm"]["scale"], x, cfg.norm_eps)
+    zero = h.new_zeros((B, d))
+    r, k, v, g, w = _time_mix(p, h, _token_shift(h, zero), _same)
+
+    def heads(t):  # (B, S, d) -> a (B, H, S, N) view
+        return t.view(B, S, H, N).transpose(1, 2)
+
+    scan = ops.wkv6_scan_plain if plain else ops.wkv6_scan
+    o, _ = scan(heads(r), heads(k), heads(v), heads(w.to(r.dtype)), p["u"])
+    o = o.transpose(1, 2).reshape(B, S, d)
+    x = x + torch.matmul(layers.groupnorm_heads(o, H) * g, p["wo"])
+
+    h = layers.rmsnorm(p["norm_cm"]["scale"], x, cfg.norm_eps)
+    return x + _channel_mix(p, h, _token_shift(h, h.new_zeros((B, d))), _same)
 
 
 def rwkv_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache) -> torch.Tensor:

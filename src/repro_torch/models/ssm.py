@@ -158,10 +158,13 @@ def mamba2_forward(
     x: torch.Tensor,
     cfg: ModelConfig,
     init_cache_state: Optional[Cache] = None,
-) -> Tuple[torch.Tensor, Cache]:
+    return_cache: bool = True,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Prefill forward of x (B, S, d) -> (out (B, S, d), the caches after
     the last token). ``init_cache_state``: a continuation, from a previous
-    chunk's conv tails and SSM state (read, not written)."""
+    chunk's conv tails and SSM state (read, not written).
+    ``return_cache=False`` is the train mode: from zero state, no caches
+    (None in their place)."""
     d_inner, H, P, N = dims(cfg)
     B, S, _ = x.shape
     W = cfg.ssm.conv_width
@@ -195,6 +198,8 @@ def mamba2_forward(
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = layers.groupnorm_heads(y * F.silu(z), H) * p["norm"]
     out = torch.matmul(y.to(x.dtype), p["out_proj"])
+    if not return_cache:
+        return out, None
     cache = {"conv_x": tail(xs_raw, "conv_x"), "conv_B": tail(Bm_raw, "conv_B"),
              "conv_C": tail(Cm_raw, "conv_C"), "ssm": final_state}
     return out, cache

@@ -34,6 +34,10 @@ tenant-stacked cohort. ``models.convert`` maps both to and from the JAX
 layout.
 
 Entry points:
+    forward_train            tokens, labels (B, S) [+ prefix_embeds, loss_mask]
+                             -> (loss, {"ce", "aux", "loss"}): differentiable
+                             (autograd), with ``remat="block"`` recomputing
+                             each block's internals in the backward pass
     forward_prefill          tokens (B, S) [+ prefix_embeds (B, P, fed)]
                              -> (last-position logits, caches)
     forward_decode           token (B,)    -> (logits (B, V), caches)
@@ -54,6 +58,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models import attention, layers, moe, rwkv, ssm
@@ -114,11 +119,22 @@ class Model:
 
     ``plain_kernels=True`` runs every kernel's op (attention, the WKV6
     scan) through its plain PyTorch version on any device: the opt-in used
-    to hold the kernel path against the plain path on the card.
+    to hold the kernel path against the plain path on the card (in training,
+    autograd then differentiates the plain versions).
+
+    remat: "none" | "block". "block" runs each block of ``forward_train``
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    per block): the backward pass keeps one residual per layer and
+    recomputes the rest, so each attention layer's forward kernel runs
+    twice a step.
     """
 
-    def __init__(self, cfg: ModelConfig, device=None, plain_kernels: bool = False):
+    def __init__(self, cfg: ModelConfig, device=None, plain_kernels: bool = False,
+                 remat: str = "block"):
+        if remat not in ("none", "block"):
+            raise ValueError(f"remat must be 'none' or 'block', got {remat!r}")
         self.cfg = cfg
+        self.remat = remat
         self.device = resolve_device(device)
         self.dtype = _torch_dtype(cfg.dtype)
         self.plain = plain_kernels
@@ -282,7 +298,71 @@ class Model:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
+    def _train_block(self, i: int, lp: Params, x: torch.Tensor,
+                     rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+        """Layer i in train mode: (x, its load-balance loss, float32)."""
+        cfg = self.cfg
+        kind = self.blocks[i]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if kind == BlockKind.RWKV6:
+            return rwkv.rwkv_train(lp, x, cfg, self.plain), aux
+        if kind == BlockKind.MAMBA2:
+            h = layers.rmsnorm(lp["norm"]["scale"], x, cfg.norm_eps)
+            y, _ = ssm.mamba2_forward(lp["mamba"], h, cfg, return_cache=False)
+            return x + y, aux
+        h = layers.rmsnorm(lp["norm1"]["scale"], x, cfg.norm_eps)
+        x = x + attention.attn_forward(lp["attn"], h, cfg, self.kinds[i], rope, self.plain)
+        h = layers.rmsnorm(lp["norm2"]["scale"], x, cfg.norm_eps)
+        if kind == BlockKind.ATTN_MOE:
+            y, aux = moe.moe_forward(_tenant_axis(lp["moe"]), h[None], cfg)
+            return x + y[0], aux[0]
+        return x + layers.mlp(lp["mlp"], h, cfg.mlp_gated), aux
+
     # -------------------------------------------------------------- entry points
+    def forward_train(
+        self,
+        params: Params,
+        tokens: torch.Tensor,
+        labels: torch.Tensor,
+        prefix_embeds: Optional[torch.Tensor] = None,
+        loss_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens/labels (B, S) (S includes prefix positions for a stub
+        frontend) -> (loss, {"ce", "aux", "loss"}), float32 scalars.
+
+        ``prefix_embeds`` (B, P, frontend width) replace the first P
+        embedded positions, which then leave the loss (``loss_mask`` times
+        the prefix mask), as the reference's ``forward_train`` does. Zamba2's
+        shared block is the same tensors at every hybrid position, so its
+        gradient sums over them.
+        """
+        cfg = self.cfg
+        x = self._embed_scale(params["embed"][tokens])
+        S = x.shape[1]
+        if cfg.num_prefix_embeddings and prefix_embeds is not None:
+            P = prefix_embeds.shape[1]
+            pref = torch.matmul(prefix_embeds.to(x.dtype), params["frontend_proj"])
+            x = torch.cat([pref, x[:, P:, :]], dim=1)
+            pmask = (torch.arange(S, device=x.device) >= P)[None, :]
+            loss_mask = pmask if loss_mask is None else loss_mask * pmask
+        rope = None
+        if self.has_attention:
+            rope = layers.rope_tables(torch.arange(S, device=x.device), cfg.head_dim,
+                                      cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(len(self.blocks)):
+            lp = self._layer_params(params, i)
+            if self.remat == "block":
+                x, a = torch.utils.checkpoint.checkpoint(
+                    self._train_block, i, lp, x, rope, use_reentrant=False)
+            else:
+                x, a = self._train_block(i, lp, x, rope)
+            aux = aux + a
+        logits = self._logits(params, x)
+        ce = layers.cross_entropy(logits, labels, loss_mask)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
+
     def forward_prefill(
         self,
         params: Params,
@@ -395,5 +475,6 @@ class Model:
         return logits[0], caches
 
 
-def build_model(cfg: ModelConfig, device=None, plain_kernels: bool = False) -> Model:
-    return Model(cfg, device=device, plain_kernels=plain_kernels)
+def build_model(cfg: ModelConfig, device=None, plain_kernels: bool = False,
+                remat: str = "block") -> Model:
+    return Model(cfg, device=device, plain_kernels=plain_kernels, remat=remat)

@@ -89,6 +89,37 @@ def test_the_scans_cover_the_control_plane():
         assert f"repro_torch.{pkg}" in names
 
 
+def test_the_scans_cover_the_training_path():
+    """The package walk and the file scan reach the training package (its
+    optimizer, data stream, checkpoint file and train loop) and the train
+    launcher, so neither may import jax, msgpack or anything of repro."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    for mod in ("training.optimizer", "training.data", "training.checkpoint",
+                "training.train_loop", "launch.train"):
+        assert f"repro_torch.{mod}" in names
+        assert PORT / (mod.replace(".", "/") + ".py") in files
+    assert "repro_torch.training" in names
+    assert PORT / "training" / "__init__.py" in files
+
+
+@pytest.mark.parametrize("mod", ["training", "training.checkpoint", "launch.train"])
+def test_training_modules_import_neither_msgpack_nor_jax(mod):
+    """The checkpoint writes the reference's msgpack file itself: importing
+    the training path loads no msgpack (the card's machine has none)."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{mod}')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'msgpack'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_the_hardware_registry_holds_no_tpu_part():
     from repro_torch.launch import roofline
 
@@ -112,7 +143,7 @@ def _imports(path):
 def test_no_file_imports_jax_or_repro(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), f"{path} imports {name}"
 
 
 # Each ported architecture's headline fields, as its source states them:

@@ -1,0 +1,144 @@
+"""``chip_smoke.py``'s phase 10 (training) rehearsed on the CPU.
+
+``torch.cuda`` is stubbed; K4's and K5's forward and backward wrappers
+count a launch of their variant and run their plain versions; the ops take
+the autograd route they take on the card (the ``torch.autograd.Function``
+whose forward and backward are those wrappers) instead of the CPU's plain
+route; stablelm-1.6b and rwkv6-1.6b are their bf16 smoke variants and the
+phase's shapes are shrunk. So the phase's control flow and checks run here:
+the backward kernels against both yardsticks, the kernel path against the
+plain path in float32 and bf16, ``train()`` with its launch, loss and
+checkpoint checks, and the rows and ``train`` record it prints. The card's
+numbers come only from the card.
+"""
+
+import dataclasses
+import json
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread: pytest's workers already fill every core
+pytest.importorskip("jax")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+class _Event:
+    def __init__(self, **_):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, _other):
+        return 1.0
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """``chip_smoke`` with the card stubbed and phase 10 shrunk."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    import repro_torch.config
+    from repro_torch.config import smoke_variant
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6_scan as wk
+
+    for name in ("synchronize", "_sleep", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    get = repro_torch.config.get_config
+    monkeypatch.setattr(repro_torch.config, "get_config", lambda arch: dataclasses.replace(
+        smoke_variant(get(arch)), dtype="bfloat16"))
+
+    def flash(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0, q_offset=None):
+        fa.counter.launched(fa.variant(q.dtype, q.shape[-1]))
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale,
+                             q_offset=q_offset)
+
+    def flash_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None):
+        fa.bwd_counter.launched(fa.bwd_variant(q.dtype, q.shape[-1]))
+        return ref.attention_bwd(q, k, v, o, do, causal=causal, window=window, scale=scale)
+
+    def scan(r, k, v, w, u, init_state=None, final_state=None):
+        wk.counter.launched(wk.variant(r.dtype, r.shape[-2]))
+        return ref.wkv6_scan(r, k, v, w, u, init_state)
+
+    def scan_bwd(r, k, v, w, u, do):
+        wk.bwd_counter.launched(wk.bwd_variant(r.dtype, r.shape[-2]))
+        return ref.wkv6_scan_bwd(r, k, v, w, u, do)
+
+    def flash_op(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0,
+                 q_offset=None):  # ops.flash_attention's route for a CUDA tensor
+        if ops._grad_needed(q, k, v):
+            fa.check_bwd(q, k, q_offset=q_offset)
+            return ops._FlashAttention.apply(q, k, v, causal, window, scale)
+        return fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                  q_offset=q_offset)
+
+    def scan_op(r, k, v, w, u, init_state=None, final_state=None):  # ops.wkv6_scan's, likewise
+        if ops._grad_needed(r, k, v, w, u):
+            wk.check_bwd(r, v, init_state, final_state)
+            return ops._WKV6Scan.apply(r, k, v, w, u)
+        return wk.wkv6_scan(r, k, v, w, u, init_state, final_state)
+
+    for mod, name, fn in ((fa, "flash_attention", flash), (fa, "flash_attention_bwd", flash_bwd),
+                          (wk, "wkv6_scan", scan), (wk, "wkv6_scan_bwd", scan_bwd),
+                          (ops, "flash_attention", flash_op), (ops, "wkv6_scan", scan_op)):
+        monkeypatch.setattr(mod, name, fn)
+    monkeypatch.setattr(chip_smoke, "FLASH_BWD_CASES", ((1, 4, 4, 40, 64, 0),
+                                                        (1, 4, 1, 30, 32, 5)))
+    monkeypatch.setattr(chip_smoke, "WKV_BWD_CASES", ((1, 2, 20, 16, -3.0, 1.0),
+                                                      (1, 2, 17, 16, 1.0, 1.0)))
+    monkeypatch.setattr(chip_smoke, "TRAIN_ARCHS", (("stablelm-1.6b", 2, 16, "flash_attention"),
+                                                    ("rwkv6-1.6b", 2, 16, "wkv6_scan")))
+    monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", 6)
+    monkeypatch.setattr(chip_smoke, "TRAIN_LR", 1e-2)
+    monkeypatch.setattr(chip_smoke, "TRAIN_WARMUP", 1)
+    monkeypatch.setattr(chip_smoke, "TRAIN_CUT_BATCH", 1)
+    monkeypatch.setattr(chip_smoke, "TRAIN_CUT_SEQ", 16)
+    return chip_smoke, ops
+
+
+def test_phase_10_runs_its_checks_on_the_cpu(smoke):
+    chip_smoke, ops = smoke
+    rows, records = chip_smoke.phase_train(ops, torch.device("cpu"), 0)
+    json.dumps({"train": records, "kernels": rows})
+    assert [r["name"] for r in rows] == ["flash_attention_bwd", "wkv6_scan_bwd"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(r) for r in rows)
+    for rec, row, op in zip(records, rows, ("flash_attention", "wkv6_scan")):
+        assert rec["launches"][op + "_bwd"] == row["launches_by_variant"]
+        assert row["launches"] == rec["layers"] * rec["steps"]
+        assert sum(rec["launches"][op].values()) == 2 * rec["layers"] * rec["steps"]
+        assert rec["losses"][-1] < rec["losses"][0] and len(rec["losses"]) == 6
+    assert rows[1]["library_ms"] is None
+
+
+def test_phase_10_fails_when_a_backward_kernel_is_wrong(smoke, monkeypatch):
+    chip_smoke, ops = smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    wrong = fa.flash_attention_bwd
+
+    def bad_bwd(*args, **kw):
+        dq, dk, dv = wrong(*args, **kw)
+        return dq, dk * 1.01, dv  # a 1% error in dK
+    monkeypatch.setattr(fa, "flash_attention_bwd", bad_bwd)
+    with pytest.raises(chip_smoke.PhaseFailed, match="flash_attention_bwd"):
+        chip_smoke.phase_train(ops, torch.device("cpu"), 0)
+
+
+def test_phase_10_fails_when_training_takes_the_plain_path(smoke, monkeypatch):
+    chip_smoke, ops = smoke
+    monkeypatch.setattr(ops, "wkv6_scan", ops.wkv6_scan_plain)
+    monkeypatch.setattr(chip_smoke, "TRAIN_ARCHS", chip_smoke.TRAIN_ARCHS[1:])
+    monkeypatch.setattr(chip_smoke, "phase_bwd_kernels", lambda ops, dev, seed: [{}])
+    with pytest.raises(chip_smoke.PhaseFailed, match="wkv6_scan"):
+        chip_smoke.phase_train(ops, torch.device("cpu"), 0)
