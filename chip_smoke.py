@@ -121,14 +121,19 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
  10. drives the training path (``training/*``, ``Model.forward_train``),
      whose attention layers run K4 forward and K4's backward kernel and
      whose RWKV-6 layers K5 forward and K5's backward kernel, through the
-     ops' autograd route: (a) K4's backward kernel against
+     ops' autograd route: (a) K4's backward kernels (``bwd_variant``'s,
+     wgmma for bf16 at D 64-256, and the prior cuda_core kernel) against
      ``ref.attention_bwd`` and autograd through ``ref.attention``, in
      float32 and bf16, at stablelm's training shape, GQA at q_per_kv 2 and
-     8 (D 256), D 112 and 32, a sliding window and S off the tiles, timed
-     beside the plain version and SDPA's backward; (b) K5's backward kernel
+     8 (D 256), D 112 and 32, a sliding window and S off the tiles, the
+     wgmma forward's ``lse`` against ``ref.attention_lse``, a second launch
+     giving the same bits, the new kernel timed in turns with the prior
+     beside the plain version and SDPA's backward; (b) K5's backward kernels
+     (cluster, from the chunk states the forward writes into its ``ckpt``,
+     held against ``ref.wkv6_chunk_states``, and the prior chunked kernel)
      against ``ref.wkv6_scan_bwd`` and autograd through ``ref.wkv6_scan``
      under strong and weak decay, T off the chunks and N = V = 32 padded,
-     timed beside the plain version; (c) stablelm-1.6b and rwkv6-1.6b at
+     timed likewise beside the plain version; (c) stablelm-1.6b and rwkv6-1.6b at
      full width cut to 2 layers: loss and every parameter's gradient,
      kernel path against ``plain_kernels=True``, in float32 and (each
      against the float32 plain path) bf16; (d) ``train()`` on both at full
@@ -136,9 +141,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      remat "block"), a checkpoint saved after the last step and restored
      leaf for leaf; it fails unless every loss and grad norm is finite, the
      last loss is below the first, the forward kernel launched 2 x layers
-     x steps times and the backward kernel layers x steps times, and no op
-     made a plain call. It prints a ``train`` line and the two backward
-     kernels' rows.
+     x steps times and the backward kernel (wgmma, cluster) layers x steps
+     times, and no op made a plain call. It prints a ``train`` line and the
+     two backward kernels' rows.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
 zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
@@ -2813,6 +2818,13 @@ TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 512
 # output O enters delta = rowsum(dO o O) unrounded there, so allow more.
 BWD_TOL = {"torch.float32": (1e-3, 1e-4), "torch.bfloat16": (2e-2, 4e-3)}
 BWD_AUTOGRAD_TOL = {"torch.float32": (1e-3, 1e-4), "torch.bfloat16": (5e-2, 2e-2)}
+# What the forwards hand their backward, against their plain versions,
+# (rtol, atol): K4's row log-sum-exp (float32 sums of the same bf16 products
+# in another order, exp2 and log2 at the card's approximate rates; +inf rows
+# must match exactly) and K5's chunk-entry states (the final state's
+# tolerance of phase 5, WKV_TOL: the chunked form sums in another order).
+LSE_TOL = (1e-4, 1e-4)
+BWD_PRIOR = {"flash_attention": "cuda_core", "wkv6_scan": "chunked"}  # the first kernels
 # (c): per parameter, ||g_kernel - g_plain|| / ||g_plain|| in float32: only
 # the order of float32 sums differs, through 2 layers and the loss.
 GRAD_RTOL_F32 = 1e-3
@@ -2913,29 +2925,68 @@ def flash_bwd_inputs(gen, dev, dtype, B, Hq, Hkv, S, D):
     return q, k, v, do
 
 
+def check_same_bits(name, got, again):
+    """A second launch gives the same bits (no atomics: every sum in a fixed
+    order)."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, again())):
+        raise PhaseFailed(f"{name}: a second launch gave other bits")
+
+
+def check_lse(name, got, want):
+    """K4's forward ``lse`` against ``ref.attention_lse``: +inf rows the same,
+    the rest within LSE_TOL."""
+    import torch
+
+    if not torch.equal(torch.isinf(got), torch.isinf(want)) or torch.isnan(got).any():
+        raise PhaseFailed(f"{name}: +inf rows differ from ref.attention_lse's, or NaN")
+    fin = torch.isfinite(want)
+    return check_close(name, got[fin], want[fin], "torch.float32", LSE_TOL)
+
+
 def check_flash_bwd(ops, gen, dev, dtype, B, Hq, Hkv, S, D, window):
-    """K4's backward kernel against ``ref.attention_bwd`` and against
-    autograd through ``ref.attention``, the forward's output from K4 itself
-    (as training hands it over). Returns (inputs, output, max error)."""
+    """K4's backward kernels, ``bwd_variant``'s and the prior's (the
+    CUDA-core kernel, launched by name) where they differ, each against
+    ``ref.attention_bwd`` and against autograd through ``ref.attention``,
+    the forward's output from K4 itself (as training hands it over); the
+    wgmma forward's ``lse`` against ``ref.attention_lse``. Returns (inputs
+    with the lse, the new kernel's max error)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     q, k, v, do = flash_bwd_inputs(gen, dev, dtype, B, Hq, Hkv, S, D)
+    new = fa.bwd_variant(dtype, D)
+    lse = None
+    name = f"{str(dtype)[6:]} {(B, Hq, Hkv, S, D)} window={window}"
     with torch.no_grad():
-        o = ops.flash_attention(q, k, v, window=window)
-    got = fa.flash_attention_bwd(q, k, v, o, do, window=window)
+        if new == "wgmma":
+            lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+            o = fa.flash_attention(q, k, v, window=window, q_offset=0, lse=lse)
+            torch.cuda.synchronize()
+            check_lse(f"flash_attention lse {name}", lse, ref.attention_lse(q, k, window=window))
+        else:
+            o = ops.flash_attention(q, k, v, window=window)
     want = ref.attention_bwd(q, k, v, o, do, window=window)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(ref.attention(*leaves, window=window), leaves, do)
-    torch.cuda.synchronize()
-    name = (f"flash_attention_bwd {str(dtype)[6:]} {(B, Hq, Hkv, S, D)} window={window} "
-            f"[{fa.bwd_variant(dtype, D)}]")
-    err = check_grads(name + " vs ref.attention_bwd", got, want, str(dtype), BWD_TOL[str(dtype)])
-    check_grads(name + " vs autograd of ref.attention", got, auto, str(dtype),
-                BWD_AUTOGRAD_TOL[str(dtype)])
-    return (q, k, v, o, do), err
+    errs = {}
+    for kind in dict.fromkeys((new, BWD_PRIOR["flash_attention"])):
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse=lse if kind == "wgmma" else None,
+                                     window=window, kernel=kind)
+        torch.cuda.synchronize()
+        what = f"flash_attention_bwd {name} [{kind}]"
+        errs[kind] = check_grads(what + " vs ref.attention_bwd", got, want, str(dtype),
+                                 BWD_TOL[str(dtype)])
+        check_grads(what + " vs autograd of ref.attention", got, auto, str(dtype),
+                    BWD_AUTOGRAD_TOL[str(dtype)])
+        if kind == new:
+            check_same_bits(what, got, lambda: fa.flash_attention_bwd(
+                q, k, v, o, do, lse=lse if kind == "wgmma" else None, window=window, kernel=kind))
+        del got
+    return (q, k, v, o, do, lse), errs[new]
 
 
 def wkv_bwd_inputs(gen, dev, dtype, B, H, T, N, w_mean, w_std):
@@ -2954,36 +3005,71 @@ def wkv_bwd_inputs(gen, dev, dtype, B, H, T, N, w_mean, w_std):
     return r, k, v, w, u, do
 
 
+def check_ckpt(name, ckpt, want, N):
+    """K5's forward ``ckpt`` against ``ref.wkv6_chunk_states`` on the live
+    (N, N) block, the padded rows and columns 0."""
+    if ckpt.shape[-1] != N and float(ckpt[..., N:].abs().max() + ckpt[..., N:, :].abs().max()):
+        raise PhaseFailed(f"{name}: padded entries are not 0")
+    return check_close(name, ckpt[..., :N, :N], want, "torch.float32", WKV_TOL)
+
+
 def check_wkv_bwd(ops, gen, dev, dtype, B, H, T, N, w_mean, w_std):
-    """K5's backward kernel against ``ref.wkv6_scan_bwd`` and against
-    autograd through ``ref.wkv6_scan``. Returns (inputs, max error)."""
+    """K5's backward kernels, ``bwd_variant``'s (from the chunk states the
+    forward wrote into its ``ckpt``, checked against
+    ``ref.wkv6_chunk_states``) and the prior's (launched by name), each
+    against ``ref.wkv6_scan_bwd`` and against autograd through
+    ``ref.wkv6_scan``. Returns (inputs with the ckpt, the new kernel's max
+    error)."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6_scan as wk
 
     inputs = wkv_bwd_inputs(gen, dev, dtype, B, H, T, N, w_mean, w_std)
-    got = wk.wkv6_scan_bwd(*inputs)
+    new = wk.bwd_variant(dtype, T)
+    name = (f"{str(dtype)[6:]} (B, H, T, N)={(B, H, T, N)} w ~ N({w_mean}, {w_std}) padded to "
+            f"{wk.padded_dims(N, N)}")
+    ckpt = torch.empty(wk.chunk_states_shape(B * H, T, N, N), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        wk.wkv6_scan(*inputs[:5], ckpt=ckpt)
+    torch.cuda.synchronize()
+    check_ckpt(f"wkv6_scan ckpt {name}", ckpt, ref.wkv6_chunk_states(*inputs[1:4]), N)
     want = ref.wkv6_scan_bwd(*inputs)
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs[:5]]
     out, _ = ref.wkv6_scan(*leaves)
     auto = torch.autograd.grad(out, leaves, inputs[5], allow_unused=True)
     auto = [torch.zeros_like(x) if a is None else a for x, a in zip(leaves, auto)]
-    torch.cuda.synchronize()
-    name = (f"wkv6_scan_bwd {str(dtype)[6:]} (B, H, T, N)={(B, H, T, N)} w ~ N({w_mean}, "
-            f"{w_std}) [{wk.bwd_variant(dtype, T)}, padded to {wk.padded_dims(N, N)}]")
-    err = check_grads(name + " vs ref.wkv6_scan_bwd", got, want, str(dtype),
-                      BWD_TOL[str(dtype)])
-    check_grads(name + " vs autograd of ref.wkv6_scan", got, auto, str(dtype),
-                BWD_AUTOGRAD_TOL[str(dtype)])
-    return inputs, err
+    errs = {}
+    for kind in dict.fromkeys((new, BWD_PRIOR["wkv6_scan"])):
+        got = wk.wkv6_scan_bwd(*inputs, ckpt=ckpt if kind == "cluster" else None, kernel=kind)
+        torch.cuda.synchronize()
+        what = f"wkv6_scan_bwd {name} [{kind}]"
+        errs[kind] = check_grads(what + " vs ref.wkv6_scan_bwd", got, want, str(dtype),
+                                 BWD_TOL[str(dtype)])
+        check_grads(what + " vs autograd of ref.wkv6_scan", got, auto, str(dtype),
+                    BWD_AUTOGRAD_TOL[str(dtype)])
+        if kind == new:
+            check_same_bits(what, got, lambda: wk.wkv6_scan_bwd(
+                *inputs, ckpt=ckpt if kind == "cluster" else None, kernel=kind))
+    return inputs + (ckpt,), errs[new]
+
+
+def timed_turns(new, prior, iters):
+    """(new ms, prior ms, the four times): ``new`` and ``prior`` timed in
+    turns, new, prior, new, prior, on the same inputs; each the mean of its
+    two turns."""
+    ts = [time_ms(fn, iters) for fn in (new, prior, new, prior)]
+    return (ts[0] + ts[2]) / 2, (ts[1] + ts[3]) / 2, ts
 
 
 def phase_bwd_kernels(ops, dev, seed):
-    """(a) K4's and (b) K5's backward kernels against their plain versions
-    in float32 and bf16 at FLASH_BWD_CASES and WKV_BWD_CASES; each timed
-    at its model's training shape (bf16) beside the plain version, its
-    bound and (K4) SDPA's backward. Returns the two rows, launches unset."""
+    """(a) K4's and (b) K5's backward kernels, ``bwd_variant``'s and the
+    prior's, against their plain versions in float32 and bf16 at
+    FLASH_BWD_CASES and WKV_BWD_CASES, and what the forwards save for them
+    against its plain version; each timed at its model's training shape
+    (bf16), in turns with the prior, beside the plain version, its bound
+    and (K4) SDPA's backward; the forward's time there with and without
+    its saved statistics. Returns the two rows, launches unset."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3006,39 +3092,57 @@ def phase_bwd_kernels(ops, dev, seed):
             del inputs
         torch.cuda.empty_cache()
     rows = []
-    (B, Hq, Hkv, S, D, window), (q, k, v, o, do), err = timed.pop("flash")
+    (B, Hq, Hkv, S, D, window), (q, k, v, o, do, lse), err = timed.pop("flash")
     nbytes, flops = flash_bwd_work(B, Hq, Hkv, S, D, window, "torch.bfloat16")
     bound_ms, bound_by = bound(nbytes, flops, "torch.bfloat16")
+    new = fa.bwd_variant(torch.bfloat16, D)
+    ms, prior_ms, turns = timed_turns(
+        lambda: fa.flash_attention_bwd(q, k, v, o, do, lse=lse, kernel=new),
+        lambda: fa.flash_attention_bwd(q, k, v, o, do, kernel=BWD_PRIOR["flash_attention"]), 10)
+    fwd_ms, fwd_stats_ms, _ = timed_turns(
+        lambda: fa.flash_attention(q, k, v, q_offset=0),
+        lambda: fa.flash_attention(q, k, v, q_offset=0, lse=lse), 10)
     row = {
-        "variant": fa.bwd_variant(torch.bfloat16, D),
+        "variant": new, "prior": BWD_PRIOR["flash_attention"],
         "shape": f"stablelm-1.6b training: {(B, Hq, Hkv, S, D)} causal, bf16",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), 10),
+        "max_abs_err": err, "ms": ms, "prior_ms": prior_ms, "turns_ms": turns,
         "plain_ms": time_ms(lambda: ref.attention_bwd(q, k, v, o, do), 3, 1),
         "library_ms": time_ms(sdpa_bwd(q, k, v, do, window), 10),
-        "bound_ms": bound_ms, "bound_by": bound_by, "prior_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "fwd_ms": fwd_ms, "fwd_with_lse_ms": fwd_stats_ms,
     }
-    log(f"    flash_attention_bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+    log(f"    flash_attention_bwd [{new}] ms={ms:.4f} prior [{row['prior']}] ms={prior_ms:.4f} "
+        f"(turns {', '.join(f'{t:.4f}' for t in turns)}) plain_ms={row['plain_ms']:.4f} "
         f"sdpa_bwd_ms={row['library_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"kernel/bound={row['ms'] / bound_ms:.1f}")
+        f"kernel/bound={ms / bound_ms:.1f}; forward {fwd_ms:.4f} ms, with lse "
+        f"{fwd_stats_ms:.4f} ms")
     rows.append({"name": "flash_attention_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  "replaces": REPLACES["flash_attention"], **row})
-    del q, k, v, o, do
+    del q, k, v, o, do, lse
     (B, H, T, N, _, _), inputs, err = timed.pop("wkv")
+    *inputs, ckpt = inputs
     nbytes, flops = wkv_bwd_work(B * H, H, T, N, N, torch.bfloat16)
     bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    new = wk.bwd_variant(torch.bfloat16, T)
+    ms, prior_ms, turns = timed_turns(
+        lambda: wk.wkv6_scan_bwd(*inputs, ckpt=ckpt, kernel=new),
+        lambda: wk.wkv6_scan_bwd(*inputs, kernel=BWD_PRIOR["wkv6_scan"]), 10)
+    fwd_ms, fwd_stats_ms, _ = timed_turns(lambda: wk.wkv6_scan(*inputs[:5]),
+                                          lambda: wk.wkv6_scan(*inputs[:5], ckpt=ckpt), 10)
     row = {
-        "variant": wk.bwd_variant(torch.bfloat16, T),
+        "variant": new, "prior": BWD_PRIOR["wkv6_scan"],
         "shape": f"rwkv6-1.6b training: B={B} H={H} T={T} N=V={N}, bf16",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: wk.wkv6_scan_bwd(*inputs), 10),
+        "max_abs_err": err, "ms": ms, "prior_ms": prior_ms, "turns_ms": turns,
         "plain_ms": time_ms(lambda: ref.wkv6_scan_bwd(*inputs), 2, 1),
         "library_ms": None,  # no single PyTorch call computes the WKV6 gradient
-        "bound_ms": bound_ms, "bound_by": bound_by, "prior_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "fwd_ms": fwd_ms, "fwd_with_ckpt_ms": fwd_stats_ms,
     }
-    log(f"    wkv6_scan_bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library: none "
-        f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={row['ms'] / bound_ms:.1f}")
+    log(f"    wkv6_scan_bwd [{new}] ms={ms:.4f} prior [{row['prior']}] ms={prior_ms:.4f} (turns "
+        f"{', '.join(f'{t:.4f}' for t in turns)}) plain_ms={row['plain_ms']:.4f} library: none "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={ms / bound_ms:.1f}; forward "
+        f"{fwd_ms:.4f} ms, with ckpt {fwd_stats_ms:.4f} ms")
     rows.append({"name": "wkv6_scan_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wkv6_scan_bwd.cu",
                  "replaces": REPLACES["wkv6_scan"], **row})
@@ -3254,12 +3358,18 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     return rec, counts[op + "_bwd"][0], counts[op + "_bwd"][1]
 
 
+# Kernel function names of csrc/ on the training path (forward and backward).
+PORT_KERNEL_NAMES = ("flash_wgmma", "flash_kernel", "delta_kernel", "dkdv_wgmma", "dq_wgmma",
+                     "rows_kernel", "dkdv_kernel", "dq_kernel", "wkv6_chunked", "wkv6_bwd")
+
+
 def profile_train(arch, batch, seq, dev, seed, steps=3):
     """Where a full-width bf16 train step's time goes: after two warm-up
     steps, the host wall of forward + backward and of the optimizer update,
     each ended by a synchronize; then torch.profiler over ``steps`` whole
     steps: wall and kernel time a step, the device's idle share (1 - kernel
-    time / wall), kernels a step, and the kernels that take the most time."""
+    time / wall), kernels a step, the kernels that take the most time, and
+    the port's own kernels among the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3310,9 +3420,14 @@ def profile_train(arch, batch, seq, dev, seed, steps=3):
         f"leaves); profiled wall {wall / steps * 1e3:.1f} ms/step, kernels "
         f"{busy_us / steps / 1e3:.1f} ms/step, device idle share {1 - busy_us / 1e6 / wall:.3f}, "
         f"{sum(e.count for e in kernels) / steps:.0f} kernels/step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:10]:
         log(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"{e.count / steps:6.0f}x  {e.key[:90]}")
+    for e in ranked[10:]:  # the port's own kernels below the first ten
+        if any(name in e.key for name in PORT_KERNEL_NAMES):
+            log(f"    {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+                f"{e.count / steps:6.0f}x  {e.key[:90]}")
     del params, opt, batches
     torch.cuda.empty_cache()
 
@@ -3349,9 +3464,10 @@ def phase_wall(n):
 def build_report(_build):
     """ptxas's report for every kernel instance (entry function, registers,
     spills; static shared memory is on the registers line), the dynamic
-    shared memory of the wgmma kernels (K4 at D = 64, 128, 256), K3's
-    split_kv ring at every head dim in both dtypes (held equal to the
-    wrapper's ``ring_bytes``) and K5's chunked kernel, and how many of K3's
+    shared memory of the wgmma kernels (K4 and its backward's dk_dv and dq
+    at D = 64, 128, 256), K3's split_kv ring at every head dim in both
+    dtypes (held equal to the wrapper's ``ring_bytes``), K5's chunked kernel
+    and its backward's two variants, and how many of K3's
     clusters fit on the card at once at stablelm's and paligemma's decode
     shapes."""
     import ctypes
@@ -3366,10 +3482,10 @@ def build_report(_build):
     da = _build.load("decode_attention")
     wk = _build.load("wkv6_scan").repro_wkv6_scan_smem
     wkb = _build.load("wkv6_scan_bwd").repro_wkv6_scan_bwd_smem
-    for fn in (gg, wkb):
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    fab = _build.load("flash_attention_bwd").repro_flash_attention_bwd_smem
+    gg.argtypes, gg.restype = [], ctypes.c_int
     for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
-                  (da.repro_decode_attention_clusters, 4), (wk, 2)):
+                  (da.repro_decode_attention_clusters, 4), (wk, 2), (wkb, 1), (fab, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
     log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
         f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma "
@@ -3378,7 +3494,8 @@ def build_report(_build):
         + ", ".join(f"D={d} {t} {da.repro_decode_attention_smem(d, c)}"
                     for d in (64, 112, 128, 256) for t, c in (("f32", 0), ("bf16", 1)))
         + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes; wkv6_scan_bwd "
-        f"chunked {wkb()} bytes")
+        f"chunked {wkb(0)}, cluster (bf16) {wkb(1)} bytes; flash_attention_bwd wgmma dk_dv / dq "
+        + ", ".join(f"D={d} {fab(d, 0)} / {fab(d, 1)}" for d in (64, 128, 256)) + " bytes")
     import torch
 
     from repro_torch.kernels import decode_attention as dapy

@@ -43,9 +43,9 @@ SIGNATURES = {
         # scale, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention": (
-        # q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
+        # q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
         # dtype, variant, scale, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        [_P] * 5 + [_I] * 11 + [_F, _P], _I),
     "batched_gemm": (
         # x, w, out, R, M, N, K, dtype, variant, tile_rows, k_splits, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -53,17 +53,17 @@ SIGNATURES = {
         # x, w, tiles, out, n_tiles, T, G, N, K, dtype, variant, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "wkv6_scan": (
-        # r, k, v, w, u, s0, s_out, out, B, H, T, N, V, u_rows, strides,
+        # r, k, v, w, u, s0, s_out, ckpt, out, B, H, T, N, V, u_rows, strides,
         # dtype, w_f32, variant, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P], _I),
+        [_P] * 9 + [_I] * 6 + [_P] + [_I] * 3 + [_P], _I),
     "flash_attention_bwd": (
         # q, k, v, o, do, dq, dk, dv, lse, delta, B, Hq, Hkv, S, D, causal,
-        # window, dtype, scale, stream
-        [_P] * 10 + [_I] * 8 + [_F, _P], _I),
+        # window, dtype, variant, scale, stream
+        [_P] * 10 + [_I] * 9 + [_F, _P], _I),
     "wkv6_scan_bwd": (
         # r, k, v, w, u, do, dr, dk, dv, dw, du, ckpt, part, du_part, BH, T,
-        # u_rows, dtype, w_f32, stream
-        [_P] * 14 + [_I] * 5 + [_P], _I),
+        # u_rows, dtype, w_f32, variant, stream
+        [_P] * 14 + [_I] * 6 + [_P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

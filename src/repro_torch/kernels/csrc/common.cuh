@@ -80,6 +80,46 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
+// Four elements from shared memory (8- or 16-byte aligned), widened to float.
+template <typename E>
+__device__ __forceinline__ float4 lds4(const typename E::T* p) {
+  if constexpr (sizeof(typename E::T) == 2) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    return make_float4(E::widen(x.x & 0xffffu), __uint_as_float(x.x & 0xffff0000u),
+                       E::widen(x.y & 0xffffu), __uint_as_float(x.y & 0xffff0000u));
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+}
+
+// One halving step of a reduce-scatter: v[0..2W) -> v[0..W), exchanged with
+// lane ^ X; the lane with bit X set keeps the upper half.
+template <int W, int X, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool upper = lane & X;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float keep = upper ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, X);
+  }
+}
+template <int W, int R, int N>
+__device__ __forceinline__ void halve_down(float (&v)[N], int lane) {
+  if constexpr (W >= R) {
+    halve<W, W / R>(v, lane);
+    halve_down<W / 2, R>(v, lane);
+  }
+}
+
+// Sum v over aligned groups of LANES lanes: afterwards lane g of a group
+// holds, in v[0..R), the group's sums of v[R g .. R g + R), R = N / LANES.
+// Every index is a constant, so v stays in registers.
+template <int LANES, int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  halve_down<N / 2, N / LANES>(v, lane);
+}
+
 }  // namespace repro
 
 // Status codes the C entry points return besides cudaError_t values.

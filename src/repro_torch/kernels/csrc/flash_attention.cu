@@ -36,7 +36,10 @@
 //   K and V is 64 KB and Q 32 KB: ~161 KB of shared memory with 2 stages.
 //   That rounding of P to the value dtype is the Pallas kernel's own
 //   (flash_attention.py:70). Query tiles are launched latest first, so the
-//   longest causal rows start first.
+//   longest causal rows start first. Given an `lse` buffer (training), the
+//   epilogue also writes each row's log-sum-exp of its scaled visible
+//   scores, scale m + log l, which the backward's wgmma kernels read instead
+//   of recomputing it; serving passes none.
 // * CUDA cores (float32, and bf16 at D = 32 and 112, whose 64- and 224-byte
 //   rows are not whole 128-byte swizzle rows). Four threads share one query row, each
 //   holding a strided quarter of q and of the accumulator in registers;
@@ -177,8 +180,9 @@ constexpr int kRows = 64;            // query rows per block (one warpgroup)
 constexpr int kKeys = 64;            // keys per K/V tile
 constexpr int kStages = 2;
 constexpr int kThreads = 128 + 32;   // consumer warpgroup + producer warp
-constexpr int kBox = 64 * 64 * 2;    // one TMA box {64, 64, 1} of bf16
+constexpr int kBox = sm90::kBox;     // one TMA box {64, 64, 1} of bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -188,23 +192,6 @@ struct Smem {
   static constexpr int kBytes = kTile + kStages * kStage + (1 + 2 * kStages) * 8 +
                                 sm90::kAtomBytes;
 };
-
-// O (64 x D) += P (k16 slice kk, registers) V (slice kk of the tile at v_s).
-// D = 256 is two m64n128k16 products, V's boxes 0-1 into o[0..63] and boxes
-// 2-3 into o[64..127]: the accumulator of n128 covers columns 8j + ... in
-// d[4j + ...], so the two halves are laid out as one n256 accumulator.
-template <int D>
-__device__ __forceinline__ void mma_sv(float (&o)[D / 2], const uint32_t (&a)[4], const char* v_s,
-                                       int kk) {
-  if constexpr (D == 64) {
-    sm90::wgmma_m64n64k16_rs<1>(o, a, sm90::desc_mn_major(v_s, kk, kBox), 1);
-  } else {
-#pragma unroll
-    for (int h = 0; h < D / 128; ++h)
-      sm90::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
-                                   sm90::desc_mn_major(v_s + 2 * h * kBox, kk, kBox), 1);
-  }
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -219,8 +206,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-            const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ out, int Hq,
-            int Hkv, int Sq, int Skv, int causal, int window, int q_offset, float scale_log2) {
+            const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ out,
+            float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+            int q_offset, float scale_log2) {
   using S = tc::Smem<D>;
   extern __shared__ char smem_raw[];
   char* q_s = sm90::align_atom(smem_raw);
@@ -289,12 +277,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 
     float sc[32];  // S = Q K^T: rows r, r + 8 x this thread's 16 keys
     sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int box = (kk / 4) * tc::kBox;
-      sm90::wgmma_m64n64k16_ss<0>(sc, sm90::desc_k_major(q_s + box, kk % 4),
-                                  sm90::desc_k_major(k_s + box, kk % 4), kk > 0);
-    }
+    sm90::wgmma_abt<D>(sc, q_s, k_s);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
@@ -349,7 +332,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       for (int i = 0; i < 4; ++i) pa[kk][i] = sm90::pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::mma_sv<D>(o, pa[kk], v_s, kk);
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_acc_mn<D>(o, pa[kk], v_s, kk);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
@@ -362,6 +345,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
     const int qi = q0 + r + 8 * h;
     if (qi >= Sq) continue;
+    if (lse && lane % 4 == 0)  // natural log; +inf where no key is visible
+      lse[(long)bh * Sq + qi] =
+          lsum > 0.f ? (m[h] * scale_log2 + log2f(lsum)) * tc::kLn2 : __int_as_float(0x7f800000);
     uint16_t* row = out + ((long)bh * Sq + qi) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -371,9 +357,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-                 int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int Hq, int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
+                 float scale, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   const uint32_t box[3] = {64, 64, 1};
   const uint64_t q_dims[3] = {(uint64_t)D, (uint64_t)Sq, (uint64_t)B * Hq};
@@ -388,7 +374,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + tc::kRows - 1) / tc::kRows, B * Hq);
   flash_wgmma<D><<<grid, tc::kThreads, tc::Smem<D>::kBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<uint16_t*>(out), Hq, Hkv, Sq, Skv, causal, window,
+      q_map, k_map, v_map, static_cast<uint16_t*>(out), lse, Hq, Hkv, Sq, Skv, causal, window,
       q_offset, scale * tc::kLog2e);
   return (int)cudaGetLastError();
 }
@@ -398,27 +384,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
 extern "C" {
 
 // q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D), out (B,Hq,Sq,D); all contiguous, on
-// the current device, 16-byte aligned. dtype: 0 float32, 1 bfloat16.
-// variant: 0 CUDA cores, 1 wgmma (bf16 only). Returns 0, a cudaError_t, or
-// REPRO_BAD_ARGUMENT.
+// the current device, 16-byte aligned. lse (B,Hq,Sq) float32 or null: where
+// given, the wgmma kernel writes each row's log-sum-exp of its scaled
+// visible scores (+inf for a row with no visible key), what the backward's
+// wgmma kernels read; the CUDA-core kernel takes none. dtype: 0 float32, 1
+// bfloat16. variant: 0 CUDA cores, 1 wgmma (bf16 only). Returns 0, a
+// cudaError_t, or REPRO_BAD_ARGUMENT.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int B, int Hq, int Hkv, int Sq, int Skv,
+                          void* out, void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                           int D, int causal, int window, int q_offset,
                           int dtype, int variant, float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0 ||
       B * Hq > 65535)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_ = static_cast<float*>(lse);
   if (variant == 1) {
     if (dtype == 1 && D == 64)
-      return launch_wgmma<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+      return launch_wgmma<64>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
+                              scale, st);
     if (dtype == 1 && D == 128)
-      return launch_wgmma<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+      return launch_wgmma<128>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
+                               scale, st);
     if (dtype == 1 && D == 256)
-      return launch_wgmma<256>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+      return launch_wgmma<256>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
+                               scale, st);
     return REPRO_BAD_ARGUMENT;
   }
-  if (variant != 0) return REPRO_BAD_ARGUMENT;
+  if (variant != 0 || lse) return REPRO_BAD_ARGUMENT;
 #define REPRO_CUDA_CORE(BF16, DIM)                                                                \
   if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                        \
     return launch<BF16, DIM>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);

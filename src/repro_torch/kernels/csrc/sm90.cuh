@@ -218,6 +218,16 @@ __device__ __forceinline__ uint64_t desc_mn_major(const char* tile, int kk, uint
   return smem_desc(tile + 2048 * kk, box_bytes, kAtomBytes);
 }
 
+// The two halves of a thread-block cluster barrier: arrive releases this
+// thread's earlier memory operations to the cluster, wait acquires every
+// block's. Every thread of every block of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Order register and shared-memory writes before the next wgmma.
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -325,6 +335,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate),
         "n"(TRANS_B));
+}
+
+// Attention-shaped products over 64-row tiles of the head dim (boxes of
+// 64 x 64 bf16, kBox bytes, one after the other).
+constexpr int kBox = 64 * 64 * 2;
+
+// D (64 x 64, f32) = A B^T over K: A and B 64-row K-major tiles (S = Q K^T).
+template <int K>
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], const char* a, const char* b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const int box = (kk / 4) * kBox;
+    wgmma_m64n64k16_ss<0>(d, desc_k_major(a + box, kk % 4), desc_k_major(b + box, kk % 4), kk > 0);
+  }
+}
+
+// D (64 x N, f32) += A (k16 slice kk, registers) B (slice kk of a 64-row
+// MN-major tile N wide: O += P V). N = 64 is one m64n64k16; N = 128 or 256
+// is one m64n128k16 per 128 columns (boxes 2h, 2h + 1) into d[64h ..]: the
+// n128 accumulator holds columns 8j + ... in d[4j + ...], so the halves are
+// laid out as one N-wide accumulator.
+template <int N>
+__device__ __forceinline__ void wgmma_acc_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                             const char* b, int kk) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs<1>(d, a, desc_mn_major(b, kk, kBox), 1);
+  } else {
+#pragma unroll
+    for (int h = 0; h < N / 128; ++h)
+      wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(d + 64 * h), a,
+                             desc_mn_major(b + 2 * h * kBox, kk, kBox), 1);
+  }
 }
 
 }  // namespace sm90

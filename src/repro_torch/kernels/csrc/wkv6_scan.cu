@@ -45,13 +45,19 @@
 //     chunks ahead; r and k are read from the ring as stored;
 //   * rows past T are read as zeros, and their decay is set to 1, so they
 //     add nothing and decay nothing. Chunk boundaries fall at multiples of
-//     16 from the start of each call.
+//     16 from the start of each call;
+//   * given a `ckpt` buffer (training), warps 4-7 also write the state
+//     entering each chunk from their registers, float32 (B*H, ceil(T/16),
+//     64, 64): the backward's cluster kernel reads it instead of re-running
+//     the forward. Serving passes none and writes nothing more.
 #include "common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using repro::Elem;
+using repro::lds4;
+using repro::reduce_scatter;
 namespace sm90 = repro::sm90;
 
 constexpr int kN = 64;  // key dim (state rows) per head
@@ -224,34 +230,6 @@ struct Layout {
   static_assert(kRK % 128 == 0 && kWB % 128 == 0 && kVB % 128 == 0, "128-byte aligned tiles");
 };
 
-// One halving step of reduce_scatter: v[0..2W) -> v[0..W), exchanged with
-// the lane W / R away; the lane with that bit set keeps the upper half.
-template <int W, int R, int N>
-__device__ __forceinline__ void halve(float (&v)[N], int lane) {
-  const bool upper = lane & (W / R);
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? v[i] : v[i + W];
-    const float keep = upper ? v[i + W] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W / R);
-  }
-}
-template <int W, int R, int N>
-__device__ __forceinline__ void halve_down(float (&v)[N], int lane) {
-  if constexpr (W >= R) {
-    halve<W, R>(v, lane);
-    halve_down<W / 2, R>(v, lane);
-  }
-}
-
-// Sum v over aligned groups of LANES lanes: afterwards lane g of a group
-// holds, in v[0..R), the group's sums of v[R g .. R g + R), R = N / LANES.
-// Every index is a constant, so v stays in registers.
-template <int LANES, int N>
-__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
-  halve_down<N / 2, N / LANES>(v, lane);
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -259,18 +237,6 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
-
-// Four elements from shared memory (8- or 16-byte aligned), widened to float.
-template <typename E>
-__device__ __forceinline__ float4 lds4(const typename E::T* p) {
-  if constexpr (sizeof(typename E::T) == 2) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    return make_float4(E::widen(x.x & 0xffffu), __uint_as_float(x.x & 0xffff0000u),
-                       E::widen(x.y & 0xffffu), __uint_as_float(x.y & 0xffff0000u));
-  } else {
-    return *reinterpret_cast<const float4*>(p);
-  }
-}
 
 // Rows s = s0 + m (m = 0, 1; s0 = 4 wa + 2 hh) of A^T on half-warp hh of warp
 // wa (0-3), lane g over channels 4g .. 4g + 3: A[t][s] = sum_n r_tn k_sn
@@ -355,8 +321,8 @@ __global__ void __launch_bounds__(chk::kThreads)
 wkv6_chunked(const __grid_constant__ CUtensorMap r_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUtensorMap v_map,
              const float* __restrict__ u, const float* s0, float* s_out,
-             typename Elem<BF16>::T* __restrict__ out, Strides st, int H, int T,
-             int u_rows) {
+             float* __restrict__ ckpt, typename Elem<BF16>::T* __restrict__ out, Strides st,
+             int H, int T, int u_rows) {
   using namespace chk;
   using E = Elem<BF16>;
   using EW = Elem<BF16 && !WF32>;
@@ -463,6 +429,12 @@ wkv6_chunked(const __grid_constant__ CUtensorMap r_map, const __grid_constant__ 
       const float* At = hc + 2 * kC * kN;
       const float* Pc = At + kC * kC;
       const float* vf = Vf(co);
+      if (ckpt) {  // the state entering chunk co, for the backward
+        float* c = ckpt + (((long long)bh * n_chunks + co) * kN + 4 * g) * kV + v0 + col;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float2*>(c + i * kV) = make_float2(S[i][0], S[i][1]);
+      }
       float part[2 * kC];  // part[2t + jj]: row t, column col + jj, over this lane's rows
 #pragma unroll
       for (int t = 0; t < kC; ++t) {
@@ -536,8 +508,8 @@ int rows_map(CUtensorMap* map, const void* base, int B, int H, int T, const long
 
 template <bool BF16, bool WF32>
 int launch(int variant, const void* r, const void* k, const void* v, const void* w,
-           const float* u, const float* s0, float* s_out, void* out, int B, int H, int T,
-           int u_rows, const Strides& st, cudaStream_t stream) {
+           const float* u, const float* s0, float* s_out, float* ckpt, void* out, int B, int H,
+           int T, int u_rows, const Strides& st, cudaStream_t stream) {
   using T_ = typename Elem<BF16>::T;
   using TW = typename Elem<BF16 && !WF32>::T;
   T_* o = static_cast<T_*>(out);
@@ -563,7 +535,7 @@ int launch(int variant, const void* r, const void* k, const void* v, const void*
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B * H * (kV / chk::kVS), chk::kThreads, smem, stream>>>(
-      r_map, k_map, w_map, v_map, u, s0, s_out, o, st, H, T, u_rows);
+      r_map, k_map, w_map, v_map, u, s0, s_out, ckpt, o, st, H, T, u_rows);
   return (int)cudaGetLastError();
 }
 
@@ -576,29 +548,32 @@ extern "C" {
 // a contiguous last dim; the four inputs 16-byte aligned with strides that
 // are whole 16-byte vectors. u (u_rows, N) float32, row bh % u_rows for
 // head bh = b * H + h. s0 (B*H, N, V) float32 or null (zero state); s_out
-// (B*H, N, V) float32, the state after step T (may be s0). dtype: 0 float32,
-// 1 bfloat16 (r, k, v, out); w_f32: w is float32 (else r's dtype). variant:
-// 0 sequential, 1 chunked. N = V = 64. Returns 0, a cudaError_t, or
-// REPRO_BAD_ARGUMENT (also where the chunked kernel's tensor maps cannot be
-// made).
+// (B*H, N, V) float32, the state after step T (may be s0). ckpt (B*H,
+// ceil(T/16), N, V) float32 or null: where given, the chunked kernel writes
+// the state entering each 16-step chunk (what the backward's cluster kernel
+// reads); the sequential kernel takes none. dtype: 0 float32, 1 bfloat16 (r,
+// k, v, out); w_f32: w is float32 (else r's dtype). variant: 0 sequential, 1
+// chunked. N = V = 64. Returns 0, a cudaError_t, or REPRO_BAD_ARGUMENT (also
+// where the chunked kernel's tensor maps cannot be made).
 int repro_wkv6_scan(const void* r, const void* k, const void* v, const void* w,
-                    const float* u, const float* s0, float* s_out, void* out,
+                    const float* u, const float* s0, float* s_out, float* ckpt, void* out,
                     int B, int H, int T, int N, int V, int u_rows,
                     const long long* strides, int dtype, int w_f32, int variant,
                     void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || N != kN || V != kV || u_rows <= 0 ||
-      (B * H) % u_rows != 0 || !strides || (variant != kSequential && variant != kChunked))
+      (B * H) % u_rows != 0 || !strides || (variant != kSequential && variant != kChunked) ||
+      (ckpt && variant != kChunked))
     return REPRO_BAD_ARGUMENT;
   Strides st;
   for (int i = 0; i < 5; ++i)
     for (int j = 0; j < 3; ++j) st.s[i][j] = strides[3 * i + j];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && w_f32 == 1)
-    return launch<false, false>(variant, r, k, v, w, u, s0, s_out, out, B, H, T, u_rows, st, s);
+    return launch<false, false>(variant, r, k, v, w, u, s0, s_out, ckpt, out, B, H, T, u_rows, st, s);
   if (dtype == 1 && w_f32 == 0)
-    return launch<true, false>(variant, r, k, v, w, u, s0, s_out, out, B, H, T, u_rows, st, s);
+    return launch<true, false>(variant, r, k, v, w, u, s0, s_out, ckpt, out, B, H, T, u_rows, st, s);
   if (dtype == 1 && w_f32 == 1)
-    return launch<true, true>(variant, r, k, v, w, u, s0, s_out, out, B, H, T, u_rows, st, s);
+    return launch<true, true>(variant, r, k, v, w, u, s0, s_out, ckpt, out, B, H, T, u_rows, st, s);
   return REPRO_BAD_ARGUMENT;
 }
 

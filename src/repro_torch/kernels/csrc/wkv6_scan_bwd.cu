@@ -14,34 +14,65 @@
 //   du[i]   = sum_t r_t[i] k_t[i] (v_t . do_t)
 //
 // The reverse pass needs S_{t-1}, which cannot be had by dividing S_t by
-// d_t: d_t underflows to 0 under strong decay (w >~ 4.5). So the kernel
-// first runs the recurrence forward from zero and stores a float32
-// checkpoint of the state at every chunk boundary (CH = 16 steps), then
-// walks the chunks backwards: it recomputes a chunk's 16 states from its
-// checkpoint into shared memory, runs the chunk's 16 steps of G backwards
-// (G stays in registers from chunk to chunk) into shared memory beside
-// them, and then forms every output of the chunk from the two, all in
-// parallel. All arithmetic is float32 on the CUDA cores.
+// d_t: d_t underflows to 0 under strong decay (w >~ 4.5). So it starts from
+// float32 states at every chunk boundary (CH = 16 steps), recomputes a
+// chunk's 16 states from its boundary state, and walks the chunk's steps
+// of G backwards (G carried from chunk to chunk). All arithmetic is float32
+// on the CUDA cores; nothing divides by a decay. Heads are N = V = 64
+// (smaller heads come zero-padded by the wrapper); a head's 64 value
+// columns are four 16-column slices, one block each. dv and the row sums
+// stay inside a block; dr, dk, dw and du sum over all V columns, i.e. over
+// the four slices. Steps past T read as r = k = v = do = 0: they add
+// nothing to G or to any output, and their own outputs are not written.
 //
-// Heads are N = V = 64 (smaller heads come zero-padded by the wrapper).
-// One block of 256 threads per (b*h, 16 value columns): a chunk's states
-// and their gradients for one 16-column slice are 2 x 16 x 64 x 16 floats
-// (rows padded to 17 against bank conflicts: 139 KB of dynamic shared
-// memory), and 4 blocks a head. dv and du's row sums stay inside a block;
-// dr, dk and dw sum over all V columns, so each block writes its slice's
-// float32 partial and a second kernel sums the 4 partials in slice order
-// (no atomics: the same bits every run), casting to the inputs' dtypes,
-// and sums du over the batch rows that share u's row.
+// What bounds it on an H100: the chain of dependent steps and instruction
+// issue, not bytes or operations (~14 N V flops a step per head, counted
+// from the formulas in chip_smoke.py). Two variants, picked by the wrapper:
 //
-// What bounds it on an H100: the chain of dependent steps and shared-memory
-// traffic, not bytes or operations (~14 N V flops a step per head, counted
-// from the formulas in chip_smoke.py). Steps past T read as r = k = v = do
-// = 0 and d = 1: they add nothing and decay nothing.
+// * cluster: the forward (wkv6_scan.cu's chunked kernel) saved the state
+//   entering each chunk, so no forward re-run. The four slice blocks of a
+//   head form a thread-block cluster (rank = slice). Thread (i, c) of 256
+//   holds state row i, columns 4c .. 4c + 3 of its slice: a chunk's 16
+//   states S_{t-1} of those 4 elements stay in its registers (recomputed
+//   from the saved state, 4 FMAs a step), and so does G. A chunk's row
+//   terms d, -exp(w) d, r and k are widened into shared memory once (not
+//   by each of a row's 4 lanes, twice). Walking the chunk backwards, each
+//   step's dr, dk, dw partials over the thread's 4 columns are summed over
+//   the row's 4 lanes (a 3-shuffle reduce-scatter: lanes 0-2 each end with
+//   one of the three) and dv's over the warp's 8 rows (4 shuffles), then
+//   over the 8 warps in shared memory. Rank q then sums a quarter of the
+//   chunk's 3 x 16 x 64 dr, dk, dw partials of all four slices in rank
+//   (slice) order through distributed shared memory and stores them. The
+//   partials are double buffered, so one cluster barrier a chunk suffices,
+//   and its arrive and wait are split around the dv stores. du's slice
+//   partials are summed the same way at the end. r, k, w and the slice's
+//   v, do of each chunk come by TMA into a 3-stage ring, two chunks ahead,
+//   the next chunk's saved state by a register prefetch. ~70 KB of shared
+//   memory (bf16) and at most 128 registers a thread, so two blocks fit an
+//   SM. A second kernel sums du over the heads that share u's row.
+// * chunked (the first version, kept as the prior): the block first runs the
+//   recurrence forward from zero to write its own float32 checkpoint of the
+//   state at every chunk boundary, then walks the chunks backwards: it
+//   recomputes a chunk's 16 states from its checkpoint into shared memory,
+//   runs the chunk's 16 steps of G backwards into shared memory beside them,
+//   and then forms every output of the chunk from the two, all in parallel.
+//   One block of 256 threads per (b*h, 16 value columns): a chunk's states
+//   and their gradients for one slice are 2 x 16 x 64 x 16 floats (rows
+//   padded to 17 against bank conflicts: 139 KB of dynamic shared memory).
+//   dr, dk and dw go out as each slice's float32 partials and a second
+//   kernel sums the 4 partials in slice order (no atomics: the same bits
+//   every run), casting to the inputs' dtypes, and sums du over the batch
+//   rows that share u's row.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using repro::Elem;
+namespace cg = cooperative_groups;
+namespace sm90 = repro::sm90;
 
 constexpr int kN = 64;                 // key dim (state rows)
 constexpr int kV = 64;                 // value dim (state columns)
@@ -297,22 +328,314 @@ int launch(const void* r, const void* k, const void* v, const void* w, const flo
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------ cluster
+namespace cl {
+constexpr int kStages = 3;  // a chunk's stage is refilled two chunks later
+constexpr int kWarps = kThreads / 32;
+static_assert(kThreads == kN * 4 && kVS == 16, "thread (row i, 4 of the slice's 16 columns)");
+
+template <bool BF16, bool WBF16>
+struct Layout {
+  static constexpr int kRK = kCH * kN * sizeof(typename Elem<BF16>::T);    // r or k tile
+  static constexpr int kWB = kCH * kN * sizeof(typename Elem<WBF16>::T);   // w tile
+  static constexpr int kVB = kCH * kVS * sizeof(typename Elem<BF16>::T);   // v or do slice
+  static constexpr int kStage = 2 * kRK + kWB + 2 * kVB;
+  static constexpr int kPart = 3 * kCH * kN;  // dr, dk, dw partials [3][kCH][kN]
+  // after the ring: part[2] (double buffered), dv partials [kCH][kWarps][kVS],
+  // ruk [kCH], v.do [kCH], du [kN], u [kN], and the chunk's d, -exp(w) d, r,
+  // k [kCH][kN] in float32
+  static constexpr int kFloats = 2 * kPart + kCH * kWarps * kVS + 2 * kCH + 2 * kN + 4 * kCH * kN;
+  static constexpr int kSmem = 128 + kStages * kStage + 4 * kFloats;  // + alignment slack
+  static_assert(kRK % 128 == 0 && kWB % 128 == 0 && kVB % 128 == 0, "128-byte aligned tiles");
+};
+}  // namespace cl
+
+// One cluster of 4 blocks per head (rank = value slice). r, k, w, v and do
+// come through 3-D tensor maps over (X, T, BH), boxes (X or 16, 16, 1).
+template <bool BF16, bool WBF16>
+__cluster_dims__(kSlices, 1, 1) __global__ void __launch_bounds__(kThreads, 2)
+wkv6_bwd_cluster(const __grid_constant__ CUtensorMap r_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ u,
+                 const float* __restrict__ ckpt, typename Elem<BF16>::T* __restrict__ dr,
+                 typename Elem<BF16>::T* __restrict__ dk, typename Elem<BF16>::T* __restrict__ dv,
+                 typename Elem<WBF16>::T* __restrict__ dw, float* __restrict__ du_part, int T,
+                 int u_rows) {
+  using E = Elem<BF16>;
+  using EW = Elem<WBF16>;
+  using L = cl::Layout<BF16, WBF16>;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring0 = smem_raw + (128 - sm90::smem_addr(smem_raw) % 128) % 128;  // TMA: 128-B
+  float* part = reinterpret_cast<float*>(ring0 + cl::kStages * L::kStage);
+  float* dvp = part + 2 * L::kPart;
+  float* ruk = dvp + kCH * cl::kWarps * kVS;
+  float* vdo = ruk + kCH;
+  float* du_s = vdo + kCH;
+  float* u_s = du_s + kN;
+  float* d_s = u_s + kN;        // [kCH][kN] d_t
+  float* ed_s = d_s + kCH * kN;  // -exp(w_t) d_t
+  float* r_s = ed_s + kCH * kN;
+  float* k_s = r_s + kCH * kN;
+  __shared__ uint64_t full[cl::kStages];
+
+  const int slice = (int)cluster.block_rank();
+  const int bh = blockIdx.x / kSlices;
+  const int v0 = slice * kVS;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int i = tid / 4;   // state row
+  const int q = tid % 4;   // columns 4q .. 4q + 3 of the slice
+  const int n_chunks = (T + kCH - 1) / kCH;
+
+  auto ring = [&](int it) { return ring0 + (it % cl::kStages) * L::kStage; };
+  // The it-th chunk walked (c = n_chunks - 1 - it) into its ring stage.
+  auto load = [&](int it) {
+    if (tid != 0) return;
+    const int t0 = (n_chunks - 1 - it) * kCH;
+    uint64_t* bar = &full[it % cl::kStages];
+    unsigned char* p = ring(it);
+    sm90::mbar_arrive_expect_tx(bar, L::kStage);
+    sm90::tma_load_3d(p, &r_map, bar, 0, t0, bh);
+    sm90::tma_load_3d(p + L::kRK, &k_map, bar, 0, t0, bh);
+    sm90::tma_load_3d(p + 2 * L::kRK, &w_map, bar, 0, t0, bh);
+    sm90::tma_load_3d(p + 2 * L::kRK + L::kWB, &v_map, bar, v0, t0, bh);
+    sm90::tma_load_3d(p + 2 * L::kRK + L::kWB + L::kVB, &do_map, bar, v0, t0, bh);
+  };
+  if (tid < cl::kStages) sm90::mbar_init(&full[tid], 1);
+  sm90::mbar_fence_init();
+  if (tid < kN) u_s[tid] = u[(long)(bh % u_rows) * kN + tid];
+  __syncthreads();
+  for (int it = 0; it < cl::kStages - 1 && it < n_chunks; ++it) load(it);
+
+  const float ui = u_s[i];
+  const float* peer[kSlices];  // every slice's partials, in rank order
+#pragma unroll
+  for (int r = 0; r < kSlices; ++r) peer[r] = cluster.map_shared_rank(part, r);
+  const float* ck = ckpt + (long)bh * n_chunks * kN * kV + (long)i * kV + v0 + 4 * q;
+  float4 s_next = *reinterpret_cast<const float4*>(ck + (long)(n_chunks - 1) * kN * kV);
+  float G[4] = {0.f, 0.f, 0.f, 0.f};  // dL/dS_t at row i, this thread's columns
+  float du_acc = 0.f;                 // lane q == 3: row i's du over this slice's v.do
+
+  for (int it = 0; it < n_chunks; ++it) {
+    const int c = n_chunks - 1 - it;
+    const int t0 = c * kCH;
+    __syncthreads();  // iteration it - 1 is done with its ring stage, dvp, ruk and vdo
+    if (it + cl::kStages - 1 < n_chunks) load(it + cl::kStages - 1);
+    const float4 s_cur = s_next;
+    if (c > 0) s_next = *reinterpret_cast<const float4*>(ck + (long)(c - 1) * kN * kV);
+    sm90::mbar_wait(&full[it % cl::kStages], (it / cl::kStages) & 1);
+    const unsigned char* p = ring(it);
+    const auto* rr = reinterpret_cast<const typename E::T*>(p);
+    const auto* kr = reinterpret_cast<const typename E::T*>(p + L::kRK);
+    const auto* wr = reinterpret_cast<const typename EW::T*>(p + 2 * L::kRK);
+    const auto* vr = reinterpret_cast<const typename E::T*>(p + 2 * L::kRK + L::kWB);
+    const auto* dor = reinterpret_cast<const typename E::T*>(p + 2 * L::kRK + L::kWB + L::kVB);
+
+#pragma unroll
+    for (int m = 0; m < kCH * kN / kThreads; ++m) {  // the chunk's row terms, once
+      const int e = m * kThreads + tid;
+      const float ew = expf(EW::load(wr, e));
+      const float d = expf(-ew);
+      d_s[e] = d;
+      ed_s[e] = -ew * d;
+      r_s[e] = E::load(rr, e);
+      k_s[e] = E::load(kr, e);
+    }
+    {  // half-warp per step: v.do over the slice's columns, sum_n r u k over the rows
+      const int t = 2 * warp + lane / 16;
+      const int j = lane % 16;
+      float a = E::load(vr, t * kVS + j) * E::load(dor, t * kVS + j);
+      float b = 0.f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int n = j + 16 * m;
+        b = fmaf(E::load(rr, t * kN + n) * u_s[n], E::load(kr, t * kN + n), b);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+      }
+      if (j == 0) {
+        vdo[t] = a;
+        ruk[t] = b;
+      }
+    }
+
+    __syncthreads();  // the row terms, vdo, ruk
+
+    // this chunk's states S_{t0 + t - 1}, from the one saved at its start
+    float Sv[kCH][4];
+    {
+      float sc[4] = {s_cur.x, s_cur.y, s_cur.z, s_cur.w};
+#pragma unroll
+      for (int t = 0; t < kCH; ++t) {
+        const float d = d_s[t * kN + i];
+        const float kt = k_s[t * kN + i];
+        const float4 v4 = repro::lds4<E>(vr + t * kVS + 4 * q);
+        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          Sv[t][e] = sc[e];
+          sc[e] = fmaf(d, sc[e], kt * vv[e]);
+        }
+      }
+    }
+    float* pb = part + (it % 2) * L::kPart;
+#pragma unroll
+    for (int t = kCH - 1; t >= 0; --t) {
+      const float d = d_s[t * kN + i];
+      const float ed = ed_s[t * kN + i];
+      const float rt = r_s[t * kN + i];
+      const float kt = k_s[t * kN + i];
+      const float4 v4 = repro::lds4<E>(vr + t * kVS + 4 * q);
+      const float4 o4 = repro::lds4<E>(dor + t * kVS + 4 * q);
+      const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+      const float oo[4] = {o4.x, o4.y, o4.z, o4.w};
+      float x[4] = {0.f, 0.f, 0.f, 0.f};  // S.do, G.v, G.S over this thread's columns
+      float y[4];                         // G k, a column each
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[0] = fmaf(Sv[t][e], oo[e], x[0]);
+        x[1] = fmaf(G[e], vv[e], x[1]);
+        x[2] = fmaf(G[e], Sv[t][e], x[2]);
+        y[e] = G[e] * kt;
+        G[e] = fmaf(d, G[e], rt * oo[e]);  // G_{t-1}
+      }
+      repro::reduce_scatter<4>(x, lane);  // lane q: x[0] = the row's sum of x[q]
+      repro::halve<2, 8>(y, lane);        // over the warp's 8 rows (lane bits 2-4):
+      repro::halve<1, 4>(y, lane);        // y[0] is column 4q + (lane / 4) % 4
+      y[0] += __shfl_xor_sync(0xffffffffu, y[0], 16);
+      if (lane < 16) dvp[(t * cl::kWarps + warp) * kVS + 4 * q + lane / 4] = y[0];
+      const float vd = vdo[t];
+      // lane q: 0 dr, 1 dk (each with the slice's share of the bonus term), 2 dw
+      const float val = q == 2 ? ed * x[0] : fmaf(ui * (q == 0 ? kt : rt), vd, x[0]);
+      if (q < 3) pb[(q * kCH + t) * kN + i] = val;
+      du_acc = fmaf(rt * kt, vd, du_acc);  // kept by lane q == 3
+    }
+    __syncthreads();        // this block's dv partials
+    sm90::cluster_arrive();  // release this slice's partials to the other ranks
+
+    {  // dv: one (step, column) a thread, the warps in order
+      const int t = tid / kVS;
+      const int j = tid % kVS;
+      float a = ruk[t] * E::load(dor, t * kVS + j);
+#pragma unroll
+      for (int w = 0; w < cl::kWarps; ++w) a += dvp[(t * cl::kWarps + w) * kVS + j];
+      if (t0 + t < T) E::store(dv, ((long)bh * T + t0 + t) * kV + v0 + j, a);
+    }
+    sm90::cluster_wait();  // every slice's partials are in place
+    // dr, dk, dw: this rank's quarter of the chunk's sums, slices added in order
+    constexpr int kMine = L::kPart / kSlices / kThreads;  // 3 a thread
+    float a[kMine];
+#pragma unroll
+    for (int m = 0; m < kMine; ++m) {
+      const int e = (it % 2) * L::kPart + slice * (L::kPart / kSlices) + m * kThreads + tid;
+      a[m] = 0.f;
+#pragma unroll
+      for (int r = 0; r < kSlices; ++r) a[m] += peer[r][e];
+    }
+#pragma unroll
+    for (int m = 0; m < kMine; ++m) {
+      const int e = slice * (L::kPart / kSlices) + m * kThreads + tid;
+      const int kind = e / (kCH * kN);
+      const int t = (e / kN) % kCH;
+      if (t0 + t >= T) continue;
+      const long at = ((long)bh * T + t0 + t) * kN + e % kN;
+      if (kind == 0) E::store(dr, at, a[m]);
+      else if (kind == 1) E::store(dk, at, a[m]);
+      else EW::store(dw, at, a[m]);
+    }
+  }
+  if (q == 3) du_s[i] = du_acc;
+  cluster.sync();
+  if (tid < kN / kSlices) {
+    const int n = slice * (kN / kSlices) + tid;
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSlices; ++r) a += cluster.map_shared_rank(du_s, r)[n];
+    du_part[(long)bh * kN + n] = a;
+  }
+  cluster.sync();  // no block leaves while another may still read its shared memory
+}
+
+// du: the heads' sums, over the heads that share u's row, in head order.
+__global__ void __launch_bounds__(kThreads)
+wkv6_bwd_du(const float* __restrict__ du_part, float* __restrict__ du, int BH, int u_rows) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= u_rows * kN) return;
+  float a = 0.f;
+  for (int bh = e / kN; bh < BH; bh += u_rows) a += du_part[(long)bh * kN + e % kN];
+  du[e] = a;
+}
+
+// A tensor map over a contiguous (BH, T, X) input, read as (X, T, BH)
+// innermost first, box (box0, 16, 1), no swizzle; rows past T read zeros.
+template <typename TT>
+int tile_map(CUtensorMap* map, const void* base, int BH, int T, int X, int box0) {
+  sm90::EncodeTiledFn encode = sm90::encode_tiled_fn();
+  if (encode == nullptr) return -1;
+  const uint64_t es = sizeof(TT);
+  cuuint64_t dims[3] = {(cuuint64_t)X, (cuuint64_t)T, (cuuint64_t)BH};
+  cuuint64_t strides[2] = {X * es, (cuuint64_t)T * X * es};
+  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)kCH, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = encode(map, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      3, const_cast<void*>(base), dims, strides, box, estr,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1;
+}
+
+template <bool BF16, bool WBF16>
+int launch_cluster(const void* r, const void* k, const void* v, const void* w, const float* u,
+                   const void* dout, void* dr, void* dk, void* dv, void* dw, float* du,
+                   const float* ckpt, float* du_part, int BH, int T, int u_rows, cudaStream_t st) {
+  using T_ = typename Elem<BF16>::T;
+  using TW = typename Elem<WBF16>::T;
+  CUtensorMap r_map, k_map, w_map, v_map, do_map;
+  if (tile_map<T_>(&r_map, r, BH, T, kN, kN) != 0 || tile_map<T_>(&k_map, k, BH, T, kN, kN) != 0 ||
+      tile_map<TW>(&w_map, w, BH, T, kN, kN) != 0 || tile_map<T_>(&v_map, v, BH, T, kV, kVS) != 0 ||
+      tile_map<T_>(&do_map, dout, BH, T, kV, kVS) != 0)
+    return REPRO_BAD_ARGUMENT;
+  auto kernel = wkv6_bwd_cluster<BF16, WBF16>;
+  const int smem = cl::Layout<BF16, WBF16>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<BH * kSlices, kThreads, smem, st>>>(
+      r_map, k_map, w_map, v_map, do_map, u, ckpt, static_cast<T_*>(dr), static_cast<T_*>(dk),
+      static_cast<T_*>(dv), static_cast<TW*>(dw), du_part, T, u_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wkv6_bwd_du<<<(u_rows * kN + kThreads - 1) / kThreads, kThreads, 0, st>>>(du_part, du, BH,
+                                                                            u_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // r, k, w, dr, dk, dw (BH, T, 64); v, do, dv (BH, T, 64); u, du (u_rows,
-// 64) float32, row bh of the heads taking u's row bh % u_rows; scratch:
-// ckpt (BH, ceil(T/16), 64, 64), part (3, 4, BH, T, 64) and du_part (BH,
-// 4, 64), float32. All contiguous, on the current device. dtype: 0
-// float32, 1 bfloat16 (r, k, v, do and their gradients); w_f32: w and dw
-// are float32 (else of dtype). Returns 0, a cudaError_t, or
-// REPRO_BAD_ARGUMENT.
+// 64) float32, row bh of the heads taking u's row bh % u_rows; ckpt (BH,
+// ceil(T/16), 64, 64) float32. variant 1 (cluster): ckpt holds the
+// forward's state entering each chunk; du_part (BH, 64) float32 scratch;
+// part unused. variant 0 (chunked): ckpt, part (3, 4, BH, T, 64) and
+// du_part (BH, 4, 64) float32 scratch. All contiguous, on the current
+// device, 16-byte aligned. dtype: 0 float32, 1 bfloat16 (r, k, v, do and
+// their gradients); w_f32: w and dw are float32 (else of dtype). Returns 0,
+// a cudaError_t, or REPRO_BAD_ARGUMENT.
 int repro_wkv6_scan_bwd(const void* r, const void* k, const void* v, const void* w,
                         const void* u, const void* dout, void* dr, void* dk, void* dv, void* dw,
                         void* du, void* ckpt, void* part, void* du_part, int BH, int T,
-                        int u_rows, int dtype, int w_f32, void* stream) {
-  if (BH <= 0 || BH > 65535 || T <= 0 || u_rows <= 0 || BH % u_rows != 0)
+                        int u_rows, int dtype, int w_f32, int variant, void* stream) {
+  if (BH <= 0 || BH > 65535 || T <= 0 || u_rows <= 0 || BH % u_rows != 0 ||
+      (variant != 0 && variant != 1))
     return REPRO_BAD_ARGUMENT;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* u_ = static_cast<const float*>(u);
@@ -320,6 +643,18 @@ int repro_wkv6_scan_bwd(const void* r, const void* k, const void* v, const void*
   float* ck = static_cast<float*>(ckpt);
   float* pa = static_cast<float*>(part);
   float* dp = static_cast<float*>(du_part);
+  if (variant == 1) {
+    if (dtype == 0 && w_f32)
+      return launch_cluster<false, false>(r, k, v, w, u_, dout, dr, dk, dv, dw, du_, ck, dp, BH,
+                                          T, u_rows, st);
+    if (dtype == 1 && !w_f32)
+      return launch_cluster<true, true>(r, k, v, w, u_, dout, dr, dk, dv, dw, du_, ck, dp, BH, T,
+                                        u_rows, st);
+    if (dtype == 1 && w_f32)
+      return launch_cluster<true, false>(r, k, v, w, u_, dout, dr, dk, dv, dw, du_, ck, dp, BH,
+                                         T, u_rows, st);
+    return REPRO_BAD_ARGUMENT;
+  }
   if (dtype == 0 && w_f32)
     return launch<false, false>(r, k, v, w, u_, dout, dr, dk, dv, dw, du_, ck, pa, dp, BH, T,
                                 u_rows, st);
@@ -332,8 +667,11 @@ int repro_wkv6_scan_bwd(const void* r, const void* k, const void* v, const void*
   return REPRO_BAD_ARGUMENT;
 }
 
-// Dynamic shared memory of the chunked backward kernel, in bytes.
-int repro_wkv6_scan_bwd_smem() { return Smem::kBytes; }
+// Dynamic shared memory of the backward kernel, in bytes: variant 0 chunked,
+// 1 cluster (bf16 inputs, bf16 w).
+int repro_wkv6_scan_bwd_smem(int variant) {
+  return variant ? cl::Layout<true, true>::kSmem : Smem::kBytes;
+}
 
 const char* repro_wkv6_scan_bwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

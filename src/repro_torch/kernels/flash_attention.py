@@ -12,8 +12,12 @@ TMA) or the CUDA-core kernel (float32, and bf16 at D = 32 and 112).
 ``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``: the
 gradient of K4 for training (queries and keys both at positions 0..S-1),
 which ``ops.flash_attention`` launches from the backward of its autograd
-route. Its plain version is ``ref.attention_bwd``; it counts its launches
-in ``bwd_counter`` by ``bwd_variant``.
+route. ``bwd_variant`` picks its kernel by the same rule: the bf16
+tensor-core kernel, which reads each row's log-sum-exp that the forward's
+wgmma kernel wrote into an ``lse`` buffer (``ref.attention_lse`` is its
+plain version), or the CUDA-core kernel, which recomputes it. Its plain
+version is ``ref.attention_bwd``; it counts its launches in
+``bwd_counter`` by variant.
 """
 
 from __future__ import annotations
@@ -51,13 +55,18 @@ def flash_attention(
     logit_softcap: float = 0.0,
     q_offset: Optional[int] = None,
     kernel: Optional[str] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
 
     Launches a CUDA kernel on the tensors' card: ``variant(dtype, D)``'s,
     or ``kernel`` where given (how ``chip_smoke.py`` times the CUDA-core
     kernel on bf16); raises on anything the kernel does not take (device,
-    dtype, layout, head dim, softcap).
+    dtype, layout, head dim, softcap). ``lse``, a contiguous float32
+    (B,Hq,Sq) buffer, is filled with each row's log-sum-exp of its scaled
+    visible scores (+inf where none is visible) as ``ref.attention_lse``
+    gives it; only the wgmma kernel writes one (training's autograd route
+    passes it, serving none).
     """
     _build.check_device(q)
     if logit_softcap != 0.0:
@@ -80,6 +89,10 @@ def flash_attention(
     kind = kernel or variant(q.dtype, D)
     if kind not in _build.VARIANT_CODES or (kind == "wgmma" and variant(q.dtype, D) != "wgmma"):
         raise ValueError(f"flash_attention: variant {kind!r} does not take {q.dtype} D={D}")
+    if lse is not None:
+        if kind != "wgmma":
+            raise ValueError(f"flash_attention: the {kind} kernel writes no lse")
+        _stats(lse, (B, Hq, Sq), q.device, "lse")
     out = torch.empty_like(q)
     if Sq == 0 or Skv == 0:
         return out.zero_()
@@ -89,23 +102,31 @@ def flash_attention(
     with torch.cuda.device(q.device):
         status = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, int(bool(causal)), int(window), q_offset,
-            _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[kind], float(scale),
-            _build.stream_of(q))
+            None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+            int(bool(causal)), int(window), q_offset, _build.DTYPE_CODES[q.dtype],
+            _build.VARIANT_CODES[kind], float(scale), _build.stream_of(q))
     _build.check_status(lib, "flash_attention", status)
     counter.launched(kind)
     return out
+
+
+def _stats(t: torch.Tensor, shape, device, what: str) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+            or t.device != device:
+        raise ValueError(f"flash_attention: {what} must be a contiguous float32 tensor of shape "
+                         f"{tuple(shape)} on {device}, got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
 bwd_counter = _build.OpCounter()
 
 
 def bwd_variant(dtype: torch.dtype, D: int) -> str:
-    """The backward kernel for ``dtype`` at head dim ``D``: the CUDA-core
-    kernel (float32 arithmetic) for every dtype and head dim the forward
-    takes."""
-    del dtype, D
-    return "cuda_core"
+    """The backward kernel for ``dtype`` at head dim ``D``, by the
+    forward's rule: wgmma (bf16 tensor cores, reading the forward's
+    ``lse``) for bf16 at D = 64, 128 and 256; the CUDA-core kernel (float32
+    arithmetic, its own row pass) for float32 and for bf16 at D = 32 and
+    112."""
+    return variant(dtype, D)
 
 
 def check_bwd(q: torch.Tensor, k: torch.Tensor, *, q_offset: Optional[int] = None) -> None:
@@ -132,16 +153,22 @@ def flash_attention_bwd(
     o: torch.Tensor,
     do: torch.Tensor,
     *,
+    lse: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: int = 0,
     scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` (Sq == Skv, q_offset 0)
     given its output ``o`` and the output's gradient ``do``, in the inputs'
-    dtype. Launches ``csrc/flash_attention_bwd.cu`` on the tensors' card (a
-    row pass for each query's log-sum-exp and rowsum(dO o O), then a dK/dV
-    and a dQ kernel); raises on anything it does not take. ``do`` may be
-    strided (autograd hands it over as the next op produced it): it is made
+    dtype. Launches ``csrc/flash_attention_bwd.cu`` on the tensors' card:
+    ``bwd_variant``'s kernels, or ``kernel``'s where given (how
+    ``chip_smoke.py`` times the CUDA-core kernel on bf16). The wgmma
+    kernels read ``lse``, the forward's (B,Hq,S) float32 log-sum-exp of
+    each row, and compute rowsum(dO o O), dK/dV and dQ; the CUDA-core
+    kernels recompute the log-sum-exp in a row pass and take no ``lse``.
+    Raises on anything the kernel does not take. ``do`` may be strided
+    (autograd hands it over as the next op produced it): it is made
     contiguous here."""
     _build.check_device(q)
     check_bwd(q, k)
@@ -156,12 +183,19 @@ def flash_attention_bwd(
         _build.check_tensor(t, what, q.dtype)
         if t.device != q.device:
             raise ValueError("flash_attention_bwd: all tensors must be on one device")
-    kind = bwd_variant(q.dtype, D)
+    kind = kernel or bwd_variant(q.dtype, D)
+    if kind not in _build.VARIANT_CODES or (kind == "wgmma" and bwd_variant(q.dtype, D) != kind):
+        raise ValueError(f"flash_attention_bwd: variant {kind!r} does not take {q.dtype} D={D}")
+    if kind == "wgmma":
+        if lse is None:
+            raise ValueError("flash_attention_bwd: the wgmma kernel needs the forward's lse")
+        _stats(lse, (B, Hq, S), q.device, "lse")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if S == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    if kind == "cuda_core":  # scratch for its row pass
+        lse = torch.empty_like(delta)
     scale = scale if scale is not None else D ** -0.5
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
@@ -169,7 +203,7 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             B, Hq, Hkv, S, D, int(bool(causal)), int(window), _build.DTYPE_CODES[q.dtype],
-            float(scale), _build.stream_of(q))
+            _build.VARIANT_CODES[kind], float(scale), _build.stream_of(q))
     _build.check_status(lib, "flash_attention_bwd", status)
     bwd_counter.launched(kind)
     return dq, dk, dv

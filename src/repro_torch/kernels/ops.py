@@ -18,9 +18,13 @@ launches the same K4 or K5 kernel and whose backward launches the op's
 backward kernel (``flash_attention_bwd``, ``wkv6_scan_bwd``; counted under
 ``COUNTERS["flash_attention_bwd"]`` and ``["wkv6_scan_bwd"]``). The route
 is decided before any launch: a call the backward kernel does not take
-raises there, never drops to the plain version. Otherwise the forward
-kernel is launched directly, as for serving. On the CPU autograd
-differentiates the plain versions.
+raises there, never drops to the plain version. On that route the forward
+also hands its backward what it already computes: K4's wgmma kernel each
+row's log-sum-exp (``lse``, when ``flash_attention.bwd_variant`` picks the
+wgmma backward), K5's chunked kernel the state entering each 16-step chunk
+(``ckpt``); both are saved for the backward. Otherwise the forward kernel
+is launched directly, as for serving, and writes neither. On the CPU
+autograd differentiates the plain versions.
 """
 
 from __future__ import annotations
@@ -57,37 +61,47 @@ def _grad_needed(*ts: torch.Tensor) -> bool:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward, K4's backward kernel for the gradient (Sq == Skv, q_offset 0)."""
+    """K4 forward, K4's backward kernel for the gradient (Sq == Skv, q_offset
+    0); the forward's row log-sum-exp saved where the backward reads it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=0)
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if _fa.bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        o = _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=0,
+                                lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, scale=scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, do, **ctx.opts)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **ctx.opts)
         return dq, dk, dv, None, None, None
 
 
 class _WKV6Scan(torch.autograd.Function):
     """K5 forward from a zero state, its backward kernel for the gradient;
-    the final state is returned but carries no gradient."""
+    the final state is returned but carries no gradient. The forward's
+    chunk-entry states are saved for the backward."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
-        out, state = _wkv.wkv6_scan(r, k, v, w, u)
-        ctx.save_for_backward(r, k, v, w, u)
+        T, N = r.shape[-2:]
+        shape = _wkv.chunk_states_shape(r.shape[:-2].numel(), T, N, v.shape[-1])
+        ckpt = torch.empty(shape, dtype=torch.float32, device=r.device)
+        out, state = _wkv.wkv6_scan(r, k, v, w, u, ckpt=ckpt)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
         ctx.mark_non_differentiable(state)
         return out, state
 
     @staticmethod
     def backward(ctx, dout, dstate):
         del dstate  # training keeps no state: nothing flows back through it
-        return _wkv.wkv6_scan_bwd(*ctx.saved_tensors, dout)
+        r, k, v, w, u, ckpt = ctx.saved_tensors
+        return _wkv.wkv6_scan_bwd(r, k, v, w, u, dout, ckpt=ckpt)
 
 
 def _check_cpu(t: torch.Tensor, op: str) -> None:

@@ -104,6 +104,33 @@ def attention(
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled visible scores, float32
+    (B,Hq,Sq); +inf for a row with no visible key (so exp(s - lse) is 0
+    there). What K4's wgmma forward writes into its ``lse`` buffer."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    if q_offset is None:
+        q_offset = Skv - Sq
+    with _full_f32():
+        qg = q.reshape(B, Hkv, g, Sq, D).float()
+        s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+        mask = _mask(Sq, Skv, int(q_offset), causal, window, 0, q.device)
+        lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    lse = torch.where(mask.any(dim=-1), lse, math.inf)
+    return lse.reshape(B, Hq, Sq)
+
+
 def attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -256,6 +283,31 @@ def wkv6_scan(
             out[:, t] = torch.matmul(rf[:, t, None, :], state + uf * kv)[:, 0]
             state = decay[:, t, :, None] * state + kv
     return out.reshape(*lead, T, V).to(r.dtype), state
+
+
+def wkv6_chunk_states(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    chunk: int = 16,
+) -> torch.Tensor:
+    """The float32 state entering each ``chunk``-step chunk of a scan from a
+    zero state: (BH, ceil(T / chunk), N, V), entry c the state after steps
+    0 .. chunk * c - 1. k, w (..., T, N) and v (..., T, V) as ``wkv6_scan``
+    takes them. What K5's chunked forward writes into its ``ckpt`` buffer."""
+    T, N = k.shape[-2:]
+    V = v.shape[-1]
+    bh = math.prod(k.shape[:-2])
+    kf = k.reshape(bh, T, N).float()
+    vf = v.reshape(bh, T, V).float()
+    decay = torch.exp(-torch.exp(w.reshape(bh, T, N).float()))
+    out = torch.empty((bh, -(-T // chunk), N, V), dtype=torch.float32, device=k.device)
+    state = torch.zeros((bh, N, V), dtype=torch.float32, device=k.device)
+    for t in range(T):
+        if t % chunk == 0:
+            out[:, t // chunk] = state
+        state = decay[:, t, :, None] * state + kf[:, t, :, None] * vf[:, t, None, :]
+    return out
 
 
 def wkv6_scan_bwd(

@@ -27,9 +27,13 @@ from a zero state with no final-state gradient (training), which
 takes the same head sizes by the same padding rule (padded r, k, u and w
 give padded rows that stay zero in the state and in its gradient, padded v
 and do padded columns, so the live gradients are the unpadded problem's;
-the padded entries are dropped). Its plain version is
+the padded entries are dropped). Its ``cluster`` kernel reads the state
+entering each 16-step chunk, which the forward's chunked kernel writes
+into a ``ckpt`` buffer when given one (``ref.wkv6_chunk_states`` is its
+plain version; padded heads keep the padded layout); the ``chunked``
+kernel, the first version, recomputes them. Its plain version is
 ``ref.wkv6_scan_bwd``; it counts its launches in ``bwd_counter`` by
-``bwd_variant``.
+variant.
 """
 
 from __future__ import annotations
@@ -57,6 +61,13 @@ def variant(dtype: torch.dtype, T: int) -> str:
     masked chunk)."""
     del dtype, T
     return "chunked"
+
+
+def chunk_states_shape(BH: int, T: int, N: int, V: int) -> Tuple[int, int, int, int]:
+    """Shape of the ``ckpt`` buffer of a scan of ``BH`` heads, ``T`` steps,
+    key dim ``N`` and value dim ``V``: the state entering each of the
+    ceil(T / CHUNK) chunks, at the kernel's padded head (``padded_dims``)."""
+    return (BH, -(-T // CHUNK)) + padded_dims(N, V)
 
 
 def padded_dims(N: int, V: int) -> Tuple[int, int]:
@@ -96,6 +107,7 @@ def wkv6_scan(
     final_state: Optional[torch.Tensor] = None,
     *,
     kernel: Optional[str] = None,
+    ckpt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, w (BH, T, N) or (B, H, T, N); v (..., T, V); u (H, N) or (BH, N)
     float32; init_state (BH, N, V) float32 or None (zero).
@@ -109,6 +121,9 @@ def wkv6_scan(
     kernel), on heads zero-padded to ``padded_dims(N, V)`` where those
     differ from (N, V); raises on anything the kernel does not take
     (device, dtype, N or V outside ``SUPPORTED_HEAD_SIZES``, alignment).
+    ``ckpt``, a contiguous float32 buffer of ``chunk_states_shape``, is
+    filled with the state entering each chunk (only the chunked kernel
+    writes one; training's autograd route passes it, serving none).
     """
     _build.check_device(r)
     if r.ndim not in (3, 4) or k.shape != r.shape or w.shape != r.shape \
@@ -142,8 +157,12 @@ def wkv6_scan(
     for t in (k, v, w, u, final_state) + ((init_state,) if init_state is not None else ()):
         if t.device != r.device:
             raise ValueError("wkv6_scan: all tensors must be on one device")
+    if ckpt is not None:
+        if kind != "chunked":
+            raise ValueError(f"wkv6_scan: the {kind} kernel writes no ckpt")
+        _ckpt(ckpt, chunk_states_shape(BH, T, N, V), r.device)
     if kernel_dims != (N, V):
-        return _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, kernel_dims)
+        return _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, kernel_dims, ckpt)
     out = torch.empty_like(v, dtype=r.dtype)  # v's layout (strides preserved)
     out4 = _heads4(out)
     strides = []
@@ -163,25 +182,33 @@ def wkv6_scan(
         status = lib.repro_wkv6_scan(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if init_state is None else init_state.data_ptr(), final_state.data_ptr(),
-            out.data_ptr(), B, H, T, N, V, u.shape[0], ctypes.addressof(packed),
-            _build.DTYPE_CODES[r.dtype], int(w.dtype == torch.float32), VARIANT_CODES[kind],
-            _build.stream_of(r))
+            None if ckpt is None else ckpt.data_ptr(), out.data_ptr(), B, H, T, N, V,
+            u.shape[0], ctypes.addressof(packed), _build.DTYPE_CODES[r.dtype],
+            int(w.dtype == torch.float32), VARIANT_CODES[kind], _build.stream_of(r))
     _build.check_status(lib, "wkv6_scan", status)
     counter.launched(kind)
     return out, final_state
 
 
-def _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, dims):
+def _ckpt(t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"wkv6_scan: ckpt must be a float32 tensor of shape {tuple(shape)} on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    _build.check_tensor(t, "wkv6_scan: ckpt")  # contiguous, 16-byte aligned (float4 reads)
+
+
+def _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, dims, ckpt):
     """The scan of checked (B, H, T, N) and (B, H, T, V) inputs on heads
-    zero-padded to ``dims`` (``padded_dims``): one launch on padded copies,
-    then the outputs' and the state's live part copied out."""
+    zero-padded to ``dims`` (``padded_dims``): one launch on padded copies
+    (``ckpt`` filled in the padded layout), then the outputs' and the
+    state's live part copied out."""
     (N, V), (NP, VP) = (r4.shape[-1], v4.shape[-1]), dims
     BH = r4.shape[0] * r4.shape[1]
     state = torch.zeros((BH, NP, VP), dtype=torch.float32, device=r4.device)
     if init_state is not None:
         state[:, :N, :V] = init_state.view(BH, N, V)
     out_p, _ = wkv6_scan(*(_pad_last(t, NP) for t in (r4, k4)), _pad_last(v4, VP),
-                         _pad_last(w4, NP), _pad_last(u, NP), state, state, kernel=kind)
+                         _pad_last(w4, NP), _pad_last(u, NP), state, state, kernel=kind, ckpt=ckpt)
     final_state.view(BH, N, V).copy_(state[:, :N, :V])
     out = torch.empty_like(v, dtype=r4.dtype)
     _heads4(out).copy_(out_p[..., :V])
@@ -189,15 +216,19 @@ def _scan_padded(r4, k4, v4, w4, u, init_state, final_state, v, kind, dims):
 
 
 bwd_counter = _build.OpCounter()
-BWD_SLICES = KERNEL_V // 16  # value-column slices, one block each, of the backward kernel
+BWD_SLICES = KERNEL_V // 16  # value-column slices, one block each, of the backward kernels
+# C codes of the backward's kernels; "chunked" is the first version (its own
+# forward re-run for the chunk states), launched only when asked for
+# (chip_smoke.py times it as ``prior_ms``).
+BWD_VARIANT_CODES = {"chunked": 0, "cluster": 1}
 
 
 def bwd_variant(dtype: torch.dtype, T: int) -> str:
-    """The backward kernel for ``T`` steps of ``dtype``: ``chunked`` (state
-    checkpoints every CHUNK steps, each chunk's states and state gradients
-    recomputed in shared memory) for every dtype and length it takes."""
+    """The backward kernel for ``T`` steps of ``dtype``: ``cluster`` (a
+    head's four value slices in one thread-block cluster, from the chunk
+    states the forward saved) for every dtype and length it takes."""
     del dtype, T
-    return "chunked"
+    return "cluster"
 
 
 def check_bwd(r: torch.Tensor, v: torch.Tensor, init_state, final_state) -> None:
@@ -219,15 +250,22 @@ def wkv6_scan_bwd(
     w: torch.Tensor,
     u: torch.Tensor,
     do: torch.Tensor,
+    *,
+    ckpt: Optional[torch.Tensor] = None,
+    kernel: Optional[str] = None,
 ):
     """(dr, dk, dv, dw, du) of ``wkv6_scan(r, k, v, w, u)`` from a zero
     state, given the outputs' gradient ``do``; each in its input's dtype and
     shape (du (H, N) summed over the batch for u (H, N)). Shapes as
     ``wkv6_scan`` takes them; strided inputs are copied contiguous (BH, T,
     X) and heads zero-padded to ``padded_dims``. Launches
-    ``csrc/wkv6_scan_bwd.cu`` on the tensors' card: the chunked backward
-    kernel, then a kernel that sums its per-slice partials; raises on
-    anything it does not take."""
+    ``csrc/wkv6_scan_bwd.cu`` on the tensors' card: ``bwd_variant``'s kernel,
+    or ``kernel``'s where given (how ``chip_smoke.py`` times the chunked
+    kernel), then a kernel that sums du over the heads sharing u's row (and,
+    for the chunked kernel, dr, dk, dw over its per-slice partials). The
+    cluster kernel reads ``ckpt``, the forward's chunk-entry states
+    (``chunk_states_shape``); the chunked kernel takes none. Raises on
+    anything the kernel does not take."""
     _build.check_device(r)
     if r.ndim not in (3, 4) or k.shape != r.shape or w.shape != r.shape \
             or v.ndim != r.ndim or v.shape[:-1] != r.shape[:-1] or do.shape != v.shape:
@@ -255,25 +293,34 @@ def wkv6_scan_bwd(
         t = t.reshape(BH, T, t.shape[-1]).to(dtype or t.dtype)
         return (_pad_last(t, width) if t.shape[-1] != width else t).contiguous()
 
+    kind = kernel or bwd_variant(r.dtype, T)
+    if kind not in BWD_VARIANT_CODES:
+        raise ValueError(f"wkv6_scan_bwd: no kernel {kind!r}")
+    if kind == "cluster":
+        if ckpt is None:
+            raise ValueError("wkv6_scan_bwd: the cluster kernel needs the forward's ckpt")
+        _ckpt(ckpt, chunk_states_shape(BH, T, N, V), r.device)
     r3, k3, w3 = flat(r, NP), flat(k, NP), flat(w, NP)
     v3, do3 = flat(v, VP), flat(do, VP, r.dtype)
     u2 = (_pad_last(u, NP) if N != NP else u).contiguous()
-    kind = bwd_variant(r.dtype, T)
     dr3, dk3, dw3 = torch.empty_like(r3), torch.empty_like(k3), torch.empty_like(w3)
     dv3 = torch.empty_like(v3)
     du2 = torch.empty_like(u2)
-    n_chunks = -(-T // CHUNK)
-    ckpt = torch.empty((BH, n_chunks, NP, VP), dtype=torch.float32, device=r.device)
-    part = torch.empty((3, BWD_SLICES, BH, T, NP), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((BH, BWD_SLICES, NP), dtype=torch.float32, device=r.device)
+    part = None
+    if kind == "cluster":
+        du_part = torch.empty((BH, NP), dtype=torch.float32, device=r.device)
+    else:  # scratch for the first kernel's forward re-run and its slice partials
+        ckpt = torch.empty(chunk_states_shape(BH, T, N, V), dtype=torch.float32, device=r.device)
+        part = torch.empty((3, BWD_SLICES, BH, T, NP), dtype=torch.float32, device=r.device)
+        du_part = torch.empty((BH, BWD_SLICES, NP), dtype=torch.float32, device=r.device)
     lib = _build.load("wkv6_scan_bwd")
     with torch.cuda.device(r.device):
         status = lib.repro_wkv6_scan_bwd(
             r3.data_ptr(), k3.data_ptr(), v3.data_ptr(), w3.data_ptr(), u2.data_ptr(),
             do3.data_ptr(), dr3.data_ptr(), dk3.data_ptr(), dv3.data_ptr(), dw3.data_ptr(),
-            du2.data_ptr(), ckpt.data_ptr(), part.data_ptr(), du_part.data_ptr(),
-            BH, T, u2.shape[0], _build.DTYPE_CODES[r.dtype], int(w.dtype == torch.float32),
-            _build.stream_of(r))
+            du2.data_ptr(), ckpt.data_ptr(), None if part is None else part.data_ptr(),
+            du_part.data_ptr(), BH, T, u2.shape[0], _build.DTYPE_CODES[r.dtype],
+            int(w.dtype == torch.float32), BWD_VARIANT_CODES[kind], _build.stream_of(r))
     _build.check_status(lib, "wkv6_scan_bwd", status)
     bwd_counter.launched(kind)
 

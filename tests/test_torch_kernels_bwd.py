@@ -120,11 +120,15 @@ def test_flash_attention_bwd_refuses_what_its_kernel_does_not_take(kw, exc):
 
 
 def test_flash_attention_bwd_takes_every_forward_head_dim():
+    """Every head dim and dtype the forward takes has a backward kernel: the
+    wgmma kernel exactly where the forward runs wgmma (which writes the lse
+    it reads), the CUDA-core kernel elsewhere."""
     for D in fa.SUPPORTED_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             t = torch.zeros((1, 2, 8, D), dtype=dtype)
             fa.check_bwd(t, t, q_offset=0)
-            assert fa.bwd_variant(dtype, D) == "cuda_core"
+            want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256) else "cuda_core"
+            assert fa.bwd_variant(dtype, D) == fa.variant(dtype, D) == want
 
 
 def test_backward_wrappers_need_a_card():
@@ -240,4 +244,4 @@ def test_wkv6_scan_bwd_refuses_a_kept_state():
     with pytest.raises(ValueError):
         wk.check_bwd(torch.zeros((2, 8, 48)), r, None, None)  # no kernel at N = 48
     wk.check_bwd(torch.zeros((2, 8, 32)), torch.zeros((2, 8, 16)), None, None)
-    assert wk.bwd_variant(torch.bfloat16, 777) == "chunked"
+    assert wk.bwd_variant(torch.bfloat16, 777) == "cluster"

@@ -188,7 +188,8 @@ def _padded_launches(monkeypatch):
     monkeypatch.setattr(cuda_wkv6._build, "check_device", lambda t: None)
     calls = []
 
-    def launch(r, k, v, w, u, init_state=None, final_state=None, *, kernel=None):
+    def launch(r, k, v, w, u, init_state=None, final_state=None, *, kernel=None, ckpt=None):
+        assert ckpt is None  # a serving scan saves no chunk states
         calls.append((r, k, v, w, u, init_state, final_state, kernel))
         out, state = ref.wkv6_scan(r, k, v, w, u, init_state)
         final_state.copy_(state.view(final_state.shape))

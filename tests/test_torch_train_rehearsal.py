@@ -56,21 +56,33 @@ def smoke(monkeypatch):
     monkeypatch.setattr(repro_torch.config, "get_config", lambda arch: dataclasses.replace(
         smoke_variant(get(arch)), dtype="bfloat16"))
 
-    def flash(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0, q_offset=None):
+    def flash(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0, q_offset=None,
+              lse=None):
         fa.counter.launched(fa.variant(q.dtype, q.shape[-1]))
+        if lse is not None:
+            assert fa.variant(q.dtype, q.shape[-1]) == "wgmma"
+            lse.copy_(ref.attention_lse(q, k, causal=causal, window=window, scale=scale,
+                                        q_offset=q_offset))
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale,
                              q_offset=q_offset)
 
-    def flash_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None):
-        fa.bwd_counter.launched(fa.bwd_variant(q.dtype, q.shape[-1]))
+    def flash_bwd(q, k, v, o, do, *, lse=None, causal=True, window=0, scale=None, kernel=None):
+        kind = kernel or fa.bwd_variant(q.dtype, q.shape[-1])
+        assert (lse is not None) == (kind == "wgmma")
+        fa.bwd_counter.launched(kind)
         return ref.attention_bwd(q, k, v, o, do, causal=causal, window=window, scale=scale)
 
-    def scan(r, k, v, w, u, init_state=None, final_state=None):
-        wk.counter.launched(wk.variant(r.dtype, r.shape[-2]))
+    def scan(r, k, v, w, u, init_state=None, final_state=None, *, kernel=None, ckpt=None):
+        wk.counter.launched(kernel or wk.variant(r.dtype, r.shape[-2]))
+        if ckpt is not None:
+            N, V = r.shape[-1], v.shape[-1]
+            ckpt.zero_()[..., :N, :V] = ref.wkv6_chunk_states(k, v, w)
         return ref.wkv6_scan(r, k, v, w, u, init_state)
 
-    def scan_bwd(r, k, v, w, u, do):
-        wk.bwd_counter.launched(wk.bwd_variant(r.dtype, r.shape[-2]))
+    def scan_bwd(r, k, v, w, u, do, *, ckpt=None, kernel=None):
+        kind = kernel or wk.bwd_variant(r.dtype, r.shape[-2])
+        assert (ckpt is not None) == (kind == "cluster")
+        wk.bwd_counter.launched(kind)
         return ref.wkv6_scan_bwd(r, k, v, w, u, do)
 
     def flash_op(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0,
@@ -113,8 +125,11 @@ def test_phase_10_runs_its_checks_on_the_cpu(smoke):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(r) for r in rows)
+    assert [(r["variant"], r["prior"]) for r in rows] == [("wgmma", "cuda_core"),
+                                                          ("cluster", "chunked")]
     for rec, row, op in zip(records, rows, ("flash_attention", "wkv6_scan")):
-        assert rec["launches"][op + "_bwd"] == row["launches_by_variant"]
+        assert rec["launches"][op + "_bwd"] == row["launches_by_variant"] == {
+            row["variant"]: row["launches"]}
         assert row["launches"] == rec["layers"] * rec["steps"]
         assert sum(rec["launches"][op].values()) == 2 * rec["layers"] * rec["steps"]
         assert rec["losses"][-1] < rec["losses"][0] and len(rec["losses"]) == 6
