@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases 9      # the front door: python -m repro_torch, LiveRun, HTTP
     python3 chip_smoke.py --phases 10     # training: K4 and K5 backward kernels, train()
     python3 chip_smoke.py --phases 10 --profile  # + where a full-width train step's time goes
+    python3 chip_smoke.py --phases 11     # the dry run and build_step's programs on the card
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -143,7 +144,27 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      last loss is below the first, the forward kernel launched 2 x layers
      x steps times and the backward kernel (wgmma, cluster) layers x steps
      times, and no op made a plain call. It prints a ``train`` line and the
-     two backward kernels' rows.
+     two backward kernels' rows;
+ 11. runs ``launch.steps.build_step``'s programs on the card at full width
+     and depth in bf16, the assigned shapes' batch cut to fit (train_4k 4 x
+     4096, microbatch 1 and 4, stablelm-1.6b and rwkv6-1.6b; prefill_32k 1 x
+     32768, both; decode_32k 4 sequences of stablelm-1.6b against caches of
+     32768; the merged decode of 4 stablelm-1.6b tenants, one sequence
+     each): each step's meta arguments must be the bytes the card holds
+     for them, each kernel's launches by variant those of the program (no
+     plain call), and its time and peak memory are printed beside the meta
+     run's temporaries; K3, K4, K5 (both of the bf16 prefill's launches)
+     and both backward kernels are held against their plain versions at
+     these shapes, a slice of (batch, head) at 32768; in float32 at full
+     width and 2 layers, microbatch 4 must equal microbatch 1 at the
+     reference's tolerances and the merged 4-tenant decode each tenant's own
+     step, and each negative control (half the batch left out; two tenants'
+     weights swapped) must fail that check. Meanwhile three niced children
+     with jax and repro unimportable run ``python -m
+     repro_torch.launch.dryrun --all --mesh host``, one pod1 record (its
+     arguments must be the sum of ``shard_shape`` over its specs) and the
+     dry-run records of the steps above. The phase must end within 90 s. It
+     prints a ``dryrun_steps`` line.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
 zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
@@ -187,7 +208,9 @@ memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
 of K3's clusters fit on the card at once. Each phase prints its wall time.
 
 Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
-a ``train`` JSON line (phase 10), a ``kernels`` JSON line, the card's
+a ``train`` JSON line (phase 10), a ``dryrun_steps`` JSON line (phase 11),
+a ``kernels`` JSON line (with phase 11's launches by variant on the rows of
+the kernels it runs), the card's
 name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 there is no CUDA card, if the port cannot be imported, or if any phase fails.
@@ -1794,6 +1817,12 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
     name = f"wkv6_scan bf16 at a median prompt, T={T}"
     err, _, _ = check_wkv(ops, name, torch.bfloat16, inputs, state)
     check_wkv(ops, name, torch.bfloat16, inputs, state, kernel="sequential")
+    # the prefill's second launch: the kept state from float32 w, from a state
+    w32 = inputs[3].float() + 0.01 * torch.randn(inputs[3].shape, generator=gen, device=dev)
+    state_inputs = inputs[:3] + (w32, inputs[4])
+    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+    check_wkv(ops, f"{name}, the state launch (float32 w, random state)", torch.bfloat16,
+              state_inputs, s0)
     nbytes, flops = wkv_work(T, torch.bfloat16)
     bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
     row = {
@@ -1806,9 +1835,12 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
                                                  kernel="sequential"), 20),
         "plain_ms": time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
                                                         final_state=state), 3, 1),
+        "state_launch_ms": time_ms(lambda: ops.wkv6_scan(*state_inputs, init_state=s0,
+                                                         final_state=s0), 20),
         "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    log(f"    state launch (float32 w) ms={row['state_launch_ms']:.4f}")
     log(f"    ms={row['ms']:.4f} prior_ms={row['prior_ms']:.4f} (sequential, "
         f"{row['prior_ms'] / row['ms']:.2f}x) plain_ms={row['plain_ms']:.4f} library: none (no "
         f"PyTorch call computes WKV6) bound_ms={bound_ms:.4f} ({bound_by}; bytes "
@@ -1968,7 +2000,7 @@ def phase_rwkv(ops, dev, seed, profile=False):
     import torch
 
     from repro_torch.config import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, rwkv
 
     log(" (a) K5 wkv6_scan against its plain version")
     phase_wkv_kernel(ops, dev, seed)
@@ -1982,13 +2014,16 @@ def phase_rwkv(ops, dev, seed, profile=False):
     prompts, lens = serve_prompts(cfg, seed)
     launches, per_mode, _ = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
     by_variant = dict(ops.COUNTERS["wkv6_scan"].variants)
-    want = cfg.num_layers * REQUESTS  # one launch per layer per (unchunked) prefill
+    # per layer and (unchunked) prefill: the outputs' scan, and in bf16 the
+    # kept state's scan with float32 w (rwkv.prefill_scans)
+    scans = rwkv.prefill_scans(model.dtype)
+    want = cfg.num_layers * scans * REQUESTS
     for mode, per in zip(("space_time", "time_only"), per_mode):
         if per["wkv6_scan"] != want:
             raise PhaseFailed(f"{mode}: wkv6_scan launched {per['wkv6_scan']} times, "
-                              f"not {cfg.num_layers} per prefill ({want})")
-    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {REQUESTS} prefills; "
-        f"by variant on the serving path: {by_variant}")
+                              f"not {cfg.num_layers * scans} per prefill ({want})")
+    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {scans} scans x "
+        f"{REQUESTS} prefills; by variant on the serving path: {by_variant}")
     if by_variant.get("chunked", 0) != launches["wkv6_scan"]:
         raise PhaseFailed(f"wkv6_scan: {launches['wkv6_scan']} launches on the serving path, not "
                           f"all chunked: {by_variant}")
@@ -3453,6 +3488,608 @@ def phase_train(ops, dev, seed, profile=False):
     return rows, records
 
 
+# ----------------------------------------------------------------- phase 11
+# build_step's programs on the card, at full width and depth in bf16; the
+# assigned shapes' batch cut to fit one card (seq lengths kept).
+P11_STEPS = (  # (arch, assigned shape, batch on the card, its seq (kept), microbatch, tenants)
+    ("stablelm-1.6b", "train_4k", 4, 4096, 1, 1), ("stablelm-1.6b", "train_4k", 4, 4096, 4, 1),
+    ("rwkv6-1.6b", "train_4k", 4, 4096, 1, 1), ("rwkv6-1.6b", "train_4k", 4, 4096, 4, 1),
+    ("stablelm-1.6b", "prefill_32k", 1, 32768, 1, 1),
+    ("rwkv6-1.6b", "prefill_32k", 1, 32768, 1, 1),
+    ("stablelm-1.6b", "decode_32k", 4, 32768, 1, 1),
+    ("stablelm-1.6b", "decode_32k", 4, 32768, 1, 4),
+)
+P11_RUNS = {"train": (1, 1), "prefill": (1, 2), "decode": (1, 5)}  # (warm-up, timed) calls
+# the float32 equivalences: full width, 2 layers; microbatch 4 against 1 over
+# 4 x 1024 tokens; 4 tenants x 2 slots against caches of 2048
+P11_EQ = {"layers": 2, "batch": 4, "seq": 1024, "microbatch": 4, "tenants": 4, "slots": 2,
+          "cache": 2048}
+EQ_LOSS_RTOL = 1e-5              # tests/test_launch.py:69-71, the reference's own
+EQ_GRAD_TOL = (1e-4, 1e-5)       # (rtol, atol), elementwise
+EQ_LOGIT_RTOL = 1e-4             # merged vs per-tenant: of the largest |logit|
+P11_BUDGET_S = 90.0
+DRYRUN_JOBS = 6                  # worker processes of the --all --mesh host child
+DRYRUN_NICE = 15                 # the dry-run children yield the CPU to the card's host thread
+DRYRUN_POD1 = ("stablelm-1.6b", "train_4k")
+DRYRUN_TIMEOUT_S = 300
+P11_KERNELS = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
+               "wkv6_scan": "chunked", "wkv6_scan_bwd": "cluster",
+               "decode_attention": "split_kv"}
+
+
+def cut_shape(name, batch, seq=None):
+    """The assigned shape ``name`` with its batch (and, given, its sequence)
+    cut, registered in the port's shape table under a name of its own."""
+    import dataclasses
+
+    from repro_torch.config import shapes
+
+    full = shapes.get_shape(name)
+    seq = full.seq_len if seq is None else seq
+    if (batch, seq) == (full.global_batch, full.seq_len):
+        return name
+    cut = f"{name}_b{batch}" + ("" if seq == full.seq_len else f"_s{seq}")
+    shapes.INPUT_SHAPES[cut] = dataclasses.replace(full, name=cut, global_batch=batch,
+                                                   seq_len=seq)
+    return cut
+
+
+def no_jax_env(tmp):
+    """An environment whose Python cannot import jax or the reference
+    package (stub modules that raise, ahead of everything on the path), for
+    every process it starts, pool workers included."""
+    stub = Path(tmp) / "no_jax"
+    stub.mkdir(exist_ok=True)
+    for mod in ("jax", "repro"):
+        (stub / f"{mod}.py").write_text(f"raise ImportError('{mod} is unimportable here')\n")
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([str(stub), str(ROOT / "src")]))
+
+
+def meta_cut_records(out_dir):
+    """``--meta-cuts DIR``: the dry run's host record (meta counts, argument
+    and temporary bytes) of every step phase 11 runs on the card, at its
+    cut shape, two at a time."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.launch import dryrun
+
+    cases = [(arch, cut_shape(shape, batch, seq), mb, tenants)
+             for arch, shape, batch, seq, mb, tenants in P11_STEPS]
+    ctx = multiprocessing.get_context("fork")  # the workers inherit the cut shapes
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        futures = [pool.submit(dryrun.run_one, arch, shape, "host", out_dir, False,
+                               microbatch=mb, tenants=tenants)
+                   for arch, shape, mb, tenants in cases]
+        bad = [f.result()["error"] for f in futures if f.result()["status"] != "ok"]
+    if bad:
+        print("\n".join(bad), file=sys.stderr)
+        return 1
+    return 0
+
+
+def record_name(arch, shape, mesh, microbatch=1, tenants=1):
+    """The dry run's record file name (``dryrun._write``), policy fsdp."""
+    return (f"{arch}__{shape}__{mesh}" + (f"__R{tenants}" if tenants > 1 else "")
+            + (f"__mb{microbatch}" if microbatch > 1 else "") + ".json")
+
+
+def start_dryruns(tmp):
+    """The dry-run children, started at once and niced: (a) ``python -m
+    repro_torch.launch.dryrun --all --mesh host``, (b) one pod1 record, (c)
+    the cut-shape records of this phase's steps; all with jax and repro
+    unimportable. Returns {name: (Popen, log path)}."""
+    env = no_jax_env(tmp)
+    mod = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    arch, shape = DRYRUN_POD1
+    cmds = {
+        "host --all": mod + ["--all", "--mesh", "host", "--jobs", str(DRYRUN_JOBS),
+                             "--out", str(Path(tmp) / "host")],
+        "pod1": mod + ["--arch", arch, "--shape", shape, "--mesh", "pod1",
+                       "--out", str(Path(tmp) / "pod1")],
+        "cuts": [sys.executable, str(ROOT / "chip_smoke.py"), "--meta-cuts",
+                 str(Path(tmp) / "cuts")],
+    }
+    procs = {}
+    for name, cmd in cmds.items():
+        path = Path(tmp) / f"{name.split()[0]}.log"
+        with open(path, "w") as out:
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                            stderr=subprocess.STDOUT, start_new_session=True,
+                                            preexec_fn=lambda: os.nice(DRYRUN_NICE)), path)
+    return procs
+
+
+def finish_dryruns(procs, tmp, t_start):
+    """Waits for the dry-run children (killing them at DRYRUN_TIMEOUT_S),
+    then checks their records: every exit code 0; one host record per
+    (arch, shape), each ok or skipped with ``eligible``'s reason; the pod1
+    record's per-device argument bytes equal to the sum of ``shard_shape``
+    over its step's specs. Returns (host records, pod1 record, cut records
+    by file name)."""
+    import math
+    import signal
+
+    from repro_torch.config import INPUT_SHAPES, get_config, list_configs
+    from repro_torch.distributed.sharding import shard_shape, spec_leaves
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_step, eligible
+
+    for name, (proc, path) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise PhaseFailed(f"dry run {name}: still running after {DRYRUN_TIMEOUT_S} s")
+        log(f"  dry run {name} (jax and repro unimportable): exit {proc.returncode}, "
+            f"{time.perf_counter() - t_start:.1f} s after the phase began")
+        if proc.returncode != 0:
+            raise PhaseFailed(f"dry run {name} exited {proc.returncode}: "
+                              f"{path.read_text()[-3000:]}")
+    host = {}
+    for arch in list_configs():
+        for shape in INPUT_SHAPES:
+            if shape not in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+                continue
+            path = Path(tmp) / "host" / record_name(arch, shape, "host")
+            if not path.exists():
+                raise PhaseFailed(f"dry run --all --mesh host wrote no {path.name}")
+            rec = json.loads(path.read_text())
+            ok, why = eligible(get_config(arch), shape)
+            if rec["status"] != ("ok" if ok else "skipped") or rec.get("reason", "") != why:
+                raise PhaseFailed(f"dry run {arch} x {shape}: {rec['status']} "
+                                  f"{rec.get('reason', rec.get('error', ''))}")
+            host[arch, shape] = rec
+    n_ok = sum(r["status"] == "ok" for r in host.values())
+    log(f"  host records: {len(host)} ({n_ok} ok, {len(host) - n_ok} skipped with eligible's "
+        "reason); one card: arguments / temporaries GB, meta-count TFLOP:")
+    for (arch, shape), rec in host.items():
+        if rec["status"] == "ok":
+            mem = rec["memory_analysis"]
+            log(f"    {arch} x {shape}: {mem['argument_size_in_bytes'] / 1e9:.2f} / "
+                f"{mem['temp_size_in_bytes'] / 1e9:.2f}, {rec['hlo_flops_raw'] / 1e12:.1f} "
+                f"(analytic {rec['analytic_flops'] / 1e12:.1f}), meta run {rec['meta_run_s']} s")
+    arch, shape = DRYRUN_POD1
+    pod = json.loads((Path(tmp) / "pod1" / record_name(arch, shape, "pod1")).read_text())
+    mesh = make_production_mesh()
+    _, args, in_specs, _ = build_step(get_config(arch), shape, mesh, device="meta")
+    want = sum(math.prod(shard_shape(tuple(t.shape), s, mesh)) * t.element_size()
+               for t, s in zip(spec_leaves(list(args)), spec_leaves(list(in_specs))))
+    got = pod["memory_analysis"]["argument_size_in_bytes"]
+    log(f"  pod1 record {arch} x {shape} (shard arithmetic for a 256-device mesh the port does "
+        f"not run on): arguments {got} bytes a device, sum of shard_shape over the specs "
+        f"{want}: {'ok' if got == want else 'FAIL'}")
+    if got != want:
+        raise PhaseFailed("dry run pod1: argument bytes differ from the shards of the specs")
+    cuts = {p.name: json.loads(p.read_text()) for p in (Path(tmp) / "cuts").glob("*.json")}
+    return host, pod, cuts
+
+
+def p11_args(cfg, kind, shape, tenants, dev, seed):
+    """Real tensors on the card for a step's meta args: seeded random weights
+    (``Model.init`` / ``init_stacked``, RWKV's decay made data-dependent,
+    then ``params_to_scan``), zero AdamW state, random tokens, caches filled
+    with N(0, 1) bf16 values and lengths in the cache's last 64 positions."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_to_scan
+    from repro_torch.training.optimizer import adamw_init
+
+    model = build_model(cfg, device=dev)
+    gens = []
+    for t in range(tenants):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 100 + t)
+        gens.append(g)
+    if tenants > 1:
+        layers = model.init_stacked(gens)
+    else:
+        layers = model.init(gens[0])
+    if cfg.ssm is not None and "rwkv" in cfg.name:
+        live_decay_(layers, gens[0])
+    params = params_to_scan(cfg, layers, stack=(lambda ts: torch.stack(ts, 1))
+                            if tenants > 1 else torch.stack)
+    del layers
+    B, S = shape.global_batch // tenants, shape.seq_len
+    lead = (tenants, B) if tenants > 1 else (B,)
+
+    def ints(low, high, size):
+        return torch.randint(low, high, size, generator=gens[0], device=dev, dtype=torch.int32)
+
+    if kind == "train":
+        return (params, adamw_init(params), ints(1, cfg.vocab_size, (B, S)),
+                ints(1, cfg.vocab_size, (B, S)))
+    if kind == "prefill":
+        return params, ints(1, cfg.vocab_size, (B, S))
+    caches = model.init_caches(B, S, tenants=tenants if tenants > 1 else None)
+    for leaves in caches.values():
+        for c in leaves:
+            c.normal_(generator=gens[0])
+    return params, ints(1, cfg.vocab_size, lead), caches, ints(S - 64, S - 1, lead)
+
+
+def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
+    """One of build_step's programs on the card: its meta args' bytes against
+    the bytes of the tensors really allocated for them; warm-up and timed
+    calls; every op's launches by variant against the program's (layers x
+    calls, the train step's forward twice a slice under remat "block", the
+    bf16 RWKV prefill's two scans a layer) and no plain call."""
+    import torch
+
+    from repro_torch.config import get_config, get_shape
+    from repro_torch.distributed.sharding import shard_bytes, spec_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import rwkv
+
+    cfg = get_config(arch)
+    name = cut_shape(shape_name, batch, seq)
+    shape = get_shape(name)
+    kind = shape.kind
+    mesh = make_host_mesh()
+    step, args, in_specs, _ = build_step(cfg, name, mesh, microbatch=mb, tenants=tenants,
+                                         device=dev)
+    meta_bytes = shard_bytes(list(args), list(in_specs), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    real = p11_args(cfg, kind, shape, tenants, dev, seed)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    leaves = spec_leaves(list(real))
+    metas = spec_leaves(list(args))
+    if [(tuple(t.shape), t.dtype) for t in leaves] != [(tuple(t.shape), t.dtype) for t in metas]:
+        raise PhaseFailed(f"{arch} {name}: the card's arguments are not the meta arguments")
+    card_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
+    label = (f"{arch} {kind} {shape.global_batch} x {shape.seq_len}"
+             + (f" microbatch {mb}" if mb > 1 else "") + (f" R={tenants}" if tenants > 1 else ""))
+    same = card_bytes == meta_bytes
+    log(f"  {label} ({name}): arguments {card_bytes / 1e9:.3f} GB on the card, meta count "
+        f"{meta_bytes / 1e9:.3f} GB: {'equal' if same else 'DIFFER'} (allocator: "
+        f"{alloc / 1e9:.3f} GB in {len(leaves)} tensors)")
+    if not same:
+        raise PhaseFailed(f"{label}: argument bytes {card_bytes} on the card, {meta_bytes} "
+                          "by the meta count")
+    warm, timed = P11_RUNS[kind]
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], None
+    for i in range(warm + timed):
+        del out
+        t0 = time.perf_counter()
+        out = step(*real)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(time.perf_counter() - t0)
+        if kind == "train":
+            real = (out[0], out[1]) + real[2:]
+    peak = torch.cuda.max_memory_allocated()
+    check = out[2] if kind == "train" else out[0]
+    if not torch.isfinite(check.float()).all():
+        raise PhaseFailed(f"{label}: non-finite {'loss' if kind == 'train' else 'logits'}")
+    calls = warm + timed
+    L = cfg.num_layers
+    if kind == "train":
+        op = "flash_attention" if cfg.ssm is None else "wkv6_scan"
+        want = {op: 2 * L * mb * calls, op + "_bwd": L * mb * calls}
+    elif kind == "prefill":
+        op = "flash_attention" if cfg.ssm is None else "wkv6_scan"
+        want = {op: L * calls * (rwkv.prefill_scans(torch.bfloat16) if cfg.ssm else 1)}
+    else:
+        want = {"decode_attention": L * calls}
+    got = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
+    plain = {k: c.plain_calls for k, c in ops.COUNTERS.items() if c.plain_calls}
+    expect = {k: {P11_KERNELS[k]: n} for k, n in want.items()}
+    log(f"    launches over {calls} calls: {got}; plain calls: {plain or 'none'}")
+    if got != expect or plain:
+        raise PhaseFailed(f"{label}: launches {got}, not {expect}, or plain calls {plain}")
+    ms = float(np.median(times)) * 1e3
+    tokens = shape.global_batch * (shape.seq_len if kind != "decode" else 1)
+    rec = {"arch": arch, "kind": kind, "shape": name, "batch": shape.global_batch,
+           "seq": shape.seq_len, "microbatch": mb, "tenants": tenants, "dtype": "bfloat16",
+           "layers": L, "step_ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "arguments_bytes": card_bytes, "meta_arguments_bytes": meta_bytes,
+           "peak_minus_arguments_bytes": peak - card_bytes,
+           "loss": float(out[2]) if kind == "train" else None,
+           "launches": {k: v for k, v in got.items()}}
+    log(f"    step {ms:.1f} ms (median of {timed}), {rec['tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB = arguments + {(peak - card_bytes) / 1e9:.2f} GB"
+        + (f", loss {rec['loss']:.4f}" if kind == "train" else ""))
+    del real, out, check
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p11_kernels(ops, dev, seed):
+    """K3, K4, K5 and both backward kernels against their plain versions at
+    this phase's shapes, a slice of (batch, head) where the plain version
+    would not fit: K4 at the prefill's 32,768 and the train step's 4,096;
+    K3 at the decode step's caches of 32,768; K5 at 32,768 steps, its
+    outputs' launch (bf16 w) and its state launch (float32 w, from a random
+    state); K4-bwd and K5-bwd at the train step's 4,096. Returns the max
+    errors by kernel."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6_scan as wk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 110)
+    bf = torch.bfloat16
+    errs = {}
+    _, _, errs["flash_attention"] = check_flash(ops, dev, gen, bf, 1, 1, 1, 32768, 32768, 64, 0)
+    check_flash(ops, dev, gen, bf, 1, 2, 2, 4096, 4096, 64, 0)
+    lengths = [32768 - 1 - i for i in range(4)]
+    _, errs["decode_attention"] = check_decode(ops, dev, gen, bf, 4, 32, 32, 32768, 64, lengths)
+    r, k, v, w, u, _ = wkv_bwd_inputs(gen, dev, bf, 1, 1, 32768, 64, -3.0, 1.0)
+    s0 = torch.randn((1, 64, 64), generator=gen, device=dev)
+    errs["wkv6_scan"], _, _ = check_wkv(ops, "wkv6_scan bf16 (1, 1, 32768, 64), outputs' launch",
+                                        bf, (r, k, v, w, u), s0)
+    w32 = w.float() + 0.01 * torch.randn(w.shape, generator=gen, device=dev)
+    check_wkv(ops, "wkv6_scan bf16 (1, 1, 32768, 64), state launch (float32 w)", bf,
+              (r, k, v, w32, u), s0)
+    del r, k, v, w, w32
+    torch.cuda.empty_cache()
+    q, k, v, do = flash_bwd_inputs(gen, dev, bf, 1, 1, 1, 4096, 64)
+    lse = torch.empty((1, 1, 4096), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        o = fa.flash_attention(q, k, v, q_offset=0, lse=lse)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, kernel=fa.bwd_variant(bf, 64))
+    errs["flash_attention_bwd"] = check_grads(
+        "flash_attention_bwd bf16 (1, 1, 1, 4096, 64) [wgmma] vs ref.attention_bwd", got,
+        ref.attention_bwd(q, k, v, o, do), str(bf), BWD_TOL[str(bf)])
+    inputs = wkv_bwd_inputs(gen, dev, bf, 1, 1, 4096, 64, -3.0, 1.0)
+    ckpt = torch.empty(wk.chunk_states_shape(1, 4096, 64, 64), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        wk.wkv6_scan(*inputs[:5], ckpt=ckpt)
+    got = wk.wkv6_scan_bwd(*inputs, ckpt=ckpt, kernel=wk.bwd_variant(bf, 4096))
+    errs["wkv6_scan_bwd"] = check_grads(
+        "wkv6_scan_bwd bf16 (1, 1, 4096, 64) [cluster] vs ref.wkv6_scan_bwd", got,
+        ref.wkv6_scan_bwd(*inputs), str(bf), BWD_TOL[str(bf)])
+    torch.cuda.synchronize()
+    return errs
+
+
+def leaf_excess(grads, grads_ref):
+    """Per leaf, the largest |g - g_ref| / (atol + rtol |g_ref|) at
+    EQ_GRAD_TOL: above 1 where the reference's elementwise check fails."""
+    rtol, atol = EQ_GRAD_TOL
+    return [float(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max())
+            for g, w in zip(grads, grads_ref)]
+
+
+def grads_check(loss, grads, loss_ref, grads_ref, limits):
+    """The reference's microbatch check: loss within rtol EQ_LOSS_RTOL, and
+    every leaf's excess (``leaf_excess``) within its limit. Returns
+    (passed, the loss's relative gap, leaves beyond their limit, the
+    excesses)."""
+    lgap = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    excess = leaf_excess(grads, grads_ref)
+    bad = sum(e > lim for e, lim in zip(excess, limits))
+    return lgap <= EQ_LOSS_RTOL and bad == 0, lgap, bad, excess
+
+
+def p11_microbatch_equivalence(ops, arch, dev, seed):
+    """Microbatch 4 against microbatch 1 in float32 at full width, 2 layers
+    (``loss_and_grads``, the train step's), by the reference's check: loss
+    rtol EQ_LOSS_RTOL, every gradient element within EQ_GRAD_TOL. The same
+    comparison on the plain path (``plain_kernels=True``, no kernel at all)
+    is the yardstick of float32 itself: a leaf whose plain-path excess is
+    above 1 (the two batchings round differently there; rwkv6-1.6b's
+    recurrence at 1024 steps does, run BB of PERF.md) is held to twice that
+    excess instead. The negative control, half the batch left out, must
+    fail the same check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_to_scan
+
+    n, B, S, k = P11_EQ["layers"], P11_EQ["batch"], P11_EQ["seq"], P11_EQ["microbatch"]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=n, dtype="float32",
+                              block_pattern=cfg.block_pattern[:n] if cfg.block_pattern
+                              else cfg.block_pattern)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 120)
+    layers = model.init(gen)
+    if cfg.ssm is not None:
+        live_decay_(layers, gen)
+    params = params_to_scan(cfg, layers)
+    del layers
+    tok = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    lab = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    plain = build_model(cfg, device=dev, plain_kernels=True)
+    yard = leaf_excess(loss_and_grads(plain, params, tok, lab, microbatch=k)[1],
+                       loss_and_grads(plain, params, tok, lab)[1])
+    limits = [max(1.0, 2 * y) for y in yard]
+    full = loss_and_grads(model, params, tok, lab)
+    ok, lgap, bad, excess = grads_check(*loss_and_grads(model, params, tok, lab, microbatch=k),
+                                        *full, limits)
+    c_ok, c_lgap, c_bad, c_excess = grads_check(
+        *loss_and_grads(model, params, tok[:B // 2], lab[:B // 2]), *full, limits)
+    torch.cuda.synchronize()
+    n_leaves = len(limits)
+    widened = [i for i, y in enumerate(yard) if y > 1.0]
+    worst = int(np.argmax([e / lim for e, lim in zip(excess, limits)]))
+    verdict = "ok" if ok and not c_ok else "FAIL"
+    log(f"  f32 {arch} ({n} layers, {B} x {S}): microbatch {k} vs 1: loss rel gap {lgap:.2e} "
+        f"(rtol {EQ_LOSS_RTOL}); gradients at rtol {EQ_GRAD_TOL[0]} atol {EQ_GRAD_TOL[1]}: "
+        f"{bad} of {n_leaves} leaves beyond their limit, worst leaf {worst} at "
+        f"{excess[worst]:.2f} x its tolerance (limit {limits[worst]:.2f}); the plain path's own "
+        f"microbatch excess above 1 in {len(widened)} leaves "
+        f"({', '.join(f'{i}: {yard[i]:.2f}' for i in widened) or 'none'}), those held to twice "
+        f"it; control, half the batch left out: loss rel gap {c_lgap:.2e}, {c_bad} of "
+        f"{n_leaves} leaves beyond (largest {max(c_excess):.1f} x its tolerance), "
+        f"{'caught' if not c_ok else 'NOT caught'}: {verdict}")
+    if not ok or c_ok:
+        raise PhaseFailed(f"{arch}: float32 microbatch equivalence failed, or its control "
+                          "passed")
+    del params, full
+    torch.cuda.empty_cache()
+    return {"loss_rel_gap": lgap, "excess": excess, "plain_excess": yard,
+            "control_leaves_caught": c_bad, "leaves": n_leaves}
+
+
+def p11_tenant_equivalence(ops, dev, seed):
+    """build_step's merged R-tenant decode step against its single-model
+    decode step per tenant, in float32 at full width and 2 layers: logits
+    within EQ_LOGIT_RTOL of the largest |logit| and the same greedy tokens;
+    the negative control, two tenants' weights swapped in the merged step,
+    must fail that check. In bf16 the merged kernel path is held only by
+    ``hold_bf16`` against the float32 plain path on the same weights."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_scan, params_to_scan
+    from repro_torch.tree import tree_map
+
+    n, R, B, S = P11_EQ["layers"], P11_EQ["tenants"], P11_EQ["slots"], P11_EQ["cache"]
+    base = get_config("stablelm-1.6b")
+    cfg = dataclasses.replace(base, num_layers=n, dtype="float32")
+    model = build_model(cfg, device=dev)
+    gens = []
+    for t in range(R):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 130 + t)
+        gens.append(g)
+    params = params_to_scan(cfg, model.init_stacked(gens), stack=lambda ts: torch.stack(ts, 1))
+    params = tree_map(lambda t: t.to(torch.bfloat16).float(), params)  # bf16-exact weights
+    caches = model.init_caches(B, S, tenants=R)
+    for leaves in caches.values():
+        for c in leaves:
+            c.normal_(generator=gens[0])
+            c.copy_(c.to(torch.bfloat16))
+    tokens = torch.randint(1, cfg.vocab_size, (R, B), generator=gens[0], device=dev,
+                           dtype=torch.int32)
+    lengths = torch.randint(S // 2, S - 1, (R, B), generator=gens[0], device=dev,
+                            dtype=torch.int32)
+    merged_name = cut_shape("decode_32k", R * B, S)
+    single_name = cut_shape("decode_32k", B, S)
+    merged, *_ = build_step(cfg, merged_name, make_host_mesh(), tenants=R, device=dev)
+    single, *_ = build_step(cfg, single_name, make_host_mesh(), device=dev)
+
+    def fresh():
+        return tree_map(lambda c: c.clone(), caches)
+
+    with torch.no_grad():
+        got, _ = merged(params, tokens, fresh(), lengths)
+        want = torch.stack([single(tree_map(lambda a: a[t], params), tokens[t],
+                                   tree_map(lambda c: c[t], fresh()), lengths[t])[0]
+                            for t in range(R)])
+        swapped = tree_map(lambda a: a[[1, 0] + list(range(2, R))], params)
+        ctrl, _ = merged(swapped, tokens, fresh(), lengths)
+    torch.cuda.synchronize()
+
+    def judge(x):
+        err = float((x - want).abs().max())
+        same = bool((x.argmax(-1) == want.argmax(-1)).all())
+        return err <= EQ_LOGIT_RTOL * float(want.abs().max()) and same, err, same
+
+    ok, err, same = judge(got)
+    c_ok, c_err, c_same = judge(ctrl)
+    lim = EQ_LOGIT_RTOL * float(want.abs().max())
+    verdict = "ok" if ok and not c_ok else "FAIL"
+    log(f"  f32 stablelm-1.6b ({n} layers) merged decode of R={R} x {B} against caches of {S} vs "
+        f"each tenant's own step: max |d| {err:.3e} (limit {lim:.3e}), greedy tokens equal "
+        f"{same}; control, tenants 0 and 1 swapped: max |d| {c_err:.3e}, greedy tokens equal "
+        f"{c_same}, {'caught' if not c_ok else 'NOT caught'}: {verdict}")
+    if not ok or c_ok:
+        raise PhaseFailed("merged-tenant decode: float32 equivalence failed, or its control "
+                          "passed")
+    # bf16: the merged step's kernel path and plain path against the float32 plain path
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    c16 = tree_map(lambda c: c.to(torch.bfloat16), caches)
+    merged16, *_ = build_step(cfg16, merged_name, make_host_mesh(), tenants=R, device=dev)
+    with torch.no_grad():
+        k16, _ = merged16(p16, tokens, tree_map(lambda c: c.clone(), c16), lengths)
+        plain16 = build_model(cfg16, device=dev, plain_kernels=True)
+        p16_out, _ = plain16.forward_decode_tenants(params_from_scan(cfg16, p16, True), tokens,
+                                                    tree_map(lambda c: c.clone(), c16), lengths)
+        plain32 = build_model(cfg, device=dev, plain_kernels=True)
+        ref32, _ = plain32.forward_decode_tenants(params_from_scan(cfg, params, True), tokens,
+                                                  fresh(), lengths)
+    hold_bf16(f"stablelm-1.6b merged decode R={R} ({n} layers)", k16, p16_out, ref32)
+    del params, caches, p16, c16
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": err, "limit": lim, "control_max_abs_diff": c_err}
+
+
+def phase_dryrun_steps(ops, dev, seed):
+    """Phase 11: build_step's programs on the card (the P11_STEPS), the
+    kernels at their shapes, the two float32 equivalences with their
+    negative controls, and the dry-run children (started first, niced).
+    Returns (the phase record, launches by kernel and variant)."""
+    import torch
+
+    t_start = time.perf_counter()
+    card = gpu_identity()
+    log(f"  card: {card}")
+    with tempfile.TemporaryDirectory(prefix="repro_dryrun_") as tmp:
+        procs = start_dryruns(tmp)
+        try:
+            steps = [p11_step(ops, dev, seed, *case) for case in P11_STEPS]
+            errs = p11_kernels(ops, dev, seed)
+            eq = {arch: p11_microbatch_equivalence(ops, arch, dev, seed)
+                  for arch in ("stablelm-1.6b", "rwkv6-1.6b")}
+            eq["tenants"] = p11_tenant_equivalence(ops, dev, seed)
+            t_card = time.perf_counter() - t_start
+            host, pod, cuts = finish_dryruns(procs, tmp, t_start)
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, 9)
+                    proc.wait()
+    for rec, (arch, _, _, _, mb, tenants) in zip(steps, P11_STEPS):
+        cut = cuts.get(record_name(arch, rec["shape"], "host", mb, tenants))
+        if cut is None or cut["status"] != "ok":
+            raise PhaseFailed(f"no meta record of {arch} {rec['shape']}")
+        mem = cut["memory_analysis"]
+        if mem["argument_size_in_bytes"] != rec["arguments_bytes"]:
+            raise PhaseFailed(f"{arch} {rec['shape']}: the dry run's argument bytes "
+                              f"{mem['argument_size_in_bytes']} are not the card's "
+                              f"{rec['arguments_bytes']}")
+        rec["meta_temp_bytes"] = mem["temp_size_in_bytes"]
+        rec["meta_flops"] = cut["hlo_flops_raw"]
+        rec["analytic_flops"] = cut["analytic_flops"]
+        log(f"  {arch} {rec['kind']} {rec['shape']} mb {mb} R {tenants}: arguments "
+            f"{rec['arguments_bytes'] / 1e9:.3f} GB (dry run: equal); temporaries: meta run "
+            f"{rec['meta_temp_bytes'] / 1e9:.2f} GB, card max_memory_allocated - arguments "
+            f"{rec['peak_minus_arguments_bytes'] / 1e9:.2f} GB; step {rec['step_ms']:.1f} ms "
+            f"({card})")
+    launches = {}
+    for rec in steps:
+        for k, v in rec["launches"].items():
+            for variant, n in v.items():
+                launches.setdefault(k, {}).setdefault(variant, 0)
+                launches[k][variant] += n
+    wall = time.perf_counter() - t_start
+    log(f"  phase 11: {wall:.1f} s ({t_card:.1f} s on the card's side; budget {P11_BUDGET_S:.0f} "
+        f"s); launches by kernel and variant {launches}")
+    if wall > P11_BUDGET_S:
+        raise PhaseFailed(f"phase 11 took {wall:.1f} s, over its {P11_BUDGET_S:.0f} s budget")
+    torch.cuda.empty_cache()
+    record = {"card": card, "steps": steps, "kernel_max_abs_err": errs, "equivalence": eq,
+              "host_records": {f"{a} x {s}": r["status"] for (a, s), r in host.items()},
+              "pod1": {k: pod[k] for k in ("arch", "shape", "mesh", "chips",
+                                           "memory_analysis")},
+              "wall_s": wall, "card_side_s": t_card}
+    return record, launches
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -3528,7 +4165,7 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -3538,7 +4175,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows-out", metavar="FILE",
                     help="write the kernels rows to FILE as JSON, in place of the closing "
                          "lines (how phase 4 reports to the run that started it)")
+    ap.add_argument("--meta-cuts", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.meta_cuts:  # phase 11's child: the dry run's records of its cut shapes
+        return meta_cut_records(args.meta_cuts)
     phases = {int(p) for p in args.phases.split(",")}
     # Phase 4's space_only spreads its products over 32 streams (Hyper-Q),
     # which map onto 32 hardware queues only with this setting (CUDA's
@@ -3566,7 +4206,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     rows = []
-    fleet = front = trained = None
+    fleet = front = trained = dry = None
     try:
         if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
             build_report(_build)
@@ -3630,6 +4270,17 @@ def main(argv=None) -> int:
             with phase_wall(10):
                 train_rows, trained = phase_train(ops, dev, args.seed, args.profile)
                 rows += train_rows
+        if 11 in phases:
+            torch.cuda.empty_cache()
+            log("phase 11: build_step's programs on the card (train, prefill, decode, merged "
+                "decode), the float32 equivalences, the dry run")
+            with phase_wall(11):
+                dry, p11_launches = phase_dryrun_steps(ops, dev, args.seed)
+            for name, by_variant in p11_launches.items():
+                row = next((r for r in rows if r["name"] == name), None)
+                if row is not None:
+                    row["phase11_launches_by_variant"] = by_variant
+                    row["phase11_max_abs_err"] = dry["kernel_max_abs_err"][name]
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3642,6 +4293,8 @@ def main(argv=None) -> int:
         log(json.dumps({"front_door": front}))
     if trained is not None:
         log(json.dumps({"train": trained}))
+    if dry is not None:
+        log(json.dumps({"dryrun_steps": dry}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())

@@ -1,4 +1,5 @@
-"""Configuration: model/scheduler dataclasses + the architecture registry."""
+"""Configuration: model/runtime/scheduler dataclasses, input shapes and the
+architecture registry."""
 
 from repro_torch.config.model import (
     AttentionKind,
@@ -14,7 +15,8 @@ from repro_torch.config.registry import (
     register_config,
     smoke_variant,
 )
-from repro_torch.config.runtime import ScheduleConfig
+from repro_torch.config.runtime import MeshConfig, RuntimeConfig, ScheduleConfig
+from repro_torch.config.shapes import INPUT_SHAPES, InputShape, get_shape
 
 __all__ = [
     "AttentionKind",
@@ -23,7 +25,12 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "MeshConfig",
+    "RuntimeConfig",
     "ScheduleConfig",
+    "InputShape",
+    "INPUT_SHAPES",
+    "get_shape",
     "get_config",
     "list_configs",
     "register_config",

@@ -1,9 +1,46 @@
-"""Scheduler configuration (field-for-field the JAX package's ``ScheduleConfig``)."""
+"""Runtime, mesh and scheduler configuration (field for field the JAX
+package's ``MeshConfig``, ``ScheduleConfig`` and ``RuntimeConfig``).
+
+``MeshConfig`` describes the reference's device meshes; the port runs on
+one card, where a mesh is only the count its sharding arithmetic reads
+(``launch.mesh``, ``distributed.sharding``).
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description (pod, data, model)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axis_names
+
+    @staticmethod
+    def single_pod() -> "MeshConfig":
+        return MeshConfig((16, 16), ("data", "model"))
+
+    @staticmethod
+    def two_pod() -> "MeshConfig":
+        return MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+    @staticmethod
+    def host_debug() -> "MeshConfig":
+        return MeshConfig((1, 1), ("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +143,23 @@ class ScheduleConfig:
                 "(the ragged merge scans buckets in family order, not "
                 "deadline order)"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Top-level runtime bundle consumed by launchers."""
+
+    arch: str = "granite-3-8b"
+    shape: str = "train_4k"
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig.single_pod)
+    schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
+    num_tenants: int = 1
+    seed: int = 0
+    # training knobs
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 300
+    # remat policy: "none" | "block" | "full"
+    remat: str = "block"
+    checkpoint_dir: Optional[str] = None

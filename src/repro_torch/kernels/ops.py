@@ -2,7 +2,8 @@
 
 Routing is by the device of the tensors, never by a fallback: a CUDA
 tensor goes to the hand-written kernel (which raises on anything it does
-not take), a CPU tensor to the plain PyTorch version in ``ref``. The
+not take), a CPU or meta tensor to the plain PyTorch version in ``ref``
+(the meta device is the dry run's: shapes and counts, no values). The
 ``*_plain`` entry points run the plain version on any device; they are the
 explicit opt-in the model's plain path (tests, ``chip_smoke.py``) uses to
 hold the kernels against it on the card.
@@ -104,8 +105,11 @@ class _WKV6Scan(torch.autograd.Function):
         return _wkv.wkv6_scan_bwd(r, k, v, w, u, dout, ckpt=ckpt)
 
 
-def _check_cpu(t: torch.Tensor, op: str) -> None:
-    if t.device.type != "cpu":
+PLAIN_DEVICES = ("cpu", "meta")  # device types whose tensors go to the plain versions
+
+
+def _check_plain_device(t: torch.Tensor, op: str) -> None:
+    if t.device.type not in PLAIN_DEVICES:
         raise ValueError(f"{op}: no kernel for device {t.device}")
 
 
@@ -124,7 +128,7 @@ def batched_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     if x.is_cuda:
         return _bg.batched_gemm(x, w)
-    _check_cpu(x, "batched_gemm")
+    _check_plain_device(x, "batched_gemm")
     return batched_gemm_plain(x, w)
 
 
@@ -144,7 +148,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups, *,
     """
     if x.is_cuda:
         return _gg.grouped_gemm(x, w, block_groups, bm)
-    _check_cpu(x, "grouped_gemm")
+    _check_plain_device(x, "grouped_gemm")
     return grouped_gemm_plain(x, w, block_groups, bm=bm)
 
 
@@ -181,7 +185,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Prefill attention (GQA, causal, optional sliding window, q_offset)."""
     if not q.is_cuda:
-        _check_cpu(q, "flash_attention")
+        _check_plain_device(q, "flash_attention")
     if flash_attention_route(q.is_cuda, logit_softcap) == "kernel":
         if _grad_needed(q, k, v):
             _fa.check_bwd(q, k, q_offset=q_offset)
@@ -225,7 +229,7 @@ def decode_attention(
     """One-token decode against a KV cache."""
     if q.is_cuda:
         return _da.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
-    _check_cpu(q, "decode_attention")
+    _check_plain_device(q, "decode_attention")
     return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)
 
 
@@ -267,7 +271,7 @@ def wkv6_scan(
             _wkv.check_bwd(r, v, init_state, final_state)
             return _WKV6Scan.apply(r, k, v, w, u)
         return _wkv.wkv6_scan(r, k, v, w, u, init_state, final_state)
-    _check_cpu(r, "wkv6_scan")
+    _check_plain_device(r, "wkv6_scan")
     return wkv6_scan_plain(r, k, v, w, u, init_state, final_state)
 
 

@@ -276,6 +276,15 @@ def wkv6_scan(
         state = torch.zeros((bh, N, V), dtype=torch.float32, device=r.device)
     else:
         state = init_state.reshape(bh, N, V).float().clone()
+    if r.device.type == "meta":
+        # Meta tensors carry no values, so nothing orders the T steps: each
+        # op of the step runs once over all T steps' rows, the same
+        # arithmetic as the loop below (T times one step's elements) in
+        # one dispatch, which is what a count on the meta device reads.
+        kv = kf[..., None] * vf[..., None, :]                           # (bh, T, N, V)
+        out = torch.matmul(rf[:, :, None, :], state[:, None] + uf[:, None] * kv)[:, :, 0]
+        state = (decay[..., None] * state[:, None] + kv)[:, -1]
+        return out.reshape(*lead, T, V).to(r.dtype), state
     out = torch.empty((bh, T, V), dtype=torch.float32, device=r.device)
     with _full_f32():
         for t in range(T):

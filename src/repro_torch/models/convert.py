@@ -20,13 +20,14 @@ the port never touches a jax array; tests pass
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import AttentionKind, BlockKind, ModelConfig
 from repro_torch.models.transformer import Caches, Params, cache_slots, resolve_device
+from repro_torch.tree import tree_map
 
 
 def find_unit(cfg: ModelConfig) -> Tuple[List[Tuple[BlockKind, AttentionKind]], int, int]:
@@ -94,24 +95,9 @@ def _to_numpy(tree: Any) -> Any:
 
 def params_to_jax_numpy(cfg: ModelConfig, params: Params) -> Dict[str, Any]:
     """Inverse of ``params_from_jax_numpy``: numpy leaves in the JAX layout
-    (layers stacked per unit position, the tail under ``rem``). numpy has
-    no bfloat16, so bf16 leaves come back as float32."""
-    unit, reps, rem = find_unit(cfg)
-    layers = [_to_numpy(lp) for lp in params["layers"]]
-    tree: Dict[str, Any] = {name: _to_numpy(params[name])
-                            for name in ("embed", "final_norm", *TOP_LEVEL) if name in params}
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
-    shared = BlockKind.HYBRID_SHARED_ATTN
-    tree["unit"] = {f"pos{p}": stack([layers[r * len(unit) + p] for r in range(reps)])
-                    for p in range(len(unit)) if unit[p][0] != shared}
-    tree["rem"] = {f"rem{j}": layers[reps * len(unit) + j] for j in range(rem)
-                   if unit[j][0] != shared}
-    return tree
+    (``params_to_scan``: layers stacked per unit position, the tail under
+    ``rem``). numpy has no bfloat16, so bf16 leaves come back as float32."""
+    return _to_numpy(params_to_scan(cfg, params))
 
 
 def caches_from_jax_numpy(cfg: ModelConfig, tree: Dict[str, Any], device=None) -> Caches:
@@ -148,3 +134,47 @@ def caches_to_jax_numpy(cfg: ModelConfig, caches: Caches) -> Dict[str, Any]:
         i = reps * len(unit) + j
         tree["rem"][f"rem{j}"] = {name: leaf(i, name) for name in slots[i][0]}
     return tree
+
+
+def params_to_scan(cfg: ModelConfig, params: Params,
+                   stack: Callable[[List[torch.Tensor]], torch.Tensor] = torch.stack
+                   ) -> Dict[str, Any]:
+    """The port's params in the JAX layout, as tensors: the layers that share
+    a unit position stacked on a leading ``reps`` axis (``stack``; a copy on
+    a device, free on the meta device), the tail under ``rem``, top-level
+    leaves as they are. A tenant-stacked cohort's leaves keep their tenant
+    axis first: (R, reps, ...) with ``stack=lambda ts: torch.stack(ts, 1)``."""
+    unit, reps, rem = find_unit(cfg)
+    layers = params["layers"]
+    tree: Dict[str, Any] = {name: params[name]
+                            for name in ("embed", "final_norm", *TOP_LEVEL) if name in params}
+
+    def stacked(trees):
+        if isinstance(trees[0], dict):
+            return {k: stacked([t[k] for t in trees]) for k in trees[0]}
+        return stack(trees)
+
+    shared = BlockKind.HYBRID_SHARED_ATTN
+    tree["unit"] = {f"pos{p}": stacked([layers[r * len(unit) + p] for r in range(reps)])
+                    for p in range(len(unit)) if unit[p][0] != shared}
+    tree["rem"] = {f"rem{j}": layers[reps * len(unit) + j] for j in range(rem)
+                   if unit[j][0] != shared}
+    return tree
+
+
+def params_from_scan(cfg: ModelConfig, tree: Dict[str, Any], tenant_axis: bool = False) -> Params:
+    """Inverse of ``params_to_scan`` without a copy: each layer's leaves are
+    views into its stack (``stack[rep]``, or ``stack[:, rep]`` past a
+    leading tenant axis), so gradients and in-place updates reach the
+    stacks."""
+    params: Params = {name: tree[name]
+                      for name in ("embed", "final_norm", *TOP_LEVEL) if name in tree}
+
+    def pick(rep):
+        return (lambda a: a[:, rep]) if tenant_axis else (lambda a: a[rep])
+
+    params["layers"] = [
+        {} if kind == BlockKind.HYBRID_SHARED_ATTN
+        else tree[group][key] if rep is None else tree_map(pick(rep), tree[group][key])
+        for kind, (group, key, rep) in zip(cfg.layer_pattern, _layer_sources(cfg))]
+    return params

@@ -11,11 +11,14 @@ leading tenant axis (R, B, ...) in a stacked cohort. As for attention,
 caches are updated IN PLACE.
 
 ``rwkv_prefill`` honours the incoming state (zero for a fresh sequence,
-the previous chunk's for a continuation) and runs the whole sequence
-through one ``wkv6_scan`` launch, which writes the state after the last
-token straight into the cache: the JAX package runs the jnp oracle there
-plus a second scan for the state. Like the JAX prefill, it hands the scan
-``w`` rounded to the model dtype (the JAX decode step keeps it float32).
+the previous chunk's for a continuation) and keeps the JAX prefill's two
+results: the outputs of a scan with ``w`` rounded to the model dtype, and
+the cache's new state rolled with float32 ``w`` (the reference's
+``_wkv_final_state``; its decode step keeps ``w`` float32 too). In float32
+the two coincide and one ``wkv6_scan`` launch writes the state after the
+last token straight into the cache; in a narrower model dtype, by that
+fixed rule, a first launch gives the outputs and leaves the cache alone,
+and a second, with float32 ``w``, writes the state in place.
 ``rwkv_train`` is the train mode: from a zero previous token and a zero
 state, keeping no state; under autograd on the card, ``ops.wkv6_scan`` runs
 K5 forward and its backward kernel. ``rwkv_decode`` is one token for R
@@ -82,6 +85,13 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, object]]:
             "shift_cm": ((cfg.d_model,), None)}
 
 
+def prefill_scans(dtype: torch.dtype) -> int:
+    """``wkv6_scan`` calls a prefill makes per layer in model dtype ``dtype``:
+    one in float32; two in a narrower dtype (the outputs from rounded w,
+    then the kept state from float32 w)."""
+    return 1 if dtype == torch.float32 else 2
+
+
 def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """x (B, S, d); prev (B, d), the token before x[:, 0]."""
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
@@ -133,8 +143,12 @@ def rwkv_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache,
 
     scan = ops.wkv6_scan_plain if plain else ops.wkv6_scan
     wkv = cache["wkv"]
-    o, _ = scan(heads(r), heads(k), heads(v), heads(w.to(r.dtype)), p["u"],
-                init_state=wkv, final_state=wkv)
+    if prefill_scans(r.dtype) == 1:  # float32: one scan gives the outputs and the kept state
+        o, _ = scan(heads(r), heads(k), heads(v), heads(w), p["u"],
+                    init_state=wkv, final_state=wkv)
+    else:  # the outputs from w rounded to r's dtype, the kept state from float32 w
+        o, _ = scan(heads(r), heads(k), heads(v), heads(w.to(r.dtype)), p["u"], init_state=wkv)
+        scan(heads(r), heads(k), heads(v), heads(w), p["u"], init_state=wkv, final_state=wkv)
     o = o.transpose(1, 2).reshape(B, S, d)
     x = x + torch.matmul(layers.groupnorm_heads(o, H) * g, p["wo"])
     cache["shift_tm"].copy_(h[:, -1])

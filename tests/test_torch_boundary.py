@@ -103,6 +103,35 @@ def test_the_scans_cover_the_training_path():
     assert PORT / "training" / "__init__.py" in files
 
 
+def test_the_scans_cover_distributed_and_the_dry_run():
+    """The package walk and the file scan reach the sharding rules, the
+    constraints, the meshes, the step builders, the dry run and the shape
+    and runtime configs, so none may import jax or anything of repro."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    for mod in ("distributed.sharding", "distributed.constraints", "launch.mesh",
+                "launch.steps", "launch.dryrun", "config.shapes", "config.runtime"):
+        assert f"repro_torch.{mod}" in names
+        assert PORT / (mod.replace(".", "/") + ".py") in files
+    assert "repro_torch.distributed" in names
+    assert PORT / "distributed" / "__init__.py" in files
+
+
+def test_dryrun_help_runs_with_jax_unimportable():
+    """``python -m repro_torch.launch.dryrun --help`` in a fresh interpreter
+    in which jax and the reference package cannot be imported."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            "sys.argv = ['python -m repro_torch.launch.dryrun', '--help']\n"
+            "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__', "
+            "alter_sys=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "{pod1,pod2,host}" in out.stdout
+
+
 @pytest.mark.parametrize("mod", ["training", "training.checkpoint", "launch.train"])
 def test_training_modules_import_neither_msgpack_nor_jax(mod):
     """The checkpoint writes the reference's msgpack file itself: importing
@@ -189,6 +218,32 @@ def test_schedule_config_equals_the_jax_package():
     kw = dict(batching_policy="edf", preemption=True, admission_policy="feasibility",
               oversubscription=1.5, max_pending_per_tenant=4)
     assert _plain(tconfig.ScheduleConfig(**kw)) == _plain(jconfig.ScheduleConfig(**kw))
+
+
+def test_input_shapes_equal_the_jax_package():
+    assert list(tconfig.INPUT_SHAPES) == list(jconfig.INPUT_SHAPES)
+    for name, want in jconfig.INPUT_SHAPES.items():
+        got = tconfig.get_shape(name)
+        assert [f.name for f in dataclasses.fields(got)] == \
+            [f.name for f in dataclasses.fields(want)]
+        assert _plain(got) == _plain(want) and got.is_decode == want.is_decode
+    with pytest.raises(KeyError, match="unknown input shape"):
+        tconfig.get_shape("not-a-shape")
+
+
+def test_mesh_and_runtime_configs_equal_the_jax_package():
+    for ctor in ("single_pod", "two_pod", "host_debug"):
+        got, want = getattr(tconfig.MeshConfig, ctor)(), getattr(jconfig.MeshConfig, ctor)()
+        assert _plain(got) == _plain(want)
+        assert (got.num_devices, got.multi_pod) == (want.num_devices, want.multi_pod)
+    assert _plain(tconfig.MeshConfig()) == _plain(jconfig.MeshConfig())
+    for cls in ("MeshConfig", "RuntimeConfig"):
+        assert [f.name for f in dataclasses.fields(getattr(tconfig, cls))] == \
+            [f.name for f in dataclasses.fields(getattr(jconfig, cls))]
+    assert _plain(tconfig.RuntimeConfig()) == _plain(jconfig.RuntimeConfig())
+    kw = dict(arch="rwkv6-1.6b", shape="decode_32k", num_tenants=4, remat="none")
+    assert _plain(tconfig.RuntimeConfig(mesh=tconfig.MeshConfig.two_pod(), **kw)) == \
+        _plain(jconfig.RuntimeConfig(mesh=jconfig.MeshConfig.two_pod(), **kw))
 
 
 def test_registry_lists_only_ported_archs():

@@ -164,5 +164,12 @@ def test_wrappers_refuse_cpu_tensors_and_other_devices():
         tbg.batched_gemm(torch.ones(1, 2, 2), torch.ones(1, 2, 2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgg.grouped_gemm(torch.ones(16, 2), torch.ones(1, 2, 2), np.array([0]), bm=16)
+    class Elsewhere:  # a tensor on a device with neither a kernel nor a plain version
+        is_cuda = False
+        device = torch.device("xpu")
+
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.batched_gemm(torch.ones(1, 2, 2, device="meta"), torch.ones(1, 2, 2, device="meta"))
+        ops.batched_gemm(Elsewhere(), Elsewhere())
+    # the meta device (the dry run's) goes to the plain version by device, as the CPU does
+    out = ops.batched_gemm(torch.ones(1, 2, 2, device="meta"), torch.ones(1, 2, 2, device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 2, 2)
