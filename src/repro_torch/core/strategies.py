@@ -61,7 +61,11 @@ class TimeOnly(Strategy):
 
     name = "time_only"
 
-    def __init__(self):
+    def __init__(self, switch_overhead_s: float = 0.0):
+        # Optional modeled context-switch cost, slept after each synced
+        # dispatch; 0 keeps it purely measured (the dispatch and sync cost
+        # is real on its own).
+        self.switch_overhead_s = switch_overhead_s
         self._data: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
     def prepare(self, problems: List[GemmProblem]) -> None:
@@ -73,6 +77,8 @@ class TimeOnly(Strategy):
         outs = []
         for x, w in self._data:
             outs.append(sync(torch.matmul(x, w)))  # sync = context-switch boundary
+            if self.switch_overhead_s:
+                time.sleep(self.switch_overhead_s)
         return outs, time.perf_counter() - t0
 
 

@@ -95,6 +95,26 @@ class OpCounter:
         self.plain_calls = 0
         self.variants = {}
 
+    def copy(self) -> "OpCounter":
+        return OpCounter(self.launches, self.plain_calls, dict(self.variants))
+
+    def since(self, before: "OpCounter") -> "OpCounter":
+        """What was counted after ``before`` (an earlier ``copy()``)."""
+        variants = {k: n - before.variants.get(k, 0) for k, n in self.variants.items()}
+        return OpCounter(self.launches - before.launches, self.plain_calls - before.plain_calls,
+                         {k: n for k, n in variants.items() if n})
+
+    def add(self, other: "OpCounter", times: int = 1) -> None:
+        """Add ``times`` x ``other``'s counts (a negative ``times`` takes
+        them out): how a CUDA graph's launches are counted, once per
+        replay and never at capture (``ops.capturing``)."""
+        self.launches += times * other.launches
+        self.plain_calls += times * other.plain_calls
+        for k, n in other.variants.items():
+            self.variants[k] = self.variants.get(k, 0) + times * n
+            if not self.variants[k]:
+                del self.variants[k]
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")

@@ -10,7 +10,10 @@ hold the kernels against it on the card.
 
 Each op keeps an ``OpCounter`` (``COUNTERS``): ``launches`` counts kernel
 launches (incremented by the kernel wrapper, where it launches) and
-``plain_calls`` counts calls of the plain version.
+``plain_calls`` counts calls of the plain version. Under CUDA graphs
+(``serving.graphs``) a capture counts nothing and each replay counts the
+graph's launches again (``capturing``, ``replayed``), so the counts stay
+those of the kernels that ran.
 
 Training. ``flash_attention`` and ``wkv6_scan`` on CUDA tensors, when
 autograd is recording (``torch.is_grad_enabled()``) and an input
@@ -30,7 +33,8 @@ autograd differentiates the plain versions.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -55,6 +59,33 @@ COUNTERS: Dict[str, _build.OpCounter] = {
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, _build.OpCounter]]:
+    """Count the ops called inside as a CUDA graph's: a wrapper called
+    while a graph is captured counts a launch that is recorded, not run.
+    On exit those counts are taken back out of ``COUNTERS`` and left in the
+    yielded dict (per op that counted, what the graph launches at each
+    replay); ``replayed`` adds them back once per replay. Counters are
+    process-wide: no other thread may launch while a graph is captured."""
+    before = {name: c.copy() for name, c in COUNTERS.items()}
+    captured: Dict[str, _build.OpCounter] = {}
+    try:
+        yield captured
+    finally:
+        for name, c in COUNTERS.items():
+            d = c.since(before[name])
+            if d.launches or d.plain_calls:
+                captured[name] = d
+                c.add(d, -1)
+
+
+def replayed(captured: Dict[str, _build.OpCounter], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose ``capturing`` dict is
+    ``captured``."""
+    for name, d in captured.items():
+        COUNTERS[name].add(d, times)
 
 
 def _grad_needed(*ts: torch.Tensor) -> bool:

@@ -26,6 +26,15 @@ Same submit/step/run_until_drained/report surface as the JAX package's
 engine. Differences: caches are updated in place (per-tenant decode writes
 through views into the stacked caches), and the engine keeps only the
 stacked weights; a tenant's own weights are views into them.
+
+Decode steps run as ``serving.graphs.StepProgram``s, the counterpart of the
+reference's jitted ``_decode_all`` / ``_decode_one``: tokens and lengths go
+through static device buffers, and on the card each step (the merged one,
+or each tenant's) is captured as a CUDA graph after its first, eager run
+and replayed from then on (``graphs.use_graphs``; ``graphs=False`` runs
+eagerly on the card). Prefills stay eager: nearly every prompt has a length
+of its own. The caches and the stacked weights are captured by pointer:
+they are written in place and never rebound.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from repro_torch.core.scheduler import DynamicSpaceTimeScheduler
 from repro_torch.core.tenancy import stack_params, tenant_view
 from repro_torch.core.workload import Workload
 from repro_torch.models.transformer import Model
+from repro_torch.serving import graphs as _graphs
 from repro_torch.serving.kv_cache import SlotManager
 from repro_torch.serving.request import InferenceRequest, RequestState
 from repro_torch.serving.sampling import SamplingParams, sample
@@ -77,6 +87,9 @@ class MultiTenantEngine:
     Give either ``tenant_params`` (a list of R per-tenant param trees, stacked
     here; the caller may drop them afterwards) or ``stacked_params`` (one
     tree with a leading tenant axis, e.g. from ``Model.init_stacked``).
+    ``graphs`` picks how decode steps run: None by the device (CUDA graphs
+    on the card, eager elsewhere), False eager, True graphs (the card only;
+    raises elsewhere); see ``serving.graphs``.
     """
 
     def __init__(
@@ -86,6 +99,7 @@ class MultiTenantEngine:
         config: Optional[EngineConfig] = None,
         *,
         stacked_params: Optional[Any] = None,
+        graphs: Optional[bool] = None,
     ):
         if config is None:
             raise ValueError("MultiTenantEngine needs an EngineConfig")
@@ -102,6 +116,7 @@ class MultiTenantEngine:
         self.cfg = config
         self.device = model.device
         self.stacked_params = stacked_params
+        self.programs = _graphs.StepPrograms(self.device, _graphs.use_graphs(self.device, graphs))
 
         R, B = config.num_tenants, config.slots_per_tenant
         self.caches = model.init_caches(B, config.cache_len, tenants=R)
@@ -232,8 +247,22 @@ class MultiTenantEngine:
             out[t] = self.slots.lengths(t)
         return out
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def decode_program(self, tenant: Optional[int] = None) -> _graphs.StepProgram:
+        """The merged decode step (``tenant`` None) or tenant ``tenant``'s
+        own, made on first use over the caches and weights as they are."""
+        model, params, caches = self.model, self.stacked_params, self.caches
+        B = self.cfg.slots_per_tenant
+        if tenant is None:
+            def merged():
+                return lambda tok, lens: model.forward_decode_tenants(params, tok, caches, lens)[0]
+            return self.programs.get(None, merged, (self.cfg.num_tenants, B))
+
+        def one():
+            # the tenant's weights and caches are views into the stacks
+            params_t = tenant_view(params, tenant)
+            caches_t = {name: [c[tenant] for c in layers] for name, layers in caches.items()}
+            return lambda tok, lens: model.forward_decode(params_t, tok, caches_t, lens)[0]
+        return self.programs.get(tenant, one, (B,))
 
     def _execute_decode_cohort(self, batch: List[Workload]) -> List[torch.Tensor]:
         """space_time executor: ONE merged step for the whole cohort --
@@ -243,11 +272,8 @@ class MultiTenantEngine:
         splits the cohort's workloads across pump batches (caches must
         advance once); later sub-batches reuse the same step's logits."""
         if self._cohort_step != self.steps:
-            logits, _ = self.model.forward_decode_tenants(
-                self.stacked_params, self._to_device(self.last_token), self.caches,
-                self._to_device(self._lengths()))
+            self._step_logits = self.decode_program().run(self.last_token, self._lengths())
             self._sync()
-            self._step_logits = logits
             self._cohort_step = self.steps
         return [self._step_logits[wl.payload] for wl in batch]
 
@@ -258,17 +284,14 @@ class MultiTenantEngine:
         outs = []
         for wl in batch:
             t = wl.payload
-            caches_t = {name: [c[t] for c in layers] for name, layers in self.caches.items()}
-            lg, _ = self.model.forward_decode(
-                tenant_view(self.stacked_params, t), self._to_device(self.last_token[t]),
-                caches_t, self._to_device(np.asarray(self.slots.lengths(t), np.int64)))
+            lg = self.decode_program(t).run(self.last_token[t], self.slots.lengths(t))
             self._sync()
             if self._step_logits is None:
                 R, B = self.cfg.num_tenants, self.cfg.slots_per_tenant
                 self._step_logits = torch.zeros((R, B, lg.shape[-1]), dtype=lg.dtype,
                                                 device=self.device)
             self._step_logits[t] = lg
-            outs.append(lg)
+            outs.append(self._step_logits[t])
         return outs
 
     def step(self) -> int:

@@ -117,6 +117,16 @@ def test_the_scans_cover_distributed_and_the_dry_run():
     assert PORT / "distributed" / "__init__.py" in files
 
 
+def test_the_scans_cover_the_decode_programs():
+    """The package walk and the file scan reach the engine's decode
+    programs (CUDA graphs of the decode steps), so they may import neither
+    jax nor anything of repro."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    assert "repro_torch.serving.graphs" in names
+    assert PORT / "serving" / "graphs.py" in files
+
+
 def test_dryrun_help_runs_with_jax_unimportable():
     """``python -m repro_torch.launch.dryrun --help`` in a fresh interpreter
     in which jax and the reference package cannot be imported."""

@@ -214,6 +214,31 @@ def test_strategies_match_jax(name):
         np.testing.assert_allclose(got.numpy(), x @ w, rtol=1e-5, atol=1e-3)
 
 
+def test_time_only_switch_overhead_sleeps_once_per_dispatch(monkeypatch):
+    """``TimeOnly(switch_overhead_s=s)`` takes the reference's argument,
+    sleeps ``s`` once after each synced dispatch, and gives the outputs of
+    ``TimeOnly()``."""
+    rng = np.random.default_rng(6)
+    problems = [PORT.problem(t, *_mats(rng, [(8, 16), (16, 12)])) for t in range(3)]
+    plain = tstrat.TimeOnly()
+    assert plain.switch_overhead_s == 0.0
+    plain.prepare(problems)
+    want, _ = plain.run()
+    slept = []
+    monkeypatch.setattr(tstrat.time, "sleep", slept.append)
+    s = tstrat.TimeOnly(switch_overhead_s=0.25)
+    s.prepare(problems)
+    got, _ = s.run()
+    assert slept == [0.25] * len(problems)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    slept.clear()
+    plain.run()
+    assert slept == []
+    jax_sig = jstrat.TimeOnly(switch_overhead_s=0.25).switch_overhead_s
+    assert s.switch_overhead_s == jax_sig
+
+
 def test_tenant_manager_matches_jax():
     rng = np.random.default_rng(5)
     params = {t: {"w": rng.standard_normal((4, 3)).astype(np.float32)} for t in range(4)}
