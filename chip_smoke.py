@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases 10     # training: K4 and K5 backward kernels, train()
     python3 chip_smoke.py --phases 10 --profile  # + where a full-width train step's time goes
     python3 chip_smoke.py --phases 11     # the dry run and build_step's programs on the card
+    python3 chip_smoke.py --phases 12     # the example scripts of repro_torch/examples
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch/``), then:
@@ -139,12 +140,24 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      kernel path against ``plain_kernels=True``, in float32 and (each
      against the float32 plain path) bf16; (d) ``train()`` on both at full
      width and depth in bf16 (4 x 1024 and 4 x 512 tokens, 20 steps,
-     remat "block"), a checkpoint saved after the last step and restored
-     leaf for leaf; it fails unless every loss and grad norm is finite, the
-     last loss is below the first, the forward kernel launched 2 x layers
-     x steps times and the backward kernel (wgmma, cluster) layers x steps
-     times, and no op made a plain call. It prints a ``train`` line and the
-     two backward kernels' rows;
+     remat "block"), its step a CUDA graph (``training.graphs``: one eager
+     step, one capture, replays), a checkpoint saved after the last step and
+     restored leaf for leaf; it fails unless the step ran graphed, every
+     loss and grad norm is finite, the last loss is below the first, the
+     forward kernel launched 2 x layers x steps times and the backward
+     kernel (wgmma, cluster) layers x steps times, replays counted, and no
+     op made a plain call; (e) on both, at full width and depth in bf16, a
+     graphed ``TrainProgram`` and an eager one from the same params over
+     the same batches for 8 steps: every step's loss, grad norm and lr and
+     then every param, moment and the step counter must be bitwise equal,
+     and a replay must launch one step's forward and backward kernels; the
+     host wall of steady steps on both routes, the device time of replays
+     back to back (CUDA events), the idle shares, kernels a step (the
+     profiler), the capture's seconds and pool against the eager step's
+     peak memory; two controls, each from equal states, must fail the same
+     check: replays over an unstaged batch, and a program that does not
+     write its step counter back. It prints a ``train`` line, a
+     ``train_graphs`` line and the two backward kernels' rows;
  11. runs ``launch.steps.build_step``'s programs on the card at full width
      and depth in bf16, the assigned shapes' batch cut to fit (train_4k 4 x
      4096, microbatch 1 and 4, stablelm-1.6b and rwkv6-1.6b; prefill_32k 1 x
@@ -164,7 +177,19 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      repro_torch.launch.dryrun --all --mesh host``, one pod1 record (its
      arguments must be the sum of ``shard_shape`` over its specs) and the
      dry-run records of the steps above. The phase must end within 90 s. It
-     prints a ``dryrun_steps`` line.
+     prints a ``dryrun_steps`` line;
+ 12. runs the port's example scripts (``repro_torch/examples``):
+     ``train_small`` (300 steps of a 4-layer stablelm variant in float32,
+     graphed: K4 cuda_core 2 x 4 x 300 launches, its backward 4 x 300, the
+     loss falling), ``multi_tenant_serving`` (4 tenants, 16 requests of 12
+     tokens, every one served; K4 in the prefills, K3 once per layer and
+     decode pass, the decode step graphed) and ``spacetime_ablation`` (K1
+     simt once per dispatch) in process at the reference's sizes, with no
+     plain call; then each as ``python -m repro_torch.examples.<name>`` in
+     a child that cannot import jax (``train_small`` for 30 steps), and
+     ``quickstart``, ``policy_sweep``
+     and ``fleet_routing`` as niced children at 2000 events; every child
+     must exit 0. It prints an ``examples`` line.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
 zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
@@ -230,7 +255,8 @@ and the eager engine and says whether the profiler saw every kernel inside
 the graphs.
 
 Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
-a ``train`` JSON line (phase 10), a ``dryrun_steps`` JSON line (phase 11), a
+a ``train`` and a ``train_graphs`` JSON line (phase 10), a ``dryrun_steps``
+JSON line (phase 11), an ``examples`` JSON line (phase 12), a
 ``graphs`` JSON line (phases 3, 5, 6, 7),
 a ``kernels`` JSON line (with phase 11's launches by variant on the rows of
 the kernels it runs), the card's
@@ -3587,11 +3613,29 @@ def train_vs_plain(ops, arch, op, dev, seed):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def watch_programs():
+    """The ``TrainProgram``s that ``train()`` makes inside the block."""
+    from repro_torch.training import graphs as tg
+
+    made, make = [], tg.train_program
+
+    def watched(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+    tg.train_program = watched
+    try:
+        yield made
+    finally:
+        tg.train_program = make
+
+
 def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     """(d) ``train()`` on ``arch`` at full width and depth in bf16 for
-    TRAIN_STEPS steps of ``SyntheticTokenStream`` (remat "block"), every
-    step logged; a checkpoint saved after the last step, restored and
-    compared leaf for leaf. The launch counters are reset just before and
+    TRAIN_STEPS steps of ``SyntheticTokenStream`` (remat "block"), its step
+    graphed (one eager pass, one capture, replays), every step logged; a
+    checkpoint saved after the last step, restored and compared leaf for
+    leaf. The launch counters are reset just before and
     read just after: the op's forward kernel must have launched layers x
     steps x 2 times (the block recompute), its backward kernel layers x
     steps times, every launch by the wrapper's variant rule, and no op may
@@ -3619,10 +3663,21 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counters()
     t0 = time.perf_counter()
-    state = train(model, data, steps=TRAIN_STEPS, seed=seed, base_lr=TRAIN_LR,
-                  warmup_steps=TRAIN_WARMUP, log_every=1, checkpoint_path=path, log_fn=log_fn)
+    with watch_programs() as made:
+        state = train(model, data, steps=TRAIN_STEPS, seed=seed, base_lr=TRAIN_LR,
+                      warmup_steps=TRAIN_WARMUP, log_every=1, checkpoint_path=path,
+                      log_fn=log_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    st = made[0].stats()
+    n_made = len(made)
+    made.clear()  # the program (its graph's pool) goes with train()'s return
+    log(f"  train() ran its step {'graphed' if st['graphed'] else 'eagerly'}: "
+        f"{st['eager_passes']} eager pass, {st['captures']} capture ({st['capture_s']:.3f} s, "
+        f"{st['pool_bytes'] / 2**20:.1f} MiB), {st['replays']} replays")
+    if n_made != 1 or (st["graphed"], st["eager_passes"], st["captures"], st["replays"]) != (
+            True, 1, 1, TRAIN_STEPS - 1):
+        raise PhaseFailed(f"{arch} train(): its step did not run graphed: {st}")
     save_s = time.perf_counter() - stamps[-1]  # the last step is logged before the save
     counts = {name: (c.launches, dict(c.variants), c.plain_calls)
               for name, c in ops.COUNTERS.items()}
@@ -3665,7 +3720,7 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
         raise PhaseFailed(f"{arch}: the restored checkpoint differs from the trained state")
     tokens = batch * seq
     rec = {"arch": arch, "dtype": "bfloat16", "layers": n_layers, "batch": batch, "seq": seq,
-           "steps": TRAIN_STEPS, "params": tree_params(state.params),
+           "steps": TRAIN_STEPS, "program": st, "params": tree_params(state.params),
            "median_step_ms": float(np.median(steps_ms)),
            "tokens_per_s": tokens / (float(np.median(steps_ms)) / 1e3),
            "wall_s": wall, "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
@@ -3678,6 +3733,217 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     del state, like, restored, leaves, back
     torch.cuda.empty_cache()
     return rec, counts[op + "_bwd"][0], counts[op + "_bwd"][1]
+
+
+# (e) the train step as a CUDA graph (training.graphs), against eager in lockstep
+GRAPH_TRAIN_STEPS = 8       # lockstep steps from the same params over the same batches
+GRAPH_TRAIN_TOTAL = 1000    # the schedule's length: the lr moves at every step checked
+GRAPH_TRAIN_TIMED = 5       # steady steps timed on the host clock, each route
+GRAPH_TRAIN_REPLAYS = 5     # replays back to back under CUDA events
+GRAPH_CONTROL_STEPS = 3     # lockstep steps of each control
+TRAIN_GRAPH_REPORT = {}     # arch -> numbers, printed as the ``train_graphs`` line
+
+
+def train_step_numbers(m):
+    """(loss, grad_norm, lr) of a step's metrics, read on the host."""
+    import torch
+
+    return torch.stack([m["loss"].float(), m["grad_norm"].float(), m["lr"].float()]).cpu()
+
+
+def state_leaves(prog):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(prog.params) + tree_leaves(prog.opt)
+
+
+def copy_state(dst, src):
+    """Restore ``src``'s params, moments and step counter into ``dst``'s
+    tensors in place (a graphed program's tensors are never rebound)."""
+    import torch
+
+    with torch.no_grad():
+        for a, b in zip(state_leaves(dst), state_leaves(src)):
+            a.copy_(b)
+
+
+def lockstep(eager, graph, batches):
+    """Run both programs over ``batches``, one step each in turn; after every
+    step compare (loss, grad_norm, lr), after the last every param, moment
+    and the step counter. Returns (steps whose three numbers are bitwise
+    equal, their largest gap, state leaves that differ, the largest state
+    gap)."""
+    import torch
+
+    same, gap = 0, 0.0
+    for tok, lab in batches:
+        e = train_step_numbers(eager.run(tok, lab))
+        g = train_step_numbers(graph.run(tok, lab))
+        same += bool(torch.equal(e, g))
+        gap = max(gap, float((e - g).abs().max()))
+    differ, sgap = 0, 0.0
+    for a, b in zip(state_leaves(eager), state_leaves(graph)):
+        if not torch.equal(a, b):
+            differ += 1
+            sgap = max(sgap, float((a.detach().float() - b.detach().float()).abs().max()))
+    return same, gap, differ, sgap
+
+
+def step_kernels(fn):
+    """Kernels and their device ms in one call of ``fn`` (synchronized),
+    under torch.profiler (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3
+
+
+def graph_train_check(ops, arch, batch, seq, op, dev, seed):
+    """(e) ``arch`` at full width and depth in bf16: an eager and a graphed
+    ``TrainProgram`` from the same params over the same batches for
+    GRAPH_TRAIN_STEPS steps, every step's loss, grad norm and lr and then
+    every param, moment and the step counter required bitwise equal; the
+    graph's captured launches one step's (the op's forward kernel twice a
+    layer, its backward kernel once, no plain call). Then the host wall of
+    steady steps, the device time of replays back to back, kernels a step,
+    memory, and two controls that must fail the same lockstep check: a
+    replay over an unstaged batch, and a program that does not write its
+    step counter back (the frozen lr). Into TRAIN_GRAPH_REPORT[arch]."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6_scan as wk
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticTokenStream, make_train_step
+    from repro_torch.training import graphs as tg
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    twin = tree_map(lambda t: t.clone(), params)
+    step_fn = make_train_step(model, base_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                              total_steps=GRAPH_TRAIN_TOTAL)
+    shape = (batch, seq)
+    eager = tg.train_program(step_fn, params, adamw_init(params), shape, dev, False)
+    graph = tg.train_program(step_fn, twin, adamw_init(twin), shape, dev, True)
+    del params, twin
+    data = SyntheticTokenStream(cfg.vocab_size, seq, batch, seed=seed + 3)
+    batches = iter(data)
+
+    def take(n):
+        return [next(batches) for _ in range(n)]
+
+    ops.reset_counters()
+    same, gap, differ, sgap = lockstep(eager, graph, take(GRAPH_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    st = graph.stats()
+    n = cfg.num_layers
+    dt = torch.bfloat16
+    width = cfg.head_dim if op == "flash_attention" else seq
+    fwd_v = (fa.variant if op == "flash_attention" else wk.variant)(dt, width)
+    bwd_v = (fa.bwd_variant if op == "flash_attention" else wk.bwd_variant)(dt, width)
+    want = {op: {fwd_v: 2 * n}, op + "_bwd": {bwd_v: n}}
+    captured = {k: dict(c.variants) for k, c in graph.launches.items()}
+    plain = {k: c.plain_calls for k, c in ops.COUNTERS.items() if c.plain_calls}
+    total = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
+    want_total = {k: {v: c * GRAPH_TRAIN_STEPS * 2} for k, d in want.items() for v, c in d.items()}
+    log(f"  {arch} graphed vs eager, {GRAPH_TRAIN_STEPS} steps ({batch} x {seq}, bf16): "
+        f"(loss, grad_norm, lr) bitwise equal in {same}/{GRAPH_TRAIN_STEPS} steps (max gap "
+        f"{gap:.3e}); params, moments and step: {differ} leaves differ (max gap {sgap:.3e}); "
+        f"{st['eager_passes']} eager pass, {st['captures']} capture, {st['replays']} replays; "
+        f"a replay launches {captured}; both programs launched {total}; plain calls {plain}")
+    ok = (same == GRAPH_TRAIN_STEPS and differ == 0 and captured == want and not plain
+          and total == want_total and (st["eager_passes"], st["captures"], st["replays"])
+          == (1, 1, GRAPH_TRAIN_STEPS - 1))
+    if not ok:
+        raise PhaseFailed(f"{arch}: the graphed train step differs from eager, or its launches "
+                          f"{captured} are not one step's {want}")
+
+    # the steady step on each route, its memory, the graph's device time
+    walls, peaks, reserved = {}, {}, {}
+    for name, prog in (("eager", eager), ("graph", graph)):
+        timed = take(GRAPH_TRAIN_TIMED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_r = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for tok, lab in timed:
+            prog.run(tok, lab)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t1) / GRAPH_TRAIN_TIMED * 1e3
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        reserved[name] = (torch.cuda.max_memory_reserved() - base_r) / 2**20
+    device_ms = time_ms(graph.graph.replay, GRAPH_TRAIN_REPLAYS, warmup=0)
+    tok, lab = take(1)[0]
+    kern_e, kern_e_ms = step_kernels(lambda: eager.run(tok, lab))
+    kern_g, kern_g_ms = step_kernels(lambda: graph.run(tok, lab))
+    row = {"batch": batch, "seq": seq, "steps": GRAPH_TRAIN_STEPS, "bitwise_steps": same,
+           "max_gap": gap, "state_leaves_differ": differ,
+           "eager_wall_ms": walls["eager"], "graph_wall_ms": walls["graph"],
+           "graph_device_ms": device_ms, "eager_idle": 1 - device_ms / walls["eager"],
+           "graph_idle": 1 - device_ms / walls["graph"],
+           "kernels_per_step": {"eager": kern_e, "graph": kern_g},
+           "profiled_kernel_ms": {"eager": kern_e_ms, "graph": kern_g_ms},
+           "capture_s": st["capture_s"], "pool_mib": st["pool_bytes"] / 2**20,
+           "eager_step_peak_mib": peaks["eager"], "graph_step_peak_mib": peaks["graph"],
+           "eager_step_reserved_mib": reserved["eager"],
+           "graph_step_reserved_mib": reserved["graph"],
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_replay": captured}
+    log(f"    wall {walls['eager']:.3f} ms a steady step eager, {walls['graph']:.3f} graphed; "
+        f"replays back to back {device_ms:.3f} ms of device time; idle share "
+        f"{row['eager_idle']:.3f} eager, {row['graph_idle']:.3f} graphed (CUDA events); "
+        f"kernels a step {kern_e} eager, {kern_g} graphed ({kern_e_ms:.3f} / {kern_g_ms:.3f} ms "
+        f"profiled); capture {st['capture_s']:.3f} s, pool {row['pool_mib']:.1f} MiB reserved "
+        f"against the eager step's {reserved['eager']:.1f} MiB reserved ({peaks['eager']:.1f} "
+        f"MiB allocated) above its state; a replay {reserved['graph']:.1f} MiB reserved, "
+        f"{peaks['graph']:.1f} MiB allocated")
+
+    # controls: the same lockstep check, each from equal states, must fail
+    copy_state(graph, eager)
+    graph.stage = lambda tokens, labels: None  # the replay reads the last staged batch
+    stale = lockstep(eager, graph, take(GRAPH_CONTROL_STEPS))
+    del graph.stage
+    graph.release()  # its pool's blocks go back: the frozen program captures into the pool
+    torch.cuda.empty_cache()
+    copy_state(graph, eager)
+
+    class FrozenCounter(tg.TrainStep):
+        def advance(self, opt):  # keeps the new counter as a new tensor
+            pass
+
+    frozen_prog = tg.TrainProgram(FrozenCounter(step_fn, graph.params, graph.opt), shape, dev,
+                                  graph.graphs)
+    frozen = lockstep(eager, frozen_prog, take(GRAPH_CONTROL_STEPS))
+    caught = {"unstaged batch": stale[0] < GRAPH_CONTROL_STEPS,
+              "frozen step counter": frozen[0] < GRAPH_CONTROL_STEPS}
+    row["controls"] = {"unstaged_batch": {"bitwise_steps": stale[0], "max_gap": stale[1],
+                                          "state_leaves_differ": stale[2]},
+                       "frozen_step_counter": {"bitwise_steps": frozen[0], "max_gap": frozen[1],
+                                               "state_leaves_differ": frozen[2]}}
+    log("    controls (each from equal states, " + f"{GRAPH_CONTROL_STEPS} steps): " + "; ".join(
+        f"{k}: {c[0]}/{GRAPH_CONTROL_STEPS} steps bitwise, {c[2]} leaves differ: "
+        f"{'caught' if caught[k] else 'NOT caught'}"
+        for k, c in (("unstaged batch", stale), ("frozen step counter", frozen))))
+    log(f"    {time.perf_counter() - t0:.1f} s")
+    if not all(caught.values()):
+        raise PhaseFailed(f"{arch}: a control of the graphed train step was not caught: {row}")
+    frozen_prog.release()
+    eager.release()
+    TRAIN_GRAPH_REPORT[arch] = row
+    del eager, graph, frozen_prog
+    torch.cuda.empty_cache()
 
 
 # Kernel function names of csrc/ on the training path (forward and backward).
@@ -3756,7 +4022,8 @@ def profile_train(arch, batch, seq, dev, seed, steps=3):
 
 def phase_train(ops, dev, seed, profile=False):
     """Phase 10: (a, b) the backward kernels, (c) the full-width 2-layer
-    kernel path against the plain path, (d) train() at full width and depth;
+    kernel path against the plain path, (d) train() at full width and depth
+    (its step graphed), (e) the graphed train step against the eager one;
     with ``profile``, where each model's train step's time goes. Returns
     (the backward kernels' rows, the train record)."""
     rows = phase_bwd_kernels(ops, dev, seed)
@@ -3769,6 +4036,8 @@ def phase_train(ops, dev, seed, profile=False):
             row["launches"] = launches
             row["launches_by_variant"] = by_variant
             records.append(rec)
+    for arch, batch, seq, op in TRAIN_ARCHS:
+        graph_train_check(ops, arch, batch, seq, op, dev, seed)
     if profile:
         for arch, batch, seq, _ in TRAIN_ARCHS:
             profile_train(arch, batch, seq, dev, seed)
@@ -4377,6 +4646,175 @@ def phase_dryrun_steps(ops, dev, seed):
     return record, launches
 
 
+# ----------------------------------------------------------------- phase 12
+# The port's example scripts (repro_torch/examples): the three that drive
+# the card in process at the reference's sizes, each again as `python -m`
+# in a child process that cannot import jax; the three simulator scripts as
+# children with their event counts shrunk.
+EXAMPLE_SIM_EVENTS = 2000
+EXAMPLE_CHILD_STEPS = 30   # train_small's child (the in-process run takes the reference's 300)
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_NICE = 10          # the simulator children yield the CPU to the card's host thread
+
+
+def example_child(name, tmp, code=None, argv=()):
+    """Start ``python -m repro_torch.examples.<name> argv`` (or ``python -c
+    code``) with jax and the reference package unimportable, its output to
+    a file under ``tmp``. Returns (process, output path)."""
+    out = Path(tmp) / f"example_{name}.log"
+    cmd = [sys.executable] + (["-c", code] if code else
+                              ["-m", f"repro_torch.examples.{name}", *argv])
+    fh = open(out, "w")
+    proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT,
+                            env=no_jax_env(tmp), preexec_fn=(lambda: os.nice(EXAMPLE_NICE))
+                            if code else None)
+    fh.close()
+    return proc, out
+
+
+def finish_child(name, proc, out):
+    """Wait for an example's child (killed past EXAMPLE_TIMEOUT_S); its exit
+    code and last line."""
+    try:
+        rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    lines = out.read_text().splitlines()
+    last = lines[-1] if lines else ""
+    log(f"    python {name}: exit {rc}; last line: {last[:120]}")
+    if rc != 0:
+        log("\n".join(lines[-20:]))
+    return rc
+
+
+def counted(ops, fn):
+    """``fn()`` with the launch counters reset before and read after:
+    (its result, launches by variant per op, plain calls per op)."""
+    import torch
+
+    ops.reset_counters()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
+    plain = {k: c.plain_calls for k, c in ops.COUNTERS.items() if c.plain_calls}
+    return res, launches, plain
+
+
+def quiet(fn):
+    """``fn()`` with its standard output kept: (its result, its lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    return res, buf.getvalue().splitlines()
+
+
+def phase_examples(ops, dev, seed):
+    """Phase 12: the six example scripts. Returns the ``examples`` record."""
+    import torch
+
+    from repro_torch.config import get_config, smoke_variant
+    from repro_torch.examples import multi_tenant_serving, spacetime_ablation, train_small
+    from repro_torch.kernels import batched_gemm as bg
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    del seed  # the scripts seed themselves, as the reference's do
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="repro_examples_") as tmp:
+        sims = {name: example_child(name, tmp, code=(
+            f"import repro_torch.examples.{name} as m; m.EVENTS = {EXAMPLE_SIM_EVENTS}; m.main()"))
+            for name in ("quickstart", "policy_sweep", "fleet_routing")}
+
+        # train_small at the reference's sizes: the graphed train(), K4 f32
+        t0 = time.perf_counter()
+        ckpt_path = str(Path(tmp) / "train_small.msgpack")
+        with watch_programs() as made:
+            (state, lines), launches, plain = counted(ops, lambda: quiet(
+                lambda: train_small.main(["--checkpoint", ckpt_path])))
+        wall = time.perf_counter() - t0
+        base = get_config("stablelm-1.6b")
+        cfg = smoke_variant(base, num_layers=4, d_model=512)
+        steps = 300
+        fwd_v = fa.variant(torch.float32, cfg.head_dim)
+        bwd_v = fa.bwd_variant(torch.float32, cfg.head_dim)
+        want = {"flash_attention": {fwd_v: cfg.num_layers * steps * 2},
+                "flash_attention_bwd": {bwd_v: cfg.num_layers * steps}}
+        losses = [float(line.split("loss")[1].split()[0]) for line in lines if "loss" in line]
+        st = made[0].stats()
+        log(f"  train_small: {lines[0]}; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+            f"{len(losses)} logged steps, {wall:.1f} s; launches {launches}, plain {plain}; "
+            f"step {st['eager_passes']} eager, {st['captures']} capture, {st['replays']} replays")
+        if launches != want or plain or not losses[-1] < losses[0] or state.step != steps \
+                or (st["graphed"], st["replays"]) != (True, steps - 1) \
+                or not os.path.getsize(ckpt_path):
+            raise PhaseFailed(f"train_small: launches {launches} (want {want}), plain {plain}, "
+                              f"losses {losses}, program {st}")
+        rec["train_small"] = {"wall_s": wall, "losses": [losses[0], losses[-1]],
+                              "launches": launches, "program": st}
+
+        # multi_tenant_serving: 4 tenants, 16 requests, graphed decode (K3), K4 prefills
+        t0 = time.perf_counter()
+        (engine, lines), launches, plain = counted(ops, lambda: quiet(
+            lambda: multi_tenant_serving.main([])))
+        wall = time.perf_counter() - t0
+        mcfg = smoke_variant(base)
+        st = engine.programs.stats()
+        n_attn = mcfg.num_layers
+        served = len(engine.finished)
+        log(f"  multi_tenant_serving: {lines[0]}; {lines[2]}; {lines[3]}; launches {launches}, "
+            f"plain {plain}; decode {st['eager_passes']} eager, {st['replays']} replays")
+        ok = (served == 16 and all(len(r.generated) == 12 for r in engine.finished)
+              and set(launches) == {"flash_attention", "decode_attention"}
+              and set(launches["flash_attention"]) == {fa.variant(torch.float32, mcfg.head_dim)}
+              and launches["decode_attention"] == {
+                  da.variant(torch.float32, mcfg.head_dim): n_attn * st["decode_passes"]}
+              and not plain and st["graphed"] and st["replays"] > 0)
+        if not ok:
+            raise PhaseFailed(f"multi_tenant_serving: {served} served, launches {launches}, "
+                              f"plain {plain}, programs {st}")
+        rec["multi_tenant_serving"] = {"wall_s": wall, "served": served, "launches": launches,
+                                       "programs": st, "report": lines[2:4]}
+        del engine
+
+        # spacetime_ablation: the scheduler over K1 (float32: simt)
+        t0 = time.perf_counter()
+        (rows, lines), launches, plain = counted(ops, lambda: quiet(
+            lambda: spacetime_ablation.main([])))
+        wall = time.perf_counter() - t0
+        dispatches = int(sum(r[3]["dispatches"] for r in rows))
+        kind = bg.variant(torch.float32, 1152, 128)
+        for line in lines:
+            log(f"    {line}")
+        log(f"  spacetime_ablation: {dispatches} dispatches, launches {launches}, plain {plain}, "
+            f"{wall:.1f} s")
+        if launches != {"batched_gemm": {kind: dispatches}} or plain:
+            raise PhaseFailed(f"spacetime_ablation: launches {launches}, not {dispatches} "
+                              f"{kind}, or plain calls {plain}")
+        rec["spacetime_ablation"] = {"wall_s": wall, "dispatches": dispatches,
+                                     "launches": launches, "table": lines}
+        torch.cuda.empty_cache()
+
+        # each card script as `python -m` in a child that cannot import jax
+        rcs = {}
+        for name, argv in (("train_small", ["--steps", str(EXAMPLE_CHILD_STEPS), "--checkpoint",
+                                            str(Path(tmp) / "child.msgpack")]),
+                           ("multi_tenant_serving", []), ("spacetime_ablation", [])):
+            t0 = time.perf_counter()
+            rcs[name] = finish_child(name, *example_child(name, tmp, argv=argv))
+            rec[name]["child_rc"] = rcs[name]
+            rec[name]["child_wall_s"] = time.perf_counter() - t0
+        for name, (proc, out) in sims.items():
+            rcs[name] = finish_child(name, proc, out)
+            rec[name] = {"child_rc": rcs[name], "events": EXAMPLE_SIM_EVENTS}
+        if any(rc != 0 for rc in rcs.values()):
+            raise PhaseFailed(f"an example script failed: {rcs}")
+    return rec
+
+
 # ----------------------------------------------------------------- main
 @contextlib.contextmanager
 def phase_wall(n):
@@ -4452,7 +4890,7 @@ def gpu_identity() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma list of phases to run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -4493,7 +4931,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     rows = []
-    fleet = front = trained = dry = None
+    fleet = front = trained = dry = examples = None
     try:
         if not args.rows_out:  # a child run of phase 4 reuses the parent's build and report
             build_report(_build)
@@ -4568,6 +5006,12 @@ def main(argv=None) -> int:
                 if row is not None:
                     row["phase11_launches_by_variant"] = by_variant
                     row["phase11_max_abs_err"] = dry["kernel_max_abs_err"][name]
+        if 12 in phases:
+            torch.cuda.empty_cache()
+            log("phase 12: the example scripts (train_small, multi_tenant_serving, "
+                "spacetime_ablation on the card; quickstart, policy_sweep, fleet_routing)")
+            with phase_wall(12):
+                examples = phase_examples(ops, dev, args.seed)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4580,8 +5024,12 @@ def main(argv=None) -> int:
         log(json.dumps({"front_door": front}))
     if trained is not None:
         log(json.dumps({"train": trained}))
+    if TRAIN_GRAPH_REPORT:
+        log(json.dumps({"train_graphs": TRAIN_GRAPH_REPORT}))
     if dry is not None:
         log(json.dumps({"dryrun_steps": dry}))
+    if examples is not None:
+        log(json.dumps({"examples": examples}))
     if GRAPH_REPORT:
         log(json.dumps({"graphs": GRAPH_REPORT}))
     if rows:

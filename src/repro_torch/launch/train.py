@@ -4,8 +4,11 @@ The JAX package's ``python -m repro.launch.train`` without its mesh (the
 port's single-card path has none yet): a reduced config in float32, AdamW
 on a warmup-cosine schedule, batches from ``SyntheticTokenStream``. It runs
 on the card by default, where every attention layer runs K4 forward and
-backward and every RWKV-6 layer K5; ``--device cpu`` runs the plain
-PyTorch versions instead.
+backward and every RWKV-6 layer K5, and the step (the reference's
+``@jax.jit def step``) is a ``training.graphs.TrainProgram``: captured once
+as a CUDA graph and replayed (``--graphs auto``, the default, or ``on``),
+or run eagerly (``--graphs off``). ``--device cpu`` runs the plain PyTorch
+versions, eagerly.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --steps 100 --batch 8 --seq 128 --smoke
@@ -23,8 +26,11 @@ import torch
 from repro_torch.config import get_config, smoke_variant
 from repro_torch.models import build_model
 from repro_torch.training import SyntheticTokenStream
+from repro_torch.training.graphs import train_program
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_loop import make_train_step
+
+GRAPHS = {"auto": None, "on": True, "off": False}  # --graphs -> serving.graphs.use_graphs
 
 
 def main(argv=None) -> None:
@@ -38,6 +44,8 @@ def main(argv=None) -> None:
                     help="reduced config (the reference's launcher trains only these)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
+    ap.add_argument("--graphs", choices=sorted(GRAPHS), default="auto",
+                    help="the step as a CUDA graph: auto (on the card), on, off (eager)")
     args = ap.parse_args(argv)
 
     cfg = smoke_variant(get_config(args.arch))
@@ -50,12 +58,12 @@ def main(argv=None) -> None:
     params = model.init(gen)
     opt = adamw_init(params)
     step = make_train_step(model, base_lr=args.lr, warmup_steps=10, total_steps=args.steps)
+    prog = train_program(step, params, opt, (args.batch, args.seq), model.device,
+                         GRAPHS[args.graphs])
     data = SyntheticTokenStream(cfg.vocab_size, args.seq, args.batch, seed=0)
     t0 = time.perf_counter()
     for i, (tok, lab) in zip(range(args.steps), data):
-        tok = torch.as_tensor(tok, device=model.device).long()
-        lab = torch.as_tensor(lab, device=model.device).long()
-        params, opt, metrics = step(params, opt, tok, lab)
+        metrics = prog.run(tok, lab)
         if i % max(args.steps // 10, 1) == 0:
             print(f"step {i:4d} loss {float(metrics['loss']):7.4f} "
                   f"({time.perf_counter()-t0:5.1f}s)")

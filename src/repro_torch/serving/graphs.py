@@ -76,6 +76,8 @@ class StepProgram:
     or on the graph route eagerly once, then captured and replayed.
     """
 
+    grad = False  # whether the step records autograd (a train step's does)
+
     def __init__(self, step: Step, shape: Tuple[int, ...], device: torch.device,
                  graphs: Optional["GraphShare"] = None):
         self.step = step
@@ -128,14 +130,14 @@ class StepProgram:
 
     def _eager(self) -> torch.Tensor:
         self.eager_passes += 1
-        with torch.no_grad():
+        with torch.set_grad_enabled(self.grad):
             if self.graphs is None:
                 return self.step(self.tokens, self.lengths)
             return self.graphs.warm_up(self.step, self.tokens, self.lengths)
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        with ops.capturing() as launches, torch.no_grad():
+        with ops.capturing() as launches, torch.set_grad_enabled(self.grad):
             graph, logits, pool_bytes = self.graphs.capture(self.step, self.tokens, self.lengths)
         self.graph, self.logits, self.launches = graph, logits, launches
         self.captures += 1

@@ -1,13 +1,16 @@
-"""Train loop: an eager step (autograd + in-place AdamW), metrics, checkpoints.
+"""Train loop: a step (autograd + in-place AdamW), metrics, checkpoints.
 
 The JAX package's ``repro.training.train_loop`` with PyTorch inside: the
 step is ``torch.autograd.grad`` over ``Model.forward_train`` where the
-reference takes ``jax.value_and_grad`` under ``jax.jit``, and the params
-are initialised from a ``torch.Generator`` seeded with ``seed`` on the
-model's device. On the card, every attention layer's forward and backward
-run the hand-written K4 kernels and every RWKV-6 layer's the K5 kernels
-(``kernels.ops``' autograd route). Log lines and the checkpoint cadence
-are the reference's.
+reference takes ``jax.value_and_grad``, and the params are initialised
+from a ``torch.Generator`` seeded with ``seed`` on the model's device.
+Where the reference compiles the step (``jax.jit``), ``train`` runs it as a
+``training.graphs.TrainProgram``: on the card captured once as a CUDA graph
+and replayed, on the CPU and the meta device eagerly (``graphs=False`` asks
+for eager on the card). On the card, every attention layer's forward and
+backward run the hand-written K4 kernels and every RWKV-6 layer's the K5
+kernels (``kernels.ops``' autograd route). Log lines and the checkpoint
+cadence are the reference's.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ import dataclasses
 import time
 from typing import Any, Callable, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models import Model
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.training import graphs as _graphs
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update, lr_schedule
 from repro_torch.tree import tree_leaves
 
@@ -61,10 +66,6 @@ def make_train_step(
     return train_step
 
 
-def _as_tokens(a, device) -> torch.Tensor:
-    return torch.as_tensor(a, device=device).long()
-
-
 def train(
     model: Model,
     data: Iterable[Tuple[Any, Any]],
@@ -78,7 +79,13 @@ def train(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 100,
     log_fn: Callable[[str], None] = print,
+    graphs: Optional[bool] = None,
 ) -> TrainState:
+    """Train ``model`` from seeded params for ``steps`` batches of ``data``
+    (each the first batch's shape). ``graphs`` picks how the step runs
+    (``serving.graphs.use_graphs``): None by the device, False eager, True
+    CUDA graphs (the card only; raises elsewhere)."""
+    graphed = _graphs.use_graphs(model.device, graphs)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     params = model.init(gen)
@@ -93,10 +100,13 @@ def train(
 
     t0 = time.perf_counter()
     it = iter(data)
+    prog = None
     for step in range(steps):
         tokens, labels = next(it)
-        params, opt, metrics = step_fn(params, opt, _as_tokens(tokens, model.device),
-                                       _as_tokens(labels, model.device))
+        if prog is None:
+            prog = _graphs.train_program(step_fn, params, opt, np.shape(tokens), model.device,
+                                         graphed)
+        metrics = prog.run(tokens, labels)
         if step % log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0

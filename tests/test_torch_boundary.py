@@ -127,6 +127,24 @@ def test_the_scans_cover_the_decode_programs():
     assert PORT / "serving" / "graphs.py" in files
 
 
+def test_the_scans_cover_the_examples_and_the_train_program():
+    """The package walk (the fresh-process import above) and the file scan
+    reach the six example scripts and the captured train step, so none may
+    import jax, msgpack or anything of repro."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    files = set(PORT.rglob("*.py"))
+    for mod in ("examples.quickstart", "examples.policy_sweep", "examples.fleet_routing",
+                "examples.spacetime_ablation", "examples.multi_tenant_serving",
+                "examples.train_small", "training.graphs"):
+        assert f"repro_torch.{mod}" in names
+        assert PORT / (mod.replace(".", "/") + ".py") in files
+    assert "repro_torch.examples" in names
+    assert PORT / "examples" / "__init__.py" in files
+    reference = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
+    assert reference == sorted(p.stem for p in (PORT / "examples").glob("*.py")
+                               if p.stem != "__init__")
+
+
 def test_dryrun_help_runs_with_jax_unimportable():
     """``python -m repro_torch.launch.dryrun --help`` in a fresh interpreter
     in which jax and the reference package cannot be imported."""
@@ -142,7 +160,8 @@ def test_dryrun_help_runs_with_jax_unimportable():
     assert "{pod1,pod2,host}" in out.stdout
 
 
-@pytest.mark.parametrize("mod", ["training", "training.checkpoint", "launch.train"])
+@pytest.mark.parametrize("mod", ["training", "training.checkpoint", "training.graphs",
+                                 "launch.train", "examples.train_small"])
 def test_training_modules_import_neither_msgpack_nor_jax(mod):
     """The checkpoint writes the reference's msgpack file itself: importing
     the training path loads no msgpack (the card's machine has none)."""

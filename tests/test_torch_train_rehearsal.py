@@ -8,8 +8,11 @@ route; stablelm-1.6b and rwkv6-1.6b are their bf16 smoke variants and the
 phase's shapes are shrunk. So the phase's control flow and checks run here:
 the backward kernels against both yardsticks, the kernel path against the
 plain path in float32 and bf16, ``train()`` with its launch, loss and
-checkpoint checks, and the rows and ``train`` record it prints. The card's
-numbers come only from the card.
+checkpoint checks, the graphed train step against the eager one with its two
+controls (10e; the card's two graph calls replaced by
+``test_torch_train_graphs.CpuTrainShare``, the route rule made to pick graphs
+on the CPU), and the rows and records it prints. The card's numbers come only
+from the card.
 """
 
 import dataclasses
@@ -48,9 +51,14 @@ def smoke(monkeypatch):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6_scan as wk
 
+    from repro_torch.training import graphs as tg
+    from test_torch_train_graphs import CpuTrainShare
+
     for name in ("synchronize", "_sleep", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    for name in ("max_memory_allocated", "memory_allocated", "max_memory_reserved",
+                 "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     get = repro_torch.config.get_config
     monkeypatch.setattr(repro_torch.config, "get_config", lambda arch: dataclasses.replace(
@@ -114,6 +122,14 @@ def smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "TRAIN_WARMUP", 1)
     monkeypatch.setattr(chip_smoke, "TRAIN_CUT_BATCH", 1)
     monkeypatch.setattr(chip_smoke, "TRAIN_CUT_SEQ", 16)
+    # 10e and train(): the graph route on the CPU, through the stand-in share
+    monkeypatch.setattr(tg, "use_graphs", lambda device, graphs=None: graphs is not False)
+    monkeypatch.setattr(tg, "TrainShare", CpuTrainShare)
+    monkeypatch.setattr(chip_smoke, "step_kernels", lambda fn: (fn(), (0, 0.0))[1])
+    monkeypatch.setattr(chip_smoke, "TRAIN_GRAPH_REPORT", {})
+    for name, n in (("GRAPH_TRAIN_STEPS", 4), ("GRAPH_TRAIN_TIMED", 2),
+                    ("GRAPH_TRAIN_REPLAYS", 2), ("GRAPH_CONTROL_STEPS", 2)):
+        monkeypatch.setattr(chip_smoke, name, n)
     return chip_smoke, ops
 
 
@@ -133,7 +149,38 @@ def test_phase_10_runs_its_checks_on_the_cpu(smoke):
         assert row["launches"] == rec["layers"] * rec["steps"]
         assert sum(rec["launches"][op].values()) == 2 * rec["layers"] * rec["steps"]
         assert rec["losses"][-1] < rec["losses"][0] and len(rec["losses"]) == 6
+        prog = rec["program"]
+        assert (prog["graphed"], prog["eager_passes"], prog["captures"], prog["replays"]) == (
+            True, 1, 1, 5)
     assert rows[1]["library_ms"] is None
+    report = chip_smoke.TRAIN_GRAPH_REPORT
+    json.dumps({"train_graphs": report})
+    assert sorted(report) == ["rwkv6-1.6b", "stablelm-1.6b"]
+    for arch, op, fwd, bwd in (("stablelm-1.6b", "flash_attention", "wgmma", "wgmma"),
+                               ("rwkv6-1.6b", "wkv6_scan", "chunked", "cluster")):
+        row = report[arch]
+        assert (row["bitwise_steps"], row["state_leaves_differ"]) == (4, 0)
+        assert row["launches_per_replay"] == {op: {fwd: 4}, op + "_bwd": {bwd: 2}}
+        assert row["controls"]["unstaged_batch"]["bitwise_steps"] < 2
+        assert row["controls"]["frozen_step_counter"]["bitwise_steps"] < 2
+
+
+def test_phase_10e_fails_when_a_replay_leaves_its_metrics_stale(smoke, monkeypatch):
+    """A graph whose replays do not reach its static outputs fails 10e's
+    lockstep check."""
+    chip_smoke, ops = smoke
+    from repro_torch.training import graphs as tg
+    from test_torch_train_graphs import CpuTrainShare
+
+    class StaleShare(CpuTrainShare):
+        def capture(self, step, tokens, labels):
+            graph, out, reserved = super().capture(step, tokens, labels)
+            graph.replay = lambda: None
+            return graph, out, reserved
+    monkeypatch.setattr(tg, "TrainShare", StaleShare)
+    with pytest.raises(chip_smoke.PhaseFailed, match="differs from eager"):
+        chip_smoke.graph_train_check(ops, "rwkv6-1.6b", 1, 16, "wkv6_scan",
+                                     torch.device("cpu"), 0)
 
 
 def test_phase_10_fails_when_a_backward_kernel_is_wrong(smoke, monkeypatch):
