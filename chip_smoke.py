@@ -66,7 +66,7 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      then 8 decode steps; (b) serves the 16 requests of phase 3 for four
      paligemma-3b tenants in both modes (text only, as the reference's
      engine), every K4 launch wgmma, 18 per prefill, every K3 launch
-     split_kv; (c) holds musicgen-large (a 64-frame prefix), qwen2-7b and
+     mma; (c) holds musicgen-large (a 64-frame prefix), qwen2-7b and
      granite-3-8b at full width and 2 layers, and gemma3-27b at full width
      and 6 layers (one global), kernel path against plain path over a
      prefill and 4 decode steps;
@@ -197,15 +197,25 @@ and K4 each have a kernel for the tensor cores, picked by dtype and shape
 before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 ``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
 register-tiled ``simt`` kernel (K split across a cluster) and K2's and K4's
-CUDA-core kernels. K3 takes its ``split_kv`` kernel for every shape: the live
-prefix of each (sequence, kv head) split across a thread-block cluster and
-combined on chip; one launch takes up to 8 query heads per kv head, and a
-larger ratio runs as one launch per head group of 8. K3 and K4 take head
-dims 32, 64, 112, 128 and 256; bf16 at head dims 32 and 112 takes K4's
-CUDA-core kernel.
+CUDA-core kernels; K4's wgmma kernel lays bf16 D = 112 out as 128 columns,
+the last 16 TMA's zeros. K3 picks by ``decode_attention.variant(dtype, D,
+q_per_kv)``: ``mma`` (the tensor cores' mma.sync, the group's query heads
+the n = 8 columns) for bf16 at D = 256 and at D = 128 from q_per_kv 5,
+``split_kv`` (CUDA-core dot products) for every other shape; in both the live prefix of each
+(sequence, kv head) is split across a thread-block cluster (up to 16 CTAs
+for mma, by ``mma_splits(B * Hkv, S)``) and combined on chip; one launch
+takes up to 8 query heads per kv head, and a larger ratio runs as one
+launch per head group of 8. K3 and K4 take head dims 32, 64, 112, 128 and
+256; bf16 at head dim 32 takes K4's CUDA-core kernel.
 Phase 1 checks K3 at its tile and split edges, at q_per_kv 1 to 8 and at 12
-and 16 (two launches a call), at every head dim, and that two launches give
-the same bits; K5 at the reference kernel tests' head sizes (16, 16), (16,
+and 16 (two launches a call), at every head dim (mma at D = 256 and 128 at
+q_per_kv 1, 7 and 8, at 16 and 8 splits), and that two launches give the same bits;
+each new kernel's negative controls run before its checks and must be
+caught (K4 at D = 112 with K's, then V's, columns 96-111 zeroed; K3's mma
+with ``lengths - 1`` and with each group's query heads rolled by one, each
+against the plain version on the true inputs); it holds mma against the
+plain version at every registered architecture's decode shape and times it
+beside split_kv there in turns (the ``k3_rule`` line); K5 at the reference kernel tests' head sizes (16, 16), (16,
 32), (8, 8) and at (32, 32) over a median prompt, from a zero and a random
 state, whole and split in two in one buffer (``final_state is
 init_state``); K3 and K4 at D = 32 (MQA, suffix queries, a stale cache
@@ -214,9 +224,9 @@ problem's output is bit-identical whatever the others hold, on both of its
 kernels. Launch checks count attention layers, not layers (zamba2: 13 of
 81; its Mamba2 layers launch no kernel). Phases 3, 6b and 7b fail unless
 every K4 launch on the serving path took the variant the wrapper's rule
-gives (wgmma for stablelm, paligemma and granite-moe; cuda_core for
-zamba2's bf16 D = 112), once per attention layer per prefill, and every K3
-launch split_kv, once per attention layer per decode pass of the model;
+gives (wgmma for all five), once per attention layer per prefill, and
+every K3 launch the rule's (mma for paligemma, split_kv for the other four),
+once per attention layer per decode pass of the model;
 phases 2, 6a, 6c and 7a unless K4 and K3 launched once per attention layer
 per prefill (or chunk) and decode step, by the wrapper's rule; phase 4c
 unless every K1 launch of scheduler run 1 took simt and every K1 and K2
@@ -224,8 +234,8 @@ launch of run 2 wgmma; phase 5c unless every K5 launch took chunked. Every
 row of the ``kernels`` line carries the ``variant``, the ``shape`` it was
 timed at, its launches by variant, and ``prior_ms``: the previous kernel's
 time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
-CUDA-core variant; K3: its first, single-pass kernel, null at D = 112 and
-256, where it has no instance; K5: its first, sequential
+CUDA-core variant; K3: split_kv where the rule takes mma, else its first,
+single-pass kernel, null at D = 112, where it has no instance; K5: its first, sequential
 kernel), launched explicitly. Kernel times are device times of back-to-back
 launches queued behind a sleep kernel, so the host's launch cost does not pace
 them. The build prints ptxas's report for every kernel, the dynamic shared
@@ -257,7 +267,7 @@ the graphs.
 Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
 a ``train`` and a ``train_graphs`` JSON line (phase 10), a ``dryrun_steps``
 JSON line (phase 11), an ``examples`` JSON line (phase 12), a
-``graphs`` JSON line (phases 3, 5, 6, 7),
+``graphs`` JSON line (phases 3, 5, 6, 7), a ``k3_rule`` JSON line (phase 1),
 a ``kernels`` JSON line (with phase 11's launches by variant on the rows of
 the kernels it runs), the card's
 name and power limit, and, last,
@@ -477,22 +487,54 @@ def decode_inputs(gen, dev, dtype, B, Hq, Hkv, S, D, lengths):
     return q, kc, vc, torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
 
 
-def check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths):
+def k3_kinds(dtype, D, Hq, Hkv, kernel=None):
+    """The kernel of each launch of one K3 call (one per head group):
+    ``kernel``, or the wrapper's rule at each group's size; none for a
+    model without attention (Hq = 0)."""
+    from repro_torch.kernels import decode_attention as da
+
+    if not Hq:
+        return []
+    if kernel is not None:
+        return [kernel] * len(da.head_groups(Hq // Hkv))
+    return da.launch_variants(dtype, D, Hq // Hkv)
+
+
+def k3_variant(dtype, D, Hq, Hkv, kernel=None):
+    """The kernels of one K3 call as a row's ``variant``: one name, or
+    names joined by '+' where head groups take different ones."""
+    return "+".join(dict.fromkeys(k3_kinds(dtype, D, Hq, Hkv, kernel)))
+
+
+def k3_splits(dtype, B, Hq, Hkv, S, D, kernel=None):
+    """CTAs per (sequence, kv head) of a K3 call's first launch."""
+    from repro_torch.kernels import decode_attention as da
+
+    return da.launch_splits(k3_kinds(dtype, D, Hq, Hkv, kernel)[0], B * Hkv, S)
+
+
+def check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, kernel=None):
     """K3 against its plain version on one case, and against itself: a
-    second launch on the same inputs must give the same bits. Returns
-    (inputs, max error)."""
+    second launch on the same inputs must give the same bits. ``kernel``
+    forces a variant (launched through the wrapper); otherwise the op's
+    rule picks. Returns (inputs, max error)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
 
     q, kc, vc, lens = decode_inputs(gen, dev, dtype, B, Hq, Hkv, S, D, lengths)
-    got = ops.decode_attention(q, kc, vc, lens)
-    again = ops.decode_attention(q, kc, vc, lens)
+    if kernel is None:
+        run = lambda: ops.decode_attention(q, kc, vc, lens)  # noqa: E731
+    else:
+        run = lambda: da.decode_attention(q, kc, vc, lens, kernel=kernel)  # noqa: E731
+    got = run()
+    again = run()
     want = ops.decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
     shown = lengths if len(lengths) <= 8 else f"min={min(lengths)} max={max(lengths)}"
     name = (f"decode_attention {str(dtype)[6:]} {(B, Hq, Hkv, S, D)} lengths {shown} "
-            f"[{da.variant(dtype, D)}, {da.splits(S)} splits]")
+            f"[{k3_variant(dtype, D, Hq, Hkv, kernel)}, "
+            f"{k3_splits(dtype, B, Hq, Hkv, S, D, kernel)} splits]")
     err = check_close(name, got, want, str(dtype))
     if not torch.equal(got, again):
         raise PhaseFailed(f"{name}: two launches on the same inputs differ")
@@ -515,17 +557,18 @@ def check_decode_groups(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths):
                           f"call, not {len(groups)}")
 
 
-def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20, prior=False):
+def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20, prior=None):
     """K3 checked and timed beside its plain version and SDPA; with
-    ``prior``, its first, single-pass kernel too (checked, then timed as
-    ``prior_ms``), launched explicitly on the same inputs."""
+    ``prior`` (a kernel name: "single_pass", K3's first kernel, or
+    "split_kv", the one mma replaced), that kernel too (checked, then timed
+    as ``prior_ms``), launched explicitly on the same inputs."""
     from repro_torch.kernels import decode_attention as da
 
     (q, kc, vc, lens), err = check_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths)
     nbytes, flops = decode_work(B, Hq, Hkv, S, D, lengths, str(dtype))
     bound_ms, bound_by = bound(nbytes, flops, str(dtype))
     row = {
-        "variant": da.variant(dtype, D),
+        "variant": k3_variant(dtype, D, Hq, Hkv),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.decode_attention(q, kc, vc, lens), iters),
         "plain_ms": time_ms(lambda: ops.decode_attention_plain(q, kc, vc, lens), 3, 1),
@@ -533,24 +576,95 @@ def measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, iters=20, pr
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if prior:
-        single = lambda: da.decode_attention(q, kc, vc, lens, kernel="single_pass")  # noqa: E731
-        check_close("  its single-pass kernel", single(), ops.decode_attention_plain(q, kc, vc, lens),
+        before = lambda: da.decode_attention(q, kc, vc, lens, kernel=prior)  # noqa: E731
+        check_close(f"  its prior, {prior}", before(), ops.decode_attention_plain(q, kc, vc, lens),
                     str(dtype))
-        row["prior_ms"] = time_ms(single, iters)
+        row["prior_ms"] = time_ms(before, iters)
+        row["prior_variant"] = prior
     log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by})"
-        + (f" prior_ms={row['prior_ms']:.4f} (single pass)" if prior else ""))
+        + (f" prior_ms={row['prior_ms']:.4f} ({prior})" if prior else ""))
     return row
 
 
-def decode_edge_lengths(S, B):
-    """B lengths at K3's tile and split edges for a cache of S: 0, 1, 63, 64,
-    65, either side of the first rank boundary of a full cache, S - 1, S."""
+def k3_prior(dtype, D, Hq, Hkv):
+    """The kernel that ran before at a K3 shape: split_kv where the rule now
+    takes mma, else the first, single-pass kernel where it has an instance
+    (D 64 and 128), else none."""
     from repro_torch.kernels import decode_attention as da
 
-    edge = da.key_ranges(S, da.splits(S))[0][1]
+    if "mma" in k3_kinds(dtype, D, Hq, Hkv):
+        return "split_kv"
+    return "single_pass" if D in da.SINGLE_PASS_HEAD_DIMS else None
+
+
+def decode_edge_lengths(S, B, n_splits=None):
+    """B lengths at K3's tile and split edges for a cache of S: 0, 1, 63, 64,
+    65, either side of the first rank boundary of a full cache over
+    ``n_splits`` ranks (split_kv's ``splits(S)`` by default), S - 1, S."""
+    from repro_torch.kernels import decode_attention as da
+
+    edge = da.key_ranges(S, n_splits or da.splits(S))[0][1]
     lens = [0, 1, 63, 64, 65, edge - 1, edge, edge + 1, S - 1, S]
     return (lens * (-(-B // len(lens))))[:B]
+
+
+def must_fail(what, check):
+    """A negative control: ``check()`` must raise PhaseFailed; raises
+    PhaseFailed when it does not."""
+    try:
+        check()
+    except PhaseFailed as e:
+        log(f"    control, {what}: caught ({e})")
+        return
+    raise PhaseFailed(f"control, {what}: not caught, so its check cannot fail")
+
+
+def flash_controls(ops, dev, gen, D=112):
+    """K4's wgmma kernel at a padded head dim: K with columns 96 up to D
+    zeroed, and V likewise, each against the plain version on the true
+    inputs, must fail ``check_close``: the last columns of a padded row
+    count in S and in O."""
+    import torch
+
+    bf = torch.bfloat16
+    q = torch.randn((1, 8, 777, D), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((1, 1, 777, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    want = ops.flash_attention_plain(q, k, v)
+    for name, (kk, vv) in (("k", (k.clone(), v)), ("v", (k, v.clone()))):
+        (kk if name == "k" else vv)[..., 96:D] = 0
+        got = ops.flash_attention(q, kk, vv)
+        torch.cuda.synchronize()
+        must_fail(f"flash_attention bf16 (1, 8, 1, 777, 777, {D}) with {name}'s columns 96-{D - 1} "
+                  "zeroed, against the plain version on the whole rows",
+                  lambda: check_close("    (control)", got, want, "torch.bfloat16"))
+
+
+def decode_controls(ops, dev, gen, B, Hq, Hkv, S, D, kernel):
+    """A K3 kernel's two controls, bf16 at edge lengths: the kernel on
+    ``lengths - 1`` (the split and tile edges), and on q with each group's
+    query heads rolled by one (the head-to-column mapping), each against the
+    plain version on the true inputs, must fail ``check_close``."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    bf = torch.bfloat16
+    n_splits = k3_splits(bf, B, Hq, Hkv, S, D, kernel)
+    q, kc, vc, lens = decode_inputs(gen, dev, bf, B, Hq, Hkv, S, D,
+                                    decode_edge_lengths(S, B, n_splits))
+    want = ops.decode_attention_plain(q, kc, vc, lens)
+    G = Hq // Hkv
+    rolled = q.view(B, Hkv, G, D).roll(1, dims=2).reshape(B, Hq, D).contiguous()
+    cases = [("lengths - 1", q, (lens - 1).clamp(min=0))]
+    if G > 1:
+        cases.append(("query heads rolled by one in each group", rolled, lens))
+    for what, qq, ll in cases:
+        got = da.decode_attention(qq, kc, vc, ll, kernel=kernel)
+        torch.cuda.synchronize()
+        must_fail(f"decode_attention [{kernel}, {n_splits} splits] bf16 {(B, Hq, Hkv, S, D)} "
+                  f"with {what}, against the plain version",
+                  lambda: check_close("    (control)", got, want, "torch.bfloat16"))
 
 
 def check_softcap(ops, dev, gen):
@@ -575,6 +689,53 @@ def check_softcap(ops, dev, gen):
                           "a kernel launched")
 
 
+# K3's rule, measured: each registered architecture's decode shape (bf16, the
+# cache of the serving phases, mid-generation lengths of prompts of 128-1024)
+# at the merged step's 16 sequences and one tenant's 4.
+K3_SURVEY_B = (16, 4)
+K3_SURVEY = {}  # (arch, B) -> {kernel: ms}, printed in the ``k3_rule`` line
+
+
+def survey_k3(ops, dev, gen, seed):
+    """The mma kernel held against the plain version at every registered
+    architecture's (Hq, Hkv, D), bf16, where its instances reach, then timed
+    beside split_kv on the same inputs (split_kv, mma, mma, split_kv); logs
+    which is faster beside the kernel ``variant``'s rule picks."""
+    import torch
+
+    from repro_torch.config import get_config, list_configs
+    from repro_torch.kernels import decode_attention as da
+
+    rng = np.random.RandomState(seed + 7)
+    bf = torch.bfloat16
+    seen = set()
+    for arch in list_configs():
+        cfg = get_config(arch)
+        shape = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        if not cfg.num_heads or shape in seen or cfg.head_dim not in da.MMA_HEAD_DIMS:
+            continue
+        seen.add(shape)
+        Hq, Hkv, D = shape
+        for B in K3_SURVEY_B:
+            lengths = [int(n) for n in rng.randint(128, 1025, size=B) + MAX_NEW // 2]
+            (q, kc, vc, lens), _ = check_decode(ops, dev, gen, bf, B, Hq, Hkv, CACHE_LEN, D,
+                                                lengths, kernel="mma")
+            runs = {k: (lambda k=k: da.decode_attention(q, kc, vc, lens, kernel=k))
+                    for k in ("split_kv", "mma")}
+            ms = {k: [] for k in runs}
+            for k in ("split_kv", "mma", "mma", "split_kv"):
+                ms[k].append(time_ms(runs[k], 20))
+            best = {k: min(v) for k, v in ms.items()}
+            rule = k3_variant(bf, D, Hq, Hkv)
+            faster = min(best, key=best.get)
+            K3_SURVEY[f"{arch} B={B}"] = {"shape": [B, Hq, Hkv, CACHE_LEN, D], "ms": ms,
+                                          "rule": rule, "faster": faster}
+            log(f"    {arch} (B, Hq, Hkv, S, D)={(B, Hq, Hkv, CACHE_LEN, D)}: split_kv "
+                f"{ms['split_kv'][0]:.4f}/{ms['split_kv'][1]:.4f} ms, mma {ms['mma'][0]:.4f}/"
+                f"{ms['mma'][1]:.4f} ms ({da.mma_splits(B * Hkv, CACHE_LEN)} splits); faster "
+                f"{faster}, the rule takes {rule}")
+
+
 def phase_kernels(ops, dev, seed):
     import torch
 
@@ -591,7 +752,7 @@ def phase_kernels(ops, dev, seed):
         measure_flash(ops, dev, gen, dtype, 1, 32, 32, 64, 1024, 64, 0, q_offset=512)  # chunk
         for (B, Hq, Hkv, S, D) in ((16, 32, 32, 2048, 64), (16, 28, 4, 2048, 128)):
             lengths = [1, 2048] + list(rng.randint(1, 2049, size=B - 2))
-            measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, prior=True)
+            measure_decode(ops, dev, gen, dtype, B, Hq, Hkv, S, D, lengths, prior="single_pass")
         # the other GQA ratios the kernels take (q_per_kv 2, 4, 8), both head
         # dims, a ragged sequence length and a length-0 decode row
         for g in (2, 4, 8):
@@ -600,12 +761,24 @@ def phase_kernels(ops, dev, seed):
                 measure_decode(ops, dev, gen, dtype, 4, 4 * g, 4, 600, D, [0, 1, 333, 600],
                                iters=3)
         # K3's split and tile edges: lengths 0, 1, 63-65, either side of a rank
-        # boundary, S - 1 and S, at every q_per_kv of 1, 2, 4, 7 and 8
+        # boundary, S - 1 and S, at every q_per_kv of 1, 2, 4, 7 and 8 (bf16 D
+        # 128 at 7 and 8 takes mma, at 8 splits here)
         for S in (777, 2048):
             for g in (1, 2, 4, 7, 8):
                 for D in (64, 128):
-                    check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D,
-                                 decode_edge_lengths(S, 10))
+                    check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D, decode_edge_lengths(
+                        S, 10, k3_splits(dtype, 10, 2 * g, 2, S, D)))
+        # the mma kernel at D 128, where its rule takes q_per_kv 5 to 8: its
+        # controls first, then its edges at q_per_kv 1, 7 and 8 on one and two
+        # kv heads (16 and 8 splits), asked for by name
+        if dtype == torch.bfloat16:
+            decode_controls(ops, dev, gen, 10, 7, 1, 2048, 128, "mma")
+            for S in (777, 2048):
+                for g in (1, 7, 8):
+                    for Hkv in (1, 2):
+                        n_splits = k3_splits(dtype, 10, g * Hkv, Hkv, S, 128, "mma")
+                        check_decode(ops, dev, gen, dtype, 10, g * Hkv, Hkv, S, 128,
+                                     decode_edge_lengths(S, 10, n_splits), kernel="mma")
         # q_per_kv 12 and 16, more query heads per kv head than one launch
         # takes: the wrapper launches over two head groups a call
         for g in (12, 16):
@@ -624,13 +797,25 @@ def phase_kernels(ops, dev, seed):
             check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
             check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
         # head dims 112 (zamba2-7b) and 256 (paligemma-3b): K3 at its tile and
-        # split edges at q_per_kv 1 and 8; K4 with lengths off the 64-row and
-        # 64-key tiles, a window, runtime offsets and no causal mask
+        # split edges at q_per_kv 1, 7 and 8, on one and on two kv heads (bf16
+        # D 256 takes mma: 16 and 8 splits at these rows); K4 with lengths off
+        # the 64-row and 64-key tiles, a window, runtime offsets and no causal
+        # mask (bf16 D 112 takes wgmma over a padded row). Each new kernel's
+        # negative controls run first: no check below prints ok unless they
+        # were caught.
+        if dtype == torch.bfloat16:
+            flash_controls(ops, dev, gen, 112)
+            for Hkv in (1, 2):
+                decode_controls(ops, dev, gen, 10, 8 * Hkv, Hkv, 2048, 256, "mma")
         for D in EXTRA_HEAD_DIMS:
             for S in (777, 2048):
-                for g in (1, 8):
-                    check_decode(ops, dev, gen, dtype, 10, 2 * g, 2, S, D,
-                                 decode_edge_lengths(S, 10))
+                for g in (1, 7, 8):
+                    for Hkv in (1, 2):
+                        n_splits = k3_splits(dtype, 10, g * Hkv, Hkv, S, D)
+                        check_decode(ops, dev, gen, dtype, 10, g * Hkv, Hkv, S, D,
+                                     decode_edge_lengths(S, 10, n_splits))
+            check_decode_groups(ops, dev, gen, dtype, 10, 12, 1, 777, D,
+                                decode_edge_lengths(777, 10, k3_splits(dtype, 10, 8, 1, 777, D)))
             check_flash(ops, dev, gen, dtype, 1, 8, 1, 777, 777, D, 0)
             check_flash(ops, dev, gen, dtype, 1, 2, 2, 130, 130, D, 0)
             check_flash(ops, dev, gen, dtype, 1, 8, 1, 777, 777, D, 512)
@@ -638,6 +823,8 @@ def phase_kernels(ops, dev, seed):
             check_flash(ops, dev, gen, dtype, 1, 8, 1, 100, 300, D, 48, q_offset=150)
             check_flash(ops, dev, gen, dtype, 1, 4, 2, 70, 130, D, 0, q_offset=-20)
             check_flash(ops, dev, gen, dtype, 1, 4, 4, 200, 200, D, 0, causal=False)
+            check_flash(ops, dev, gen, dtype, 1, 4, 1, 1, 1000, D, 0)
+    survey_k3(ops, dev, gen, seed)
     phase_head_sizes(ops, dev, seed)
 
 
@@ -805,7 +992,6 @@ def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
     the variant the wrapper's rule gives at the config's head dim."""
     import torch
 
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
 
@@ -840,15 +1026,17 @@ def model_vs_plain(ops, cfg, dev, seed, prompt_len, decode_steps):
             lengths = lengths + 1
     torch.cuda.synchronize()
     dtype, n_attn = model.dtype, attention_layers(cfg)
-    for name, want, n in (
-            ("flash_attention", fa.variant(dtype, cfg.head_dim), n_attn),
-            ("decode_attention", da.variant(dtype, cfg.head_dim), n_attn * decode_steps)):
+    k3_want = {}
+    for kind in k3_kinds(dtype, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads):
+        k3_want[kind] = k3_want.get(kind, 0) + n_attn * decode_steps
+    for name, want in (("flash_attention", {fa.variant(dtype, cfg.head_dim): n_attn}),
+                       ("decode_attention", k3_want)):
         by_variant = dict(ops.COUNTERS[name].variants)
-        if by_variant != {want: n}:
-            raise PhaseFailed(f"{cfg.name}: {name} launches {by_variant}, not {n} {want}")
+        if by_variant != want:
+            raise PhaseFailed(f"{cfg.name}: {name} launches {by_variant}, not {want}")
     log(f"    kernel launches: flash_attention {n_attn} {fa.variant(dtype, cfg.head_dim)}, "
-        f"decode_attention {n_attn * decode_steps} {da.variant(dtype, cfg.head_dim)} "
-        f"(D={cfg.head_dim}, {n_attn} attention layers); {time.perf_counter() - t0:.1f} s")
+        f"decode_attention {k3_want} (D={cfg.head_dim}, {n_attn} attention layers); "
+        f"{time.perf_counter() - t0:.1f} s")
     del params, ck, cp
     torch.cuda.empty_cache()
 
@@ -945,8 +1133,9 @@ def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
     """Phases 3, 6b and 7b: R_TENANTS tenants of ``arch`` served in both
     modes; returns (config, launches over both modes, per mode, prompt
     lengths). Fails unless every K4 launch took ``flash_variant``, once per
-    attention layer per prefill in each mode, and every K3 launch split_kv,
-    once per attention layer per decode pass of the model."""
+    attention layer per prefill in each mode, and every K3 launch the
+    wrapper's rule at the model's (dtype, D, q_per_kv) (split_kv; mma for
+    paligemma-3b), once per attention layer per decode pass of the model."""
     import torch
 
     from repro_torch.config import get_config
@@ -963,7 +1152,8 @@ def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
     torch.cuda.empty_cache()
     prompts, lens = serve_prompts(cfg, seed)
     launches, per_mode, passes = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
-    for name, want in (("flash_attention", flash_variant), ("decode_attention", "split_kv")):
+    k3_want = k3_variant(model.dtype, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads)
+    for name, want in (("flash_attention", flash_variant), ("decode_attention", k3_want)):
         by_variant = dict(ops.COUNTERS[name].variants)
         log(f"  {name} launches by variant on the serving path (D={cfg.head_dim}): {by_variant}")
         if by_variant.get(want, 0) != launches[name]:
@@ -1255,7 +1445,8 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
                  and st_g["decode_passes"] == st_e["decode_passes"] == st_e["eager_passes"])
     k3_ok = (dict(k3["graph"].variants) == dict(k3["eager"].variants)
              and k3["graph"].launches == n_attn * st_g["decode_passes"]
-             and set(k3["graph"].variants) <= {"split_kv"})
+             and set(k3["graph"].variants) <= set(k3_kinds(model.dtype, cfg.head_dim,
+                                                           cfg.num_heads, cfg.num_kv_heads)))
     if not (logit_check[0] or logit_check[1] <= TOL["torch.bfloat16"][1]) or cache_check \
             or same_tokens != len(prompts) or not passes_ok or not k3_ok \
             or by_op["graph"] != by_op["eager"] or not caught_stale or not caught_state:
@@ -1334,18 +1525,17 @@ def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode, 
     """Kernel vs plain vs SDPA at a serving path's own shapes (bf16, ``cfg``'s
     heads and head dim, ``slots`` per tenant): K3 at the merged decode step
     (space_time) and at one tenant's decode (time_only), each row with its
-    mode's launches; K4 at a median prefill. ``prior_ms`` is K3's first
-    kernel (where it has an instance at the head dim) and K4's CUDA-core
-    variant. ``path`` prefixes the rows' shape labels."""
+    mode's launches; K4 at a median prefill. ``prior_ms`` is the K3 kernel
+    that ran before (``k3_prior``: split_kv where mma took over, else the
+    first kernel where it has an instance at the head dim) and K4's
+    CUDA-core variant. ``path`` prefixes the rows' shape labels."""
     import torch
-
-    from repro_torch.kernels import decode_attention as da
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 100)
     lens_mid = [n + max_new // 2 for n in prompt_lens]  # mid-generation cache lengths
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    prior = D in da.SINGLE_PASS_HEAD_DIMS
+    prior = k3_prior(torch.bfloat16, D, Hq, Hkv)
     log(f"  {cfg.name} decode_attention at the merged decode step: R*B={R_TENANTS * slots}, "
         f"cache {CACHE_LEN}, lengths = prompt + {max_new // 2}")
     merged = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * slots, Hq, Hkv, CACHE_LEN,
@@ -2246,7 +2436,6 @@ def model_vs_plain_f32_bf16(ops, cfg, dev, seed, init=None, keep=None, note=""):
 
     import torch
 
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
@@ -2281,12 +2470,14 @@ def model_vs_plain_f32_bf16(ops, cfg, dev, seed, init=None, keep=None, note=""):
     torch.cuda.synchronize()
     del params
     torch.cuda.empty_cache()
-    for op, kernel, per_run in (("flash_attention", fa, 3 * n_attn),
-                                ("decode_attention", da, DECODE_STEPS * n_attn)):
+    for op, per_run in (("flash_attention", 3 * n_attn), ("decode_attention", DECODE_STEPS * n_attn)):
         want = {}
         for dtype in (torch.bfloat16, torch.float32):
-            if per_run:
-                v = kernel.variant(dtype, cfg.head_dim)
+            if not per_run:
+                continue
+            kinds = ([fa.variant(dtype, cfg.head_dim)] if op == "flash_attention" else
+                     k3_kinds(dtype, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads))
+            for v in kinds:
                 want[v] = want.get(v, 0) + per_run
         got = dict(ops.COUNTERS[op].variants)
         log(f"    {op} launches over both kernel runs: {got}")
@@ -2401,7 +2592,7 @@ def phase_pali(ops, dev, seed, profile=False):
     """Phase 6: (a) paligemma-3b's kernel path against its plain path over
     a prefill of 256 prefix embeddings + 521 tokens and 8 decode steps; (b)
     four tenants served in both modes (K4 wgmma at D = 256 once per layer
-    per prefill, K3 split_kv), with its kernels rows; (c) musicgen-large,
+    per prefill, K3 mma), with its kernels rows; (c) musicgen-large,
     qwen2-7b, granite-3-8b and gemma3-27b, kernel path against plain path
     over a prefill and 4 decode steps. Returns the kernels rows."""
     import dataclasses
@@ -2447,7 +2638,7 @@ def phase_new_archs(ops, dev, seed, profile=False):
     kernel path against plain path in float32 and bf16, then
     llama4-maverick at full width and LLAMA4_LAYERS layers in bf16; (b)
     four tenants of granite-moe and of zamba2 served in both modes (K4 by
-    the wrapper's rule once per attention layer per prefill, K3 split_kv
+    the wrapper's rule once per attention layer per prefill, K3 by its rule
     once per attention layer per decode pass), with their kernels rows.
     Returns the rows."""
     import dataclasses
@@ -3045,7 +3236,9 @@ def front_full_width(ops, dev, seed, tmp):
     lens_mid = [lens[i % len(lens)] + FLEET_NEW // 2 for i in range(R_TENANTS * FLEET_SLOTS)]
     log(f"  {FLEET_ARCH} decode_attention at the front door's merged decode step")
     dec = measure_decode(ops, dev, gen, torch.bfloat16, R_TENANTS * FLEET_SLOTS, cfg.num_heads,
-                         cfg.num_kv_heads, CACHE_LEN, cfg.head_dim, lens_mid, prior=True)
+                         cfg.num_kv_heads, CACHE_LEN, cfg.head_dim, lens_mid,
+                         prior=k3_prior(torch.bfloat16, cfg.head_dim, cfg.num_heads,
+                                        cfg.num_kv_heads))
     s_med = int(np.median(lens))
     log(f"  {FLEET_ARCH} flash_attention at a median prefill: {s_med} tokens")
     fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, cfg.num_heads, cfg.num_kv_heads, s_med,
@@ -4771,7 +4964,8 @@ def phase_examples(ops, dev, seed):
               and set(launches) == {"flash_attention", "decode_attention"}
               and set(launches["flash_attention"]) == {fa.variant(torch.float32, mcfg.head_dim)}
               and launches["decode_attention"] == {
-                  da.variant(torch.float32, mcfg.head_dim): n_attn * st["decode_passes"]}
+                  da.variant(torch.float32, mcfg.head_dim, mcfg.q_per_kv):
+                  n_attn * st["decode_passes"]}
               and not plain and st["graphed"] and st["replays"] > 0)
         if not ok:
             raise PhaseFailed(f"multi_tenant_serving: {served} served, launches {launches}, "
@@ -4826,12 +5020,13 @@ def phase_wall(n):
 def build_report(_build):
     """ptxas's report for every kernel instance (entry function, registers,
     spills; static shared memory is on the registers line), the dynamic
-    shared memory of the wgmma kernels (K4 and its backward's dk_dv and dq
-    at D = 64, 128, 256), K3's split_kv ring at every head dim in both
-    dtypes (held equal to the wrapper's ``ring_bytes``), K5's chunked kernel
-    and its backward's two variants, and how many of K3's
-    clusters fit on the card at once at stablelm's and paligemma's decode
-    shapes."""
+    shared memory of the wgmma kernels (K4 at D = 64, 112, 128, 256 and its
+    backward's dk_dv and dq at D = 64, 128, 256), K3's split_kv ring at every
+    head dim in both dtypes and its mma ring at its head dims (held equal to
+    the wrapper's ``ring_bytes`` and ``mma_ring_bytes``), K5's chunked kernel
+    and its backward's two variants, and how many of K3's clusters fit on
+    the card at once at stablelm's and paligemma's decode shapes (split_kv
+    at 4 splits, mma at 8 and 16)."""
     import ctypes
 
     for name in _build.SOURCES:
@@ -4847,14 +5042,17 @@ def build_report(_build):
     fab = _build.load("flash_attention_bwd").repro_flash_attention_bwd_smem
     gg.argtypes, gg.restype = [], ctypes.c_int
     for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
-                  (da.repro_decode_attention_clusters, 4), (wk, 2), (wkb, 1), (fab, 2)):
+                  (da.repro_decode_attention_clusters, 4), (da.repro_decode_attention_mma_smem, 1),
+                  (da.repro_decode_attention_mma_clusters, 3), (wk, 2), (wkb, 1), (fab, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
     log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
         f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma "
-        + ", ".join(f"D={d} {fa(d)}" for d in (64, 128, 256))
+        + ", ".join(f"D={d} {fa(d)}" for d in (64, 112, 128, 256))
         + " bytes; decode_attention split_kv ring "
         + ", ".join(f"D={d} {t} {da.repro_decode_attention_smem(d, c)}"
                     for d in (64, 112, 128, 256) for t, c in (("f32", 0), ("bf16", 1)))
+        + "; mma ring " + ", ".join(f"D={d} {da.repro_decode_attention_mma_smem(d)}"
+                                    for d in (64, 112, 128, 256))
         + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes; wkv6_scan_bwd "
         f"chunked {wkb(0)}, cluster (bf16) {wkb(1)} bytes; flash_attention_bwd wgmma dk_dv / dq "
         + ", ".join(f"D={d} {fab(d, 0)} / {fab(d, 1)}" for d in (64, 128, 256)) + " bytes")
@@ -4868,8 +5066,13 @@ def build_report(_build):
                 raise PhaseFailed(f"decode_attention: ring of D={d} {dtype} is "
                                   f"{da.repro_decode_attention_smem(d, code)} bytes, the wrapper "
                                   f"says {dapy.ring_bytes(dtype, d)}")
-    if fa(256) <= 0:
-        raise PhaseFailed("flash_attention: no wgmma kernel at D=256")
+        if da.repro_decode_attention_mma_smem(d) != dapy.mma_ring_bytes(d):
+            raise PhaseFailed(f"decode_attention: mma ring of D={d} is "
+                              f"{da.repro_decode_attention_mma_smem(d)} bytes, the wrapper says "
+                              f"{dapy.mma_ring_bytes(d)}")
+    if fa(256) <= 0 or fa(112) != fa(128):
+        raise PhaseFailed("flash_attention: no wgmma kernel at D=256, or D=112 not laid out as "
+                          "128")
     for d, g in ((64, 1), (256, 8)):  # stablelm's and paligemma's decode steps
         clusters = da.repro_decode_attention_clusters(d, 1, g, 4)
         log(f"  decode_attention split_kv clusters of 4 resident at once (D={d} bf16, "
@@ -4877,6 +5080,14 @@ def build_report(_build):
         if clusters <= 0:
             raise PhaseFailed("decode_attention: no cluster of the split_kv kernel fits on the "
                               "card")
+    for d, g in ((64, 1), (256, 8)):
+        for n in (8, 16):
+            clusters = da.repro_decode_attention_mma_clusters(d, g, n)
+            log(f"  decode_attention mma clusters of {n} resident at once (D={d}, q_per_kv "
+                f"{g}): {clusters}")
+            if clusters <= 0:
+                raise PhaseFailed(f"decode_attention: no cluster of {n} of the mma kernel fits "
+                                  "on the card")
 
 
 def gpu_identity() -> str:
@@ -5032,6 +5243,8 @@ def main(argv=None) -> int:
         log(json.dumps({"examples": examples}))
     if GRAPH_REPORT:
         log(json.dumps({"graphs": GRAPH_REPORT}))
+    if K3_SURVEY:
+        log(json.dumps({"k3_rule": K3_SURVEY}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(gpu_identity())

@@ -21,33 +21,43 @@
 // picks the variant from dtype and head dim before the launch, never as
 // a fallback:
 //
-// * wgmma (bf16, D = 64, 128 or 256). One consumer warpgroup and one producer
-//   warp. The producer loads the Q tile once, then K/V tiles through a
-//   2-stage mbarrier ring, all by TMA over 3-D maps (B*H, S, D), so rows
-//   past Sq or Skv read zeros (no stale NaN meets a zero weight).
+// * wgmma (bf16, D = 64, 112, 128 or 256). One consumer warpgroup and one
+//   producer warp. The producer loads the Q tile once, then K/V tiles
+//   through a 2-stage mbarrier ring, all by TMA over 3-D maps (B*H, S, D),
+//   so rows past Sq or Skv read zeros (no stale NaN meets a zero weight).
+//   A row is laid out as whole 64-column (128-byte) swizzle boxes of DP
+//   columns: DP = D at 64, 128 and 256, and DP = 128 at D = 112, whose
+//   224-byte rows are not whole boxes. There the maps keep their inner
+//   extent at 112 (a 224-byte row stride, a multiple of 16 as TMA asks), so
+//   the second box's columns 112-127 lie past the tensor and TMA fills them
+//   with zeros: S = Q K^T over 128 columns is the product over 112, O += P V
+//   at n = 128 leaves O's last 16 columns at zero, and the epilogue stores
+//   112 columns. The padding costs 14% more products at D = 112 than the
+//   work needs.
 //   S = Q K^T is m64n64k16 with Q and K (K-major) from shared memory; the
 //   online softmax runs on the float32 accumulator fragments, row max and
 //   sum by quad shuffles, with element masks only on tiles that cross the
 //   diagonal, the window edge or Skv. P is rounded to bf16 in registers and
-//   is the register A operand of O += P V (m64nDk16, V MN-major through the
-//   transpose bit; at D = 256 two m64n128k16 halves, boxes 0-1 and 2-3 of V,
-//   into the two halves of a 128-float accumulator): the accumulator of one
-//   product is the A fragment of the next (sm90.cuh). At D = 256 a stage of
-//   K and V is 64 KB and Q 32 KB: ~161 KB of shared memory with 2 stages.
-//   That rounding of P to the value dtype is the Pallas kernel's own
-//   (flash_attention.py:70). Query tiles are launched latest first, so the
-//   longest causal rows start first. Given an `lse` buffer (training), the
-//   epilogue also writes each row's log-sum-exp of its scaled visible
+//   is the register A operand of O += P V (m64nDPk16, V MN-major through
+//   the transpose bit; at DP = 256 two m64n128k16 halves, boxes 0-1 and 2-3
+//   of V, into the two halves of a 128-float accumulator): the accumulator
+//   of one product is the A fragment of the next (sm90.cuh). At D = 256 a
+//   stage of K and V is 64 KB and Q 32 KB: ~161 KB of shared memory with 2
+//   stages. That rounding of P to the value dtype is the Pallas kernel's
+//   own (flash_attention.py:70). Query tiles are launched latest first, so
+//   the longest causal rows start first. Given an `lse` buffer (training),
+//   the epilogue also writes each row's log-sum-exp of its scaled visible
 //   scores, scale m + log l, which the backward's wgmma kernels read instead
 //   of recomputing it; serving passes none.
-// * CUDA cores (float32, and bf16 at D = 32 and 112, whose 64- and 224-byte
-//   rows are not whole 128-byte swizzle rows). Four threads share one query row, each
+// * CUDA cores (float32, and bf16 at D = 32, whose 64-byte rows are half a
+//   swizzle box). Four threads share one query row, each
 //   holding a strided quarter of q and of the accumulator in registers;
 //   K/V tiles are widened to float32 in (static) shared memory by 16-byte
 //   vector loads, BK keys at a time, BK shrinking as D grows (64 keys at
 //   D = 32 and 64, 32 at 112 and 128, 16 at 256) so the two tiles stay within 48 KB
 //   and s[BK] + q + acc within registers; a partial dot product is finished
-//   with two shuffles.
+//   with two shuffles. `kernel="cuda_core"` still runs it on bf16 at every
+//   head dim (the prior that chip_smoke.py times).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -184,9 +194,10 @@ constexpr int kBox = sm90::kBox;     // one TMA box {64, 64, 1} of bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// Shared memory at a row of DP columns (whole boxes; D <= DP).
+template <int DP>
 struct Smem {
-  static constexpr int kBoxes = D / 64;           // boxes across the head dim
+  static constexpr int kBoxes = DP / 64;          // boxes across the padded head dim
   static constexpr int kTile = kBoxes * kBox;     // Q, K or V tile
   static constexpr int kStage = 2 * kTile;        // K then V
   static constexpr int kBytes = kTile + kStages * kStage + (1 + 2 * kStages) * 8 +
@@ -203,13 +214,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 }  // namespace tc
 
-template <int D>
+// D columns of q/k/v/out, laid out as DP (whole 128-byte boxes); the
+// columns D..DP-1 are TMA's zero fill.
+template <int D, int DP>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ out,
             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
             int q_offset, float scale_log2) {
-  using S = tc::Smem<D>;
+  static_assert(D <= DP && DP % 64 == 0 && D % 8 == 0, "D columns inside DP, whole boxes");
+  using S = tc::Smem<DP>;
   extern __shared__ char smem_raw[];
   char* q_s = sm90::align_atom(smem_raw);
   char* kv_s = q_s + S::kTile;  // stage s: K at kv_s + s * kStage, V right after
@@ -261,9 +275,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   const int lane = tid % 32;
   const int r = (tid / 32) * 16 + lane / 4;
   const int qpos[2] = {q0 + r + q_offset, q0 + r + 8 + q_offset};
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {repro::kNegInf, repro::kNegInf};
   float l[2] = {0.f, 0.f};
   sm90::mbar_wait(q_full, 0);
@@ -277,7 +291,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 
     float sc[32];  // S = Q K^T: rows r, r + 8 x this thread's 16 keys
     sm90::wgmma_fence();
-    sm90::wgmma_abt<D>(sc, q_s, k_s);
+    sm90::wgmma_abt<DP>(sc, q_s, k_s);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
@@ -319,7 +333,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       m[h] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j + 0] *= alpha[0];
       o[4 * j + 1] *= alpha[0];
       o[4 * j + 2] *= alpha[1];
@@ -332,7 +346,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       for (int i = 0; i < 4; ++i) pa[kk][i] = sm90::pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_acc_mn<D>(o, pa[kk], v_s, kk);
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_acc_mn<DP>(o, pa[kk], v_s, kk);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
@@ -350,13 +364,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
           lsum > 0.f ? (m[h] * scale_log2 + log2f(lsum)) * tc::kLn2 : __int_as_float(0x7f800000);
     uint16_t* row = out + ((long)bh * Sq + qi) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j)  // the D stored columns; DP - D are padding
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * (lane % 4)) =
           sm90::pack_bf16x2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DP = D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                  int Hq, int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
                  float scale, cudaStream_t stream) {
@@ -370,10 +384,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
       sm90::make_tensor_map(&k_map, k, 3, kv_dims, kv_strides, box) != 0 ||
       sm90::make_tensor_map(&v_map, v, 3, kv_dims, kv_strides, box) != 0)
     return REPRO_BAD_ARGUMENT;
-  const cudaError_t e = sm90::allow_dynamic_smem(flash_wgmma<D>, tc::Smem<D>::kBytes);
+  const cudaError_t e = sm90::allow_dynamic_smem(flash_wgmma<D, DP>, tc::Smem<DP>::kBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + tc::kRows - 1) / tc::kRows, B * Hq);
-  flash_wgmma<D><<<grid, tc::kThreads, tc::Smem<D>::kBytes, stream>>>(
+  flash_wgmma<D, DP><<<grid, tc::kThreads, tc::Smem<DP>::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<uint16_t*>(out), lse, Hq, Hkv, Sq, Skv, causal, window,
       q_offset, scale * tc::kLog2e);
   return (int)cudaGetLastError();
@@ -403,6 +417,9 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     if (dtype == 1 && D == 64)
       return launch_wgmma<64>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
                               scale, st);
+    if (dtype == 1 && D == 112)  // two boxes, columns 112-127 TMA's zero fill
+      return launch_wgmma<112, 128>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window,
+                                    q_offset, scale, st);
     if (dtype == 1 && D == 128)
       return launch_wgmma<128>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
                                scale, st);
@@ -433,6 +450,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 // (0 for a head dim it does not take).
 int repro_flash_attention_smem(int D) {
   return D == 64    ? tc::Smem<64>::kBytes
+         : D == 112 ? tc::Smem<128>::kBytes
          : D == 128 ? tc::Smem<128>::kBytes
          : D == 256 ? tc::Smem<256>::kBytes
                     : 0;

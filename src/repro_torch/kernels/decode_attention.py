@@ -3,12 +3,24 @@
 Wrapper of ``csrc/decode_attention.cu``, the port of the JAX package's
 Pallas ``decode_attention``. Its plain PyTorch version is
 ``ref.decode_attention``; ``ops.decode_attention`` picks between them by
-the device of the tensors. On the card every call takes the split-KV
-kernel: ``splits(S)`` CTAs of one thread-block cluster share each
-(sequence, kv head)'s live prefix (``key_ranges`` mirrors how) and combine
-their partial softmaxes on chip, in one launch. One launch takes up to
-``MAX_G`` = 8 query heads per kv head; a larger GQA ratio runs as
-``head_groups`` launches against the same cache (``grouped``).
+the device of the tensors. On the card ``variant(dtype, D, q_per_kv)``
+picks one of two kernels before the launch, never as a fallback; in both,
+the CTAs of one thread-block cluster share each (sequence, kv head)'s live
+prefix in whole 64-key tiles (``key_ranges`` mirrors how) and combine
+their partial softmaxes on chip, in one launch:
+
+* ``mma`` (bf16 at D = 256, paligemma-3b's 8 query heads on one kv head of
+  256, and at D = 128 from 5 query heads a kv head, qwen2-7b's 7 and
+  llama4-maverick's 5): the tensor cores' ``mma.sync.m16n8k16``, the
+  group's query heads the n = 8 columns (swap-AB: scores^T = K Q^T,
+  out^T = V^T P^T), over ``mma_splits(B * Hkv, S)`` CTAs, up to 16, chosen
+  to fill the card;
+* ``split_kv`` (everything else, float32 included): dot products on the
+  CUDA cores, lanes laid out by ``lane_layout``, over ``splits(S)`` CTAs.
+
+One launch takes up to ``MAX_G`` = 8 query heads per kv head; a larger GQA
+ratio runs as ``head_groups`` launches against the same cache
+(``grouped``), each by the rule at its own group size.
 """
 
 from __future__ import annotations
@@ -26,26 +38,61 @@ MAX_G = 8  # query heads per kv head in one launch (the source's kMaxG)
 # C codes of the source's kernels; "single_pass" is the first version of K3 (one
 # block per (sequence, kv head)), launched only when asked for
 # (chip_smoke.py times it as ``prior_ms``).
-VARIANT_CODES = {"single_pass": 0, "split_kv": 1}
+VARIANT_CODES = {"single_pass": 0, "split_kv": 1, "mma": 2}
 KEY_TILE = 64          # keys per tile: the unit a live prefix is split in
-KEYS_PER_SPLIT = 512   # cache positions per CTA of a cluster
-MAX_SPLITS = 8         # the portable cluster size
+KEYS_PER_SPLIT = 512   # split_kv: cache positions per CTA of a cluster
+MAX_SPLITS = 8         # split_kv: the portable cluster size
+MMA_HEAD_DIMS = (64, 112, 128, 256)  # the mma kernel's instances (bf16)
+# where ``variant`` sends bf16 to it: head dim -> the fewest query heads a kv head
+MMA_RULE = {256: 1, 128: 5}
+MMA_MAX_SPLITS = 16    # the mma kernel's largest cluster (non-portable)
+MMA_FILL_CTAS = 264    # its CTAs to aim for: two on each of the H100's 132 SMs
 
 
-def variant(dtype: torch.dtype, D: int) -> str:
-    """The kernel that computes decode attention of ``dtype`` at head dim
-    ``D``: split_kv for every dtype and head dim the wrapper takes (a cache
-    of at most 512 positions is one CTA per cluster; D = 32 lays its lanes
-    out as 64 columns and D = 112 as 128, masking the columns past D)."""
-    del dtype, D
+def variant(dtype: torch.dtype, D: int, q_per_kv: int) -> str:
+    """The kernel that computes one launch of decode attention of ``dtype``
+    at head dim ``D`` with ``q_per_kv`` (at most MAX_G) query heads per kv
+    head, by ``MMA_RULE``: mma for bf16 at D = 256 (any q_per_kv: its n = 8
+    columns hold up to 8 heads) and at D = 128 from q_per_kv 5; split_kv
+    for everything else: float32, whose products mma.sync does not take,
+    and bf16 at D = 32, 64 and 112 and at D = 128 below q_per_kv 5. Phase 1
+    of chip_smoke.py times both kernels at every registered architecture's
+    decode shape (the ``k3_rule`` line): mma was faster at paligemma-3b's
+    (8, 256), qwen2-7b's (7, 128) and llama4-maverick's (5, 128), slower at
+    q_per_kv 1 and 2 and mixed at granite-3-8b's (4, 128)."""
+    if not 1 <= q_per_kv <= MAX_G:
+        raise ValueError(f"decode_attention: one launch takes 1..{MAX_G} query heads per kv "
+                         f"head, not {q_per_kv}")
+    if dtype == torch.bfloat16 and q_per_kv >= MMA_RULE.get(D, MAX_G + 1):
+        return "mma"
     return "split_kv"
 
 
 def splits(S: int) -> int:
-    """CTAs per (sequence, kv head): one per 512 cache positions, 1 to 8
-    (4 at S = 2048). It depends on the allocated length S alone, never on
-    ``lengths``, which stay on the card."""
+    """split_kv's CTAs per (sequence, kv head): one per 512 cache positions,
+    1 to 8 (4 at S = 2048). It depends on the allocated length S alone,
+    never on ``lengths``, which stay on the card."""
     return max(1, min(MAX_SPLITS, -(-S // KEYS_PER_SPLIT)))
+
+
+def mma_splits(rows: int, S: int) -> int:
+    """The mma kernel's CTAs per (sequence, kv head) for ``rows`` = B * Hkv
+    of them and a cache of S positions: the largest power of two up to 16
+    with rows * splits at most MMA_FILL_CTAS and no more than S's 64-key
+    tiles (16 for paligemma's one tenant, rows 4, and for its merged step,
+    rows 16; 1 from rows 133 on). A fixed rule on the shapes, never on
+    ``lengths``, which stay on the card."""
+    n = 1
+    tiles = -(-S // KEY_TILE)
+    while n * 2 <= MMA_MAX_SPLITS and rows * n * 2 <= MMA_FILL_CTAS and n * 2 <= tiles:
+        n *= 2
+    return n
+
+
+def launch_splits(kind: str, rows: int, S: int) -> int:
+    """CTAs per (sequence, kv head) of one launch of ``kind``: ``mma_splits``
+    for mma, ``splits`` for split_kv (single_pass ignores it)."""
+    return mma_splits(rows, S) if kind == "mma" else splits(S)
 
 
 def lane_layout(D: int, q_per_kv: int) -> Tuple[int, int, int]:
@@ -67,6 +114,18 @@ def ring_bytes(dtype: torch.dtype, D: int) -> int:
     answers the same on the card."""
     tile = KEY_TILE * D * (2 if dtype == torch.bfloat16 else 4)
     stages = 3 if 2 * tile <= 16384 else 2 if 4 * tile <= 200 * 1024 else 1
+    return stages * 2 * tile
+
+
+def mma_ring_bytes(D: int) -> int:
+    """Dynamic shared memory of the mma kernel at head dim D (bf16): its
+    ring of 64-key tiles of K and V whose rows are padded by 16 bytes (2 D +
+    16 bytes a row, so the eight rows one ldmatrix reads lie in eight bank
+    groups), two stages where they fit in 72 KB (three CTAs a
+    multiprocessor), else one (D = 256). The source's
+    ``repro_decode_attention_mma_smem`` answers the same on the card."""
+    tile = KEY_TILE * (2 * D + 16)
+    stages = 2 if 4 * tile <= 72 * 1024 else 1
     return stages * 2 * tile
 
 
@@ -116,11 +175,12 @@ def decode_attention(
 ) -> torch.Tensor:
     """q (B,Hq,D), caches (B,Hkv,S,D), lengths (B,) int32 -> (B,Hq,D).
 
-    Launches a CUDA kernel on the tensors' card: ``variant``'s, or
-    ``kernel`` where given (how ``chip_smoke.py`` times the first, single-pass kernel),
-    once per head group (``head_groups``: one launch up to 8 query heads
-    per kv head); raises on anything the kernel does not take (device,
-    dtype, layout, head dim, Hq not a multiple of Hkv).
+    Launches a CUDA kernel on the tensors' card: ``variant``'s at each
+    launch's group size, or ``kernel`` where given (how ``chip_smoke.py``
+    times the previous kernels and holds mma at shapes its rule does not
+    take), once per head group (``head_groups``: one launch up to 8 query
+    heads per kv head); raises on anything the kernel does not take
+    (device, dtype, layout, head dim, Hq not a multiple of Hkv).
     """
     _build.check_device(q)
     B, Hq, D = q.shape
@@ -141,14 +201,23 @@ def decode_attention(
     for t in (k_cache, v_cache, lengths):
         if t.device != q.device:
             raise ValueError("decode_attention: all tensors must be on one device")
-    kind = kernel or variant(q.dtype, D)
-    if kind not in VARIANT_CODES:
-        raise ValueError(f"decode_attention: no kernel {kind!r}")
-    if kind == "single_pass" and D not in SINGLE_PASS_HEAD_DIMS:
+    if kernel is not None and kernel not in VARIANT_CODES:
+        raise ValueError(f"decode_attention: no kernel {kernel!r}")
+    if kernel == "single_pass" and D not in SINGLE_PASS_HEAD_DIMS:
         raise ValueError(f"decode_attention: the single_pass kernel takes head dims "
                          f"{SINGLE_PASS_HEAD_DIMS} only, not {D}")
+    if kernel == "mma" and (q.dtype != torch.bfloat16 or D not in MMA_HEAD_DIMS):
+        raise ValueError(f"decode_attention: the mma kernel takes bf16 at head dims "
+                         f"{MMA_HEAD_DIMS} only, not {q.dtype} D={D}")
     scale = float(scale if scale is not None else D ** -0.5)
-    return grouped(q, Hkv, lambda qg: _launch(qg, k_cache, v_cache, lengths, kind, scale))
+    return grouped(q, Hkv, lambda qg: _launch(
+        qg, k_cache, v_cache, lengths, kernel or variant(q.dtype, D, qg.shape[1] // Hkv), scale))
+
+
+def launch_variants(dtype: torch.dtype, D: int, q_per_kv: int) -> List[str]:
+    """The kernel of each launch of one call (``head_groups`` order) by
+    ``variant``'s rule at the launch's group size."""
+    return [variant(dtype, D, hi - lo) for lo, hi in head_groups(q_per_kv)]
 
 
 def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -162,8 +231,8 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         status = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
-            _build.DTYPE_CODES[q.dtype], VARIANT_CODES[kind], splits(S), scale,
-            _build.stream_of(q))
+            _build.DTYPE_CODES[q.dtype], VARIANT_CODES[kind], launch_splits(kind, B * Hkv, S),
+            scale, _build.stream_of(q))
     _build.check_status(lib, "decode_attention", status)
     counter.launched(kind)
     return out

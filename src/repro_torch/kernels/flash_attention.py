@@ -7,15 +7,19 @@ runs the kernel too. Its plain PyTorch version is ``ref.attention``;
 ``ops.flash_attention`` picks between them by the device of the tensors.
 On the card, ``variant`` picks one of the source's two kernels by dtype
 and head dim before the launch: the bf16 tensor-core kernel (wgmma fed by
-TMA) or the CUDA-core kernel (float32, and bf16 at D = 32 and 112).
+TMA; at D = 112 a row is laid out as two 128-byte boxes, 128 columns, whose
+last 16 TMA fills with zeros) or the CUDA-core kernel (float32, and bf16
+at D = 32).
 
 ``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``: the
 gradient of K4 for training (queries and keys both at positions 0..S-1),
 which ``ops.flash_attention`` launches from the backward of its autograd
-route. ``bwd_variant`` picks its kernel by the same rule: the bf16
-tensor-core kernel, which reads each row's log-sum-exp that the forward's
-wgmma kernel wrote into an ``lse`` buffer (``ref.attention_lse`` is its
-plain version), or the CUDA-core kernel, which recomputes it. Its plain
+route. ``bwd_variant`` picks its kernel by a rule of its own: the bf16
+tensor-core kernel at D = 64, 128 and 256, which reads each row's
+log-sum-exp that the forward's wgmma kernel wrote into an ``lse`` buffer
+(``ref.attention_lse`` is its plain version), or the CUDA-core kernel,
+which recomputes it (float32, and bf16 at D = 32 and 112: the backward has
+no padded layout). Its plain
 version is ``ref.attention_bwd``; it counts its launches in
 ``bwd_counter`` by variant.
 """
@@ -30,15 +34,18 @@ from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
 SUPPORTED_HEAD_DIMS = (32, 64, 112, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)  # whole 64-column (128-byte) swizzle boxes
+# the forward's wgmma head dims: rows of whole 64-column (128-byte) swizzle
+# boxes, D = 112 laid out as 128 (its columns 112-127 the zeros TMA reads
+# past the tensor)
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
+WGMMA_BWD_HEAD_DIMS = (64, 128, 256)  # the backward's: no padded layout
 
 
 def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention of ``dtype`` at head dim ``D``:
-    wgmma for bf16 at D = 64, 128 and 256 (rows of whole 128-byte swizzle
-    boxes, one to four of them), the CUDA-core kernel for float32 and for
-    bf16 at D = 32 and 112 (a 64- or 224-byte row is not a whole number of
-    boxes)."""
+    wgmma for bf16 at D = 64, 112, 128 and 256 (one to four 128-byte
+    swizzle boxes a row, 112 padded to two), the CUDA-core kernel for
+    float32 and for bf16 at D = 32 (a 64-byte row is half a box)."""
     if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
@@ -121,12 +128,14 @@ bwd_counter = _build.OpCounter()
 
 
 def bwd_variant(dtype: torch.dtype, D: int) -> str:
-    """The backward kernel for ``dtype`` at head dim ``D``, by the
-    forward's rule: wgmma (bf16 tensor cores, reading the forward's
-    ``lse``) for bf16 at D = 64, 128 and 256; the CUDA-core kernel (float32
-    arithmetic, its own row pass) for float32 and for bf16 at D = 32 and
-    112."""
-    return variant(dtype, D)
+    """The backward kernel for ``dtype`` at head dim ``D``: wgmma (bf16
+    tensor cores, reading the forward's ``lse``) for bf16 at D = 64, 128
+    and 256; the CUDA-core kernel (float32 arithmetic, its own row pass)
+    for float32 and for bf16 at D = 32 and 112, where the forward runs
+    wgmma but the backward has no padded layout (no path trains at 112)."""
+    if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
 
 
 def check_bwd(q: torch.Tensor, k: torch.Tensor, *, q_offset: Optional[int] = None) -> None:

@@ -398,7 +398,8 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
                              logit_softcap=logit_softcap, q_offset=q_offset)
 
     def decode(q, kc, vc, lengths, *, scale=None, kernel=None):
-        da.counter.launched(kernel or da.variant(q.dtype, q.shape[-1]))
+        da.counter.launched(
+            kernel or da.variant(q.dtype, q.shape[-1], q.shape[1] // kc.shape[1]))
         return ref.decode_attention(q, kc, vc, lengths, scale=scale)
 
     for mod, name, fn in ((ops, "flash_attention", flash), (fa, "flash_attention", flash),

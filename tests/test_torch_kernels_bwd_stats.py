@@ -304,7 +304,10 @@ def _lse(S=16, dtype=torch.float32):
 
 FLASH_REFUSALS = {
     "fwd lse on cuda_core (f32)": lambda: fa.flash_attention(*_attn(torch.float32), lse=_lse()),
-    "fwd lse on cuda_core (bf16 D 112)": lambda: fa.flash_attention(*_attn(D=112), lse=_lse()),
+    # bf16 D 112 runs wgmma by the rule (which may write an lse); the prior,
+    # asked for by name, writes none
+    "fwd lse on cuda_core (bf16 D 112)": lambda: fa.flash_attention(*_attn(D=112), lse=_lse(),
+                                                                    kernel="cuda_core"),
     "fwd lse of the wrong shape": lambda: fa.flash_attention(*_attn(), lse=_lse(S=15)),
     "fwd lse in bf16": lambda: fa.flash_attention(*_attn(), lse=_lse(dtype=torch.bfloat16)),
     "bwd wgmma without lse": lambda: fa.flash_attention_bwd(*_attn(), *_attn()[:2]),

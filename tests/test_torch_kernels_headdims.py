@@ -91,7 +91,7 @@ def test_both_wrappers_take_the_four_head_dims(D):
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 256, "wgmma"),      # paligemma's prefill: four boxes a row
-    (torch.bfloat16, 112, "cuda_core"),  # a 224-byte row is not whole boxes
+    (torch.bfloat16, 112, "wgmma"),      # two boxes a row: columns 112-127 TMA's zeros
     (torch.float32, 112, "cuda_core"),
     (torch.float32, 256, "cuda_core"),
 ], ids=str)
@@ -102,7 +102,11 @@ def test_flash_attention_variant_at_the_new_dims(dtype, D, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("D", NEW_DIMS)
 def test_decode_variant_is_split_kv_at_the_new_dims(dtype, D):
-    assert tda.variant(dtype, D) == "split_kv"
+    """split_kv at every group size, except bf16 at D = 256, which the mma
+    kernel takes (paligemma-3b's 8 query heads on one kv head; D 112 stays
+    split_kv)."""
+    want = "mma" if dtype == torch.bfloat16 and D == 256 else "split_kv"
+    assert {tda.variant(dtype, D, g) for g in range(1, tda.MAX_G + 1)} == {want}
 
 
 @pytest.mark.parametrize("D", NEW_DIMS)
@@ -213,7 +217,7 @@ def test_d32_takes_split_kv_and_the_cuda_core_kernel(dtype):
     """K3 lays D = 32 out as 64 columns (the last 32 lanes' columns dead);
     K4 takes its CUDA-core kernel for both dtypes (a 64-byte bf16 row is
     not a whole 128-byte swizzle box)."""
-    assert tda.variant(dtype, 32) == "split_kv"
+    assert {tda.variant(dtype, 32, g) for g in range(1, tda.MAX_G + 1)} == {"split_kv"}
     assert tda.lane_layout(32, 1)[0] == 64
     assert tfa.variant(dtype, 32) == "cuda_core"
 

@@ -87,7 +87,12 @@ def test_simt_splits_follow_K_alone(K, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("D", [64, 128])
 def test_decode_variant_is_split_kv(dtype, D):
-    assert tda.variant(dtype, D) == "split_kv"
+    """split_kv at D 64 and 128 up to 4 query heads a kv head (stablelm's,
+    granite-moe's, gemma3's and granite-3-8b's ratios), for float32 at every
+    ratio; bf16 at D 128 from 5 heads takes the mma kernel."""
+    for g in range(1, tda.MAX_G + 1):
+        mma = dtype == torch.bfloat16 and D == 128 and g >= 5
+        assert tda.variant(dtype, D, g) == ("mma" if mma else "split_kv")
 
 
 @pytest.mark.parametrize("S,want", [(1, 1), (64, 1), (512, 1), (513, 2), (600, 2), (777, 2),
