@@ -50,15 +50,24 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      chunked kernel) against its plain version in float32 and bfloat16,
      from a zero and a random state, whole and split in two, under strong
      and weak decay, and times it at a median prompt beside its first,
-     sequential kernel (checked, then timed as ``prior_ms``); (b)
+     sequential kernel (checked, then timed as ``prior_ms``); holds the
+     state pass K5-state ``wkv6_state`` (bf16 and float32 k, v with
+     float32 w) against its plain version likewise and at head sizes 8-64
+     with N != V, and at the serving run's median prompt prints ``ok`` only
+     after its three controls (w rounded to bf16, T - 1 steps, the incoming
+     state dropped) fail the same check, then times it in turns with its
+     prior (the chunked K5 with float32 w, the second launch a bf16
+     prefill made before it) beside its plain version and its bound; (b)
      builds rwkv6-1.6b at full width (seeded random weights, decay made
      data-dependent) and compares the kernel path's logits with the plain
      path's over a 777-token prefill, whole and chunked (512 + 265), and
      8 decode steps: in float32 directly, in bf16 each against the float32
      plain path; (c) serves 16 requests for four rwkv6-1.6b tenants (bf16)
-     in ``space_time`` and ``time_only`` mode, with K5's launch counter
-     read around the run and required at 24 per prefill, every launch
-     chunked; with ``--profile``, K5's share of a prefill;
+     in ``space_time`` and ``time_only`` mode, with the launch counters
+     read around the run: in each mode one chunked K5 and one segmented
+     K5-state launch per layer and prefill (``rwkv.prefill_launches``), no
+     K5 launch with float32 w; with ``--profile``, K5's and K5-state's
+     shares of a prefill;
   6. drives paligemma-3b (head dim 256, 8 query heads on one kv head, a
      stub SigLIP frontend): (a) at full width (bf16, seeded random weights,
      18 layers), the kernel path's logits against the plain path's over a
@@ -166,9 +175,13 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      each): each step's meta arguments must be the bytes the card holds
      for them, each kernel's launches by variant those of the program (no
      plain call), and its time and peak memory are printed beside the meta
-     run's temporaries; K3, K4, K5 (both of the bf16 prefill's launches)
-     and both backward kernels are held against their plain versions at
-     these shapes, a slice of (batch, head) at 32768; in float32 at full
+     run's temporaries; the eager decode step at 32768 is profiled once
+     (its kernel share of the wall, K3's time); K3, K4, K5, K5-state and
+     both backward kernels are held against their plain versions at
+     these shapes, a slice of (batch, head) at 32768; K3 at the decode
+     step's (4, 32, 32, 32768, 64), and K5 and K5-state at rwkv6's 32 heads
+     x 32768 steps, are timed beside their bounds (K3 beside SDPA; the
+     ``long_context`` rows of the phase's line); in float32 at full
      width and 2 layers, microbatch 4 must equal microbatch 1 at the
      reference's tolerances and the merged 4-tenant decode each tenant's own
      step, and each negative control (half the batch left out; two tenants'
@@ -192,7 +205,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      must exit 0. It prints an ``examples`` line.
 
 K5 takes its chunked kernel for every shape (``wkv6_scan.variant``), on heads
-zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``). K1, K2
+zero-padded to N = V = 64 below that (``wkv6_scan.padded_dims``); K5-state
+its segmented kernel over ``wkv6_state.segments(BH, T)`` CTAs a head. K1, K2
 and K4 each have a kernel for the tensor cores, picked by dtype and shape
 before the launch (``batched_gemm.variant``, ``grouped_gemm.variant``,
 ``flash_attention.variant``): wgmma with TMA for bf16; otherwise K1's
@@ -230,13 +244,15 @@ once per attention layer per decode pass of the model;
 phases 2, 6a, 6c and 7a unless K4 and K3 launched once per attention layer
 per prefill (or chunk) and decode step, by the wrapper's rule; phase 4c
 unless every K1 launch of scheduler run 1 took simt and every K1 and K2
-launch of run 2 wgmma; phase 5c unless every K5 launch took chunked. Every
+launch of run 2 wgmma; phase 5c unless every K5 launch took chunked and every
+K5-state launch segmented. Every
 row of the ``kernels`` line carries the ``variant``, the ``shape`` it was
 timed at, its launches by variant, and ``prior_ms``: the previous kernel's
 time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
 CUDA-core variant; K3: split_kv where the rule takes mma, else its first,
 single-pass kernel, null at D = 112, where it has no instance; K5: its first, sequential
-kernel), launched explicitly. Kernel times are device times of back-to-back
+kernel; K5-state: the chunked K5 with float32 w, the launch it replaces), launched
+explicitly. Kernel times are device times of back-to-back
 launches queued behind a sleep kernel, so the host's launch cost does not pace
 them. The build prints ptxas's report for every kernel, the dynamic shared
 memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
@@ -303,6 +319,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:150",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:84",
+    # no Pallas kernel: the reference's jnp lax.scan _wkv_final_state
+    "wkv6_state": "src/repro/models/rwkv.py:188",
 }
 ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phases 3 and 6's path
 EXTRA_HEAD_DIMS = (112, 256)  # zamba2-7b's and paligemma-3b's head dims
@@ -2319,12 +2337,6 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
     name = f"wkv6_scan bf16 at a median prompt, T={T}"
     err, _, _ = check_wkv(ops, name, torch.bfloat16, inputs, state)
     check_wkv(ops, name, torch.bfloat16, inputs, state, kernel="sequential")
-    # the prefill's second launch: the kept state from float32 w, from a state
-    w32 = inputs[3].float() + 0.01 * torch.randn(inputs[3].shape, generator=gen, device=dev)
-    state_inputs = inputs[:3] + (w32, inputs[4])
-    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
-    check_wkv(ops, f"{name}, the state launch (float32 w, random state)", torch.bfloat16,
-              state_inputs, s0)
     nbytes, flops = wkv_work(T, torch.bfloat16)
     bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
     row = {
@@ -2337,12 +2349,9 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
                                                  kernel="sequential"), 20),
         "plain_ms": time_ms(lambda: ops.wkv6_scan_plain(*inputs, init_state=state,
                                                         final_state=state), 3, 1),
-        "state_launch_ms": time_ms(lambda: ops.wkv6_scan(*state_inputs, init_state=s0,
-                                                         final_state=s0), 20),
         "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    log(f"    state launch (float32 w) ms={row['state_launch_ms']:.4f}")
     log(f"    ms={row['ms']:.4f} prior_ms={row['prior_ms']:.4f} (sequential, "
         f"{row['prior_ms'] / row['ms']:.2f}x) plain_ms={row['plain_ms']:.4f} library: none (no "
         f"PyTorch call computes WKV6) bound_ms={bound_ms:.4f} ({bound_by}; bytes "
@@ -2350,6 +2359,143 @@ def measure_wkv(ops, dev, seed, T, launches, by_variant):
         f"{flops / PEAK_FLOPS['torch.float32'] * 1e3:.4f}) kernel/bound={row['ms'] / bound_ms:.1f}")
     return {"name": "wkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
             "replaces": REPLACES["wkv6_scan"], "launches": launches, **row}
+
+
+# The state pass (K5-state, ``wkv6_state``): the float32 state after T steps
+# from float32 w, what a bf16 prefill keeps. Its median-prompt check draws w ~
+# N(STATE_W_MEAN, 1): decays slow enough that the incoming state survives
+# the prompt and w's bf16 rounding accumulates, so each of the check's three
+# controls (w rounded to bf16, T - 1 steps, the state dropped) must fail it
+# (at rwkv6's N(-3, 1) the state is forgotten within a few hundred steps).
+STATE_W_MEAN = -6.0
+STATE_HEADS = ((16, 32), (32, 16), (8, 8), (32, 32), (64, 8))  # (N, V) besides 64 x 64
+
+
+def state_work(BH, T, N, V, dtype):
+    """(bytes, float32 flops) of one state pass: k, v in ``dtype`` and w in
+    float32 read once, the state read and written once; 3 N V flops per
+    head-step (k v, d S, the sum)."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = BH * T * ((N + V) * esize + 4 * N) + 2 * 4 * BH * N * V
+    return nbytes, 3 * N * V * BH * T
+
+
+def check_state(ops, name, k, v, w, s0):
+    """The state pass against its plain version from ``s0`` (None: zero), at
+    WKV_TOL; returns (max error, the kernel's state)."""
+    import torch
+
+    from repro_torch.kernels import wkv6_state as ws
+
+    got = ops.wkv6_state(k, v, w, init_state=s0)
+    want = ops.wkv6_state_plain(k, v, w, init_state=s0)
+    torch.cuda.synchronize()
+    BH = got.shape[0]
+    tag = f"{name} [{ws.VARIANT}, {ws.segments(BH, k.shape[-2])} segments]"
+    return check_close(tag, got, want, "torch.float32", WKV_TOL), got
+
+
+def phase_state_kernel(ops, dev, seed):
+    """(a) the state pass against its plain version: bf16 and float32 k, v
+    with float32 w, every T of WKV_TS, from a zero and a random state, in
+    one buffer (``final_state is init_state``) bitwise as into a new one;
+    777 steps against 512 then 265 from the carried state; strong and weak
+    decay; the (BH, T, N) form; the head sizes of STATE_HEADS."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"wkv6_state {str(dtype)[6:]} k, v, float32 w"
+        for T in WKV_TS:
+            _, k, v, w, _ = wkv_inputs(gen, dev, dtype, T, w_dtype=torch.float32)
+            check_state(ops, f"{tag} T={T} zero state", k, v, w, None)
+            s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+            _, whole = check_state(ops, f"{tag} T={T} random state", k, v, w, s0)
+            buf = s0.clone()
+            if ops.wkv6_state(k, v, w, init_state=buf, final_state=buf) is not buf:
+                raise PhaseFailed(f"{tag}: the state is not the caller's buffer")
+            torch.cuda.synchronize()
+            if not torch.equal(buf, whole):
+                raise PhaseFailed(f"{tag} T={T}: in place is not bitwise the new buffer's state")
+            if T != 777:
+                continue
+            buf = s0.clone()
+            for a, b in ((0, CHUNK_SPLIT), (CHUNK_SPLIT, T)):
+                ops.wkv6_state(*(t[:, :, a:b] for t in (k, v, w)), init_state=buf,
+                               final_state=buf)
+            torch.cuda.synchronize()
+            check_close(f"{tag} 512 + 265 from the carried state vs 777", buf, whole,
+                        "torch.float32", WKV_TOL)
+        for regime, (mean, std) in WKV_DECAYS.items():
+            _, k, v, w, _ = wkv_inputs(gen, dev, dtype, 777, w_dtype=torch.float32,
+                                       w_mean=mean, w_std=std)
+            s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+            check_state(ops, f"{tag} T=777 {regime} decay, w ~ N({mean}, {std})", k, v, w, s0)
+        _, k, v, w, _ = wkv_inputs(gen, dev, dtype, 777, w_dtype=torch.float32)
+        flat = [t.reshape(WKV_HEADS, 777, WKV_N) for t in (k, v, w)]  # (BH, T, N) copies
+        check_state(ops, f"{tag} (BH, T, N) contiguous", *flat, None)
+        for N, V in STATE_HEADS:
+            _, k, v, w, _ = wkv_case_inputs(gen, dev, dtype, 8, 200, N, V)
+            s0 = torch.randn((8, N, V), generator=gen, device=dev)
+            check_state(ops, f"{tag} (BH, T, N, V)={(8, 200, N, V)}", k, v, w.float(), s0)
+
+
+def measure_state(ops, dev, seed, T):
+    """The state pass at a median prompt of the serving run (bf16 k, v as
+    (1, H, T, N) views, float32 w ~ N(STATE_W_MEAN, 1), a random state):
+    ``ok`` only after its three controls fail the same check; then timed in
+    turns with its prior, the chunked K5 launched on the same inputs with
+    float32 w (the prefill's second launch before the state pass), beside
+    its plain version and its bound. Returns the kernels row without the
+    main path's launches."""
+    import torch
+
+    from repro_torch.kernels import wkv6_state as ws
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    r, k, v, w, u = wkv_inputs(gen, dev, torch.bfloat16, T, w_dtype=torch.float32,
+                               w_mean=STATE_W_MEAN)
+    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+    want = ops.wkv6_state_plain(k, v, w, init_state=s0)
+    name = f"wkv6_state at a median prompt, T={T}, w ~ N({STATE_W_MEAN}, 1), random state"
+
+    def control(k_, v_, w_, s_):
+        def run():
+            got = ops.wkv6_state(k_, v_, w_, init_state=s_)
+            torch.cuda.synchronize()
+            check_close(name, got, want, "torch.float32", WKV_TOL)
+        return run
+
+    must_fail("w rounded to bf16", control(k, v, w.to(torch.bfloat16).float(), s0))
+    must_fail(f"{T - 1} steps", control(k[:, :, :-1], v[:, :, :-1], w[:, :, :-1], s0))
+    must_fail("the incoming state dropped", control(k, v, w, None))
+    err, _ = check_state(ops, name, k, v, w, s0)
+    buf, prior_buf = s0.clone(), s0.clone()
+    ms, prior_ms, turns = timed_turns(
+        lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf),
+        lambda: ops.wkv6_scan(r, k, v, w, u, init_state=prior_buf, final_state=prior_buf), 20)
+    nbytes, flops = state_work(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16)
+    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    row = {
+        "variant": ws.VARIANT, "segments": ws.segments(WKV_HEADS, T),
+        "shape": f"median prompt: {WKV_HEADS} heads, T={T}, bf16 k, v, float32 w",
+        "max_abs_err": err, "ms": ms, "prior": "wkv6_scan chunked, float32 w", "prior_ms": prior_ms,
+        "turns_ms": turns,
+        "plain_ms": time_ms(lambda: ops.wkv6_state_plain(k, v, w, init_state=buf,
+                                                         final_state=buf), 3, 1),
+        "library_ms": None,  # no single PyTorch call computes the WKV6 state
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"    ms={ms:.4f} prior_ms={prior_ms:.4f} (the chunked K5 with float32 w, "
+        f"{prior_ms / ms:.2f}x; turns {', '.join(f'{t:.4f}' for t in turns)}) "
+        f"plain_ms={row['plain_ms']:.4f} library: none bound_ms={bound_ms:.4f} ({bound_by}; bytes "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f}, operations "
+        f"{flops / PEAK_FLOPS['torch.float32'] * 1e3:.4f}) kernel/bound={ms / bound_ms:.1f}")
+    return {"name": "wkv6_state", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6_state.cu",
+            "replaces": REPLACES["wkv6_state"], **row}
 
 
 def stage_logits(model, params, tokens, decode_tokens, keep=None):
@@ -2497,39 +2643,76 @@ def model_vs_plain_f32_bf16(ops, cfg, dev, seed, init=None, keep=None, note=""):
     return kept
 
 
+@contextlib.contextmanager
+def scan_w_dtypes():
+    """The dtype of w at every call of K5's wrapper while open (a list);
+    the calls themselves run unchanged."""
+    from repro_torch.kernels import wkv6_scan as wk
+
+    seen, real = [], wk.wkv6_scan
+
+    def spy(r, k, v, w, *args, **kwargs):
+        seen.append(w.dtype)
+        return real(r, k, v, w, *args, **kwargs)
+
+    wk.wkv6_scan = spy
+    try:
+        yield seen
+    finally:
+        wk.wkv6_scan = real
+
+
 def phase_rwkv(ops, dev, seed, profile=False):
-    """Phase 5: (a) K5, (b) the full-width model, (c) four rwkv6-1.6b
-    tenants served in both modes; returns K5's kernels row."""
+    """Phase 5: (a) K5 and the state pass, (b) the full-width model, (c) four
+    rwkv6-1.6b tenants served in both modes; returns K5's and the state
+    pass's kernels rows."""
     import torch
 
     from repro_torch.config import get_config
     from repro_torch.models import build_model, rwkv
 
+    cfg = get_config(RWKV)
+    prompts, lens = serve_prompts(cfg, seed)
+    median = int(np.median(lens))
     log(" (a) K5 wkv6_scan against its plain version")
     phase_wkv_kernel(ops, dev, seed)
+    log(" (a) the state pass wkv6_state against its plain version")
+    phase_state_kernel(ops, dev, seed)
+    log(f"  the state pass at the serving run's median prompt (T={median}): controls, check, "
+        "times")
+    state_row = measure_state(ops, dev, seed, median)
     log(f" (b) {RWKV} at full width, kernel path vs plain path")
     phase_rwkv_model(ops, dev, seed)
     torch.cuda.empty_cache()
     log(f" (c) serving {REQUESTS} requests for {R_TENANTS} {RWKV} tenants")
-    cfg = get_config(RWKV)
     model = build_model(cfg, device=dev)
     stacked = stacked_tenants(model, dev, seed, live_decay_)
-    prompts, lens = serve_prompts(cfg, seed)
-    launches, per_mode, _ = serve_both_modes(model, stacked, prompts, ops, ("wkv6_scan",))
-    by_variant = dict(ops.COUNTERS["wkv6_scan"].variants)
-    # per layer and (unchunked) prefill: the outputs' scan, and in bf16 the
-    # kept state's scan with float32 w (rwkv.prefill_scans)
-    scans = rwkv.prefill_scans(model.dtype)
-    want = cfg.num_layers * scans * REQUESTS
+    per_layer = rwkv.prefill_launches(model.dtype)
+    with scan_w_dtypes() as w_dtypes:
+        launches, per_mode, _ = serve_both_modes(model, stacked, prompts, ops, tuple(per_layer))
+    # per layer and (unchunked) prefill: the outputs' scan (w rounded to the
+    # model dtype) and, in bf16, the state pass (float32 w) for the kept state
     for mode, per in zip(("space_time", "time_only"), per_mode):
-        if per["wkv6_scan"] != want:
-            raise PhaseFailed(f"{mode}: wkv6_scan launched {per['wkv6_scan']} times, "
-                              f"not {cfg.num_layers * scans} per prefill ({want})")
-    log(f"  wkv6_scan launches per mode: {want} = {cfg.num_layers} layers x {scans} scans x "
-        f"{REQUESTS} prefills; by variant on the serving path: {by_variant}")
-    if by_variant.get("chunked", 0) != launches["wkv6_scan"]:
-        raise PhaseFailed(f"wkv6_scan: {launches['wkv6_scan']} launches on the serving path, not "
-                          f"all chunked: {by_variant}")
+        for op, n in per_layer.items():
+            if per[op] != cfg.num_layers * n * REQUESTS:
+                raise PhaseFailed(f"{mode}: {op} launched {per[op]} times, not "
+                                  f"{cfg.num_layers * n} per prefill")
+    by_variant = {op: dict(ops.COUNTERS[op].variants) for op in per_layer}
+    log(f"  launches per mode: " + ", ".join(f"{op} {cfg.num_layers * n * REQUESTS} = "
+                                            f"{cfg.num_layers} layers x {n} x {REQUESTS} prefills"
+                                            for op, n in per_layer.items())
+        + f"; by variant on the serving path: {by_variant}; w of the wkv6_scan launches: "
+        f"{sorted(set(str(d) for d in w_dtypes))}")
+    from repro_torch.kernels import wkv6_state as ws
+
+    want_variant = {"wkv6_scan": "chunked", "wkv6_state": ws.VARIANT}
+    for op in per_layer:
+        if by_variant[op] != {want_variant[op]: launches[op]}:
+            raise PhaseFailed(f"{op}: {launches[op]} launches on the serving path, not all "
+                              f"{want_variant[op]}: {by_variant[op]}")
+    if len(w_dtypes) != launches["wkv6_scan"] or torch.float32 in w_dtypes:
+        raise PhaseFailed(f"wkv6_scan: {len(w_dtypes)} calls for {launches['wkv6_scan']} launches, "
+                          f"w dtypes {set(w_dtypes)}: a scan took float32 w")
     graph_checks(ops, cfg, model, stacked, prompts)
     if profile:
         profile_serving(model, stacked, prompts)
@@ -2537,14 +2720,19 @@ def phase_rwkv(ops, dev, seed, profile=False):
     del stacked
     torch.cuda.empty_cache()
     log("kernels at the RWKV serving path's shapes")
-    return [measure_wkv(ops, dev, seed, int(np.median(lens)), launches["wkv6_scan"], by_variant)]
+    rows = [measure_wkv(ops, dev, seed, median, launches["wkv6_scan"], by_variant["wkv6_scan"])]
+    if "wkv6_state" in per_layer:
+        rows.append({**state_row, "launches": launches["wkv6_state"],
+                     "launches_by_variant": by_variant["wkv6_state"]})
+    return rows
 
 
 def profile_prefill(model, stacked, prompts):
-    """K5's share of a prefill: torch.profiler over one tenant's prefill of
-    the median prompt (after two unprofiled ones). Prints the host wall
-    time, the device time in kernels, K5's device time and launches, and
-    K5's share of the kernel time."""
+    """K5's and the state pass's share of a prefill: torch.profiler over one
+    tenant's prefill of the median prompt (after two unprofiled ones).
+    Prints the host wall time, the device time in kernels and the idle
+    share, and each kernel's device time, launches and share of the kernel
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2564,12 +2752,15 @@ def profile_prefill(model, stacked, prompts):
             wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    k5 = [e for e in kernels if "wkv6_" in e.key]
-    k5_us = sum(e.self_device_time_total for e in k5)
+    parts = {}
+    for what, key in (("K5", "wkv6_chunked"), ("K5-state", "wkv6_state")):
+        mine = [e for e in kernels if key in e.key]
+        parts[what] = (sum(e.self_device_time_total for e in mine), sum(e.count for e in mine))
     log(f"  profile prefill of {tokens.shape[1]} tokens (tenant {t}): wall {wall * 1e3:.3f} ms, "
-        f"kernels {busy_us / 1e3:.3f} ms, K5 {k5_us / 1e3:.3f} ms in "
-        f"{sum(e.count for e in k5)} launches, K5 share of kernel time "
-        f"{k5_us / max(busy_us, 1e-9):.3f}, of wall {k5_us / 1e6 / wall:.3f}")
+        f"kernels {busy_us / 1e3:.3f} ms (idle share {1 - busy_us / 1e6 / wall:.3f}); "
+        + "; ".join(f"{what} {us / 1e3:.3f} ms in {n} launches, share of kernel time "
+                    f"{us / max(busy_us, 1e-9):.3f}, of wall {us / 1e6 / wall:.3f}"
+                    for what, (us, n) in parts.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
 
@@ -4262,7 +4453,7 @@ DRYRUN_NICE = 15                 # the dry-run children yield the CPU to the car
 DRYRUN_POD1 = ("stablelm-1.6b", "train_4k")
 DRYRUN_TIMEOUT_S = 300
 P11_KERNELS = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
-               "wkv6_scan": "chunked", "wkv6_scan_bwd": "cluster",
+               "wkv6_scan": "chunked", "wkv6_scan_bwd": "cluster", "wkv6_state": "segmented",
                "decode_attention": "split_kv"}
 
 
@@ -4464,7 +4655,9 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
     the bytes of the tensors really allocated for them; warm-up and timed
     calls; every op's launches by variant against the program's (layers x
     calls, the train step's forward twice a slice under remat "block", the
-    bf16 RWKV prefill's two scans a layer) and no plain call."""
+    bf16 RWKV prefill's scan and state pass a layer) and no plain call. The
+    eager decode step at 32768 with one tenant is profiled once more: its
+    wall, its kernel time and K3's (``decode_32k_profile``)."""
     import torch
 
     from repro_torch.config import get_config, get_shape
@@ -4524,8 +4717,9 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
         op = "flash_attention" if cfg.ssm is None else "wkv6_scan"
         want = {op: 2 * L * mb * calls, op + "_bwd": L * mb * calls}
     elif kind == "prefill":
-        op = "flash_attention" if cfg.ssm is None else "wkv6_scan"
-        want = {op: L * calls * (rwkv.prefill_scans(torch.bfloat16) if cfg.ssm else 1)}
+        per_layer = (rwkv.prefill_launches(torch.bfloat16) if cfg.ssm is not None
+                     else {"flash_attention": 1})
+        want = {op: L * calls * n for op, n in per_layer.items()}
     else:
         want = {"decode_attention": L * calls}
     got = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
@@ -4535,6 +4729,12 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
     if got != expect or plain:
         raise PhaseFailed(f"{label}: launches {got}, not {expect}, or plain calls {plain}")
     ms = float(np.median(times)) * 1e3
+    profiled = None
+    if kind == "decode" and tenants == 1:  # one call more, after the launches were read
+        profiled = decode_32k_profile(step, real)
+        profiled["kernel_share_of_step"] = profiled["kernel_ms"] / ms
+        log(f"    kernel time {profiled['kernel_ms']:.3f} ms of the unprofiled step's {ms:.3f} ms: "
+            f"share {profiled['kernel_share_of_step']:.3f}")
     tokens = shape.global_batch * (shape.seq_len if kind != "decode" else 1)
     rec = {"arch": arch, "kind": kind, "shape": name, "batch": shape.global_batch,
            "seq": shape.seq_len, "microbatch": mb, "tenants": tenants, "dtype": "bfloat16",
@@ -4542,7 +4742,7 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
            "arguments_bytes": card_bytes, "meta_arguments_bytes": meta_bytes,
            "peak_minus_arguments_bytes": peak - card_bytes,
            "loss": float(out[2]) if kind == "train" else None,
-           "launches": {k: v for k, v in got.items()}}
+           "launches": {k: v for k, v in got.items()}, "profile": profiled}
     log(f"    step {ms:.1f} ms (median of {timed}), {rec['tokens_per_s']:.0f} tokens/s, peak "
         f"{peak / 1e9:.2f} GB = arguments + {(peak - card_bytes) / 1e9:.2f} GB"
         + (f", loss {rec['loss']:.4f}" if kind == "train" else ""))
@@ -4551,14 +4751,93 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
     return rec
 
 
+def decode_32k_profile(step, args):
+    """One eager decode step under torch.profiler (after the timed ones):
+    host wall, device time in kernels and the idle share, K3's time and
+    launches, and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    k3 = [e for e in kernels if "decode_" in e.key]
+    k3_us = sum(e.self_device_time_total for e in k3)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    rec = {"wall_ms": wall * 1e3, "kernel_ms": busy_us / 1e3,
+           "kernel_share": busy_us / 1e6 / wall, "kernels": sum(e.count for e in kernels),
+           "k3_ms": k3_us / 1e3, "k3_launches": sum(e.count for e in k3),
+           "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top]}
+    log(f"    profiled decode step: wall {rec['wall_ms']:.3f} ms, kernels {rec['kernel_ms']:.3f} ms "
+        f"(share {rec['kernel_share']:.3f}) in {rec['kernels']} launches, K3 {rec['k3_ms']:.3f} ms "
+        f"in {rec['k3_launches']}")
+    for key, ms, n in rec["top"]:
+        log(f"      {ms:8.3f} ms {n:5d}x  {key}")
+    return rec
+
+
+P11_LONG_T = 32768  # the long-context rows' cache length and steps
+
+
+def p11_long_context(ops, dev, seed):
+    """The long-context kernel rows, each timed beside its bound (and SDPA's
+    time for K3): K3 at the decode_32k step's shape (4, 32, 32, 32768, 64),
+    lengths in the cache's last 64 positions; the chunked K5 (bf16 w, the
+    outputs' launch) and the state pass (float32 w, with K5's float32-w
+    launch as its prior) at rwkv6's prefill_32k, 32 heads x 32768 steps, from
+    a random state."""
+    import torch
+
+    from repro_torch.kernels import wkv6_state as ws
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 111)
+    bf = torch.bfloat16
+    rows = {}
+    T = P11_LONG_T
+    log(f"  decode_attention bf16 (4, 32, 32, {T}, 64), the decode_32k step's shape")
+    k3 = measure_decode(ops, dev, gen, bf, 4, 32, 32, T, 64, [T - 1 - 16 * i for i in range(4)],
+                        iters=10)
+    rows["decode_attention"] = {"shape": f"(4, 32, 32, {T}, 64)", **k3}
+    r, k, v, w, u = wkv_inputs(gen, dev, bf, T, w_dtype=torch.float32)
+    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+    wb = w.to(bf)
+    k5_bytes, k5_flops = wkv_work(T, bf)
+    st_bytes, st_flops = state_work(WKV_HEADS, T, WKV_N, WKV_N, bf)
+    buf, prior_buf, out_buf = s0.clone(), s0.clone(), s0.clone()
+    ms, prior_ms, turns = timed_turns(
+        lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf),
+        lambda: ops.wkv6_scan(r, k, v, w, u, init_state=prior_buf, final_state=prior_buf), 5)
+    k5_ms = time_ms(lambda: ops.wkv6_scan(r, k, v, wb, u, init_state=out_buf), 5)
+    for name, t, (nbytes, flops), extra in (
+            ("wkv6_scan", k5_ms, (k5_bytes, k5_flops), {"variant": "chunked", "w": "bf16"}),
+            ("wkv6_state", ms, (st_bytes, st_flops),
+             {"variant": ws.VARIANT, "segments": ws.segments(WKV_HEADS, T), "w": "float32",
+              "prior": "wkv6_scan chunked, float32 w", "prior_ms": prior_ms, "turns_ms": turns})):
+        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+        rows[name] = {"shape": f"({WKV_HEADS} heads, T={T}, N=V={WKV_N}), bf16 k, v", "ms": t,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, **extra}
+        log(f"  {name} at rwkv6 prefill_32k ({WKV_HEADS} heads x {T}): ms={t:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={t / bound_ms:.2f}"
+            + (f" prior_ms={prior_ms:.4f} ({prior_ms / t:.1f}x; turns "
+               f"{', '.join(f'{x:.4f}' for x in turns)})" if name == "wkv6_state" else ""))
+    del r, k, v, w, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
 def p11_kernels(ops, dev, seed):
     """K3, K4, K5 and both backward kernels against their plain versions at
     this phase's shapes, a slice of (batch, head) where the plain version
     would not fit: K4 at the prefill's 32,768 and the train step's 4,096;
-    K3 at the decode step's caches of 32,768; K5 at 32,768 steps, its
-    outputs' launch (bf16 w) and its state launch (float32 w, from a random
-    state); K4-bwd and K5-bwd at the train step's 4,096. Returns the max
-    errors by kernel."""
+    K3 at the decode step's caches of 32,768; K5 at 32,768 steps (the
+    outputs' launch, bf16 w) and the state pass there (float32 w), both from
+    a random state; K4-bwd and K5-bwd at the train step's 4,096. Returns the
+    max errors by kernel."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -4578,8 +4857,8 @@ def p11_kernels(ops, dev, seed):
     errs["wkv6_scan"], _, _ = check_wkv(ops, "wkv6_scan bf16 (1, 1, 32768, 64), outputs' launch",
                                         bf, (r, k, v, w, u), s0)
     w32 = w.float() + 0.01 * torch.randn(w.shape, generator=gen, device=dev)
-    check_wkv(ops, "wkv6_scan bf16 (1, 1, 32768, 64), state launch (float32 w)", bf,
-              (r, k, v, w32, u), s0)
+    errs["wkv6_state"], _ = check_state(ops, "wkv6_state (1, 1, 32768, 64), bf16 k, v, float32 w, "
+                                        "random state", k, v, w32, s0)
     del r, k, v, w, w32
     torch.cuda.empty_cache()
     q, k, v, do = flash_bwd_inputs(gen, dev, bf, 1, 1, 1, 4096, 64)
@@ -4792,6 +5071,7 @@ def phase_dryrun_steps(ops, dev, seed):
         try:
             steps = [p11_step(ops, dev, seed, *case) for case in P11_STEPS]
             errs = p11_kernels(ops, dev, seed)
+            long_context = p11_long_context(ops, dev, seed)
             eq = {arch: p11_microbatch_equivalence(ops, arch, dev, seed)
                   for arch in ("stablelm-1.6b", "rwkv6-1.6b")}
             eq["tenants"] = p11_tenant_equivalence(ops, dev, seed)
@@ -4831,7 +5111,8 @@ def phase_dryrun_steps(ops, dev, seed):
     if wall > P11_BUDGET_S:
         raise PhaseFailed(f"phase 11 took {wall:.1f} s, over its {P11_BUDGET_S:.0f} s budget")
     torch.cuda.empty_cache()
-    record = {"card": card, "steps": steps, "kernel_max_abs_err": errs, "equivalence": eq,
+    record = {"card": card, "steps": steps, "kernel_max_abs_err": errs,
+              "long_context": long_context, "equivalence": eq,
               "host_records": {f"{a} x {s}": r["status"] for (a, s), r in host.items()},
               "pod1": {k: pod[k] for k in ("arch", "shape", "mesh", "chips",
                                            "memory_analysis")},
@@ -5024,9 +5305,10 @@ def build_report(_build):
     backward's dk_dv and dq at D = 64, 128, 256), K3's split_kv ring at every
     head dim in both dtypes and its mma ring at its head dims (held equal to
     the wrapper's ``ring_bytes`` and ``mma_ring_bytes``), K5's chunked kernel
-    and its backward's two variants, and how many of K3's clusters fit on
-    the card at once at stablelm's and paligemma's decode shapes (split_kv
-    at 4 splits, mma at 8 and 16)."""
+    and its backward's two variants, the state pass, and how many of K3's
+    clusters fit on the card at once at stablelm's and paligemma's decode
+    shapes (split_kv at 4 splits, mma at 8 and 16) and of the state pass's
+    at every segment count (beside ``wkv6_state.RESIDENT_CLUSTERS``)."""
     import ctypes
 
     for name in _build.SOURCES:
@@ -5040,10 +5322,12 @@ def build_report(_build):
     wk = _build.load("wkv6_scan").repro_wkv6_scan_smem
     wkb = _build.load("wkv6_scan_bwd").repro_wkv6_scan_bwd_smem
     fab = _build.load("flash_attention_bwd").repro_flash_attention_bwd_smem
+    wks = _build.load("wkv6_state").repro_wkv6_state_smem
     gg.argtypes, gg.restype = [], ctypes.c_int
     for fn, n in ((fa, 1), (bg, 1), (da.repro_decode_attention_smem, 2),
                   (da.repro_decode_attention_clusters, 4), (da.repro_decode_attention_mma_smem, 1),
-                  (da.repro_decode_attention_mma_clusters, 3), (wk, 2), (wkb, 1), (fab, 2)):
+                  (da.repro_decode_attention_mma_clusters, 3), (wk, 2), (wkb, 1), (fab, 2),
+                  (wks, 1)):
         fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
     log(f"  dynamic shared memory: grouped_gemm wgmma {gg()} bytes; batched_gemm wgmma 64-row "
         f"{bg(64)}, 128-row {bg(128)} bytes; flash_attention wgmma "
@@ -5055,7 +5339,8 @@ def build_report(_build):
                                     for d in (64, 112, 128, 256))
         + f" bytes; wkv6_scan chunked f32 {wk(0, 1)}, bf16 {wk(1, 0)} bytes; wkv6_scan_bwd "
         f"chunked {wkb(0)}, cluster (bf16) {wkb(1)} bytes; flash_attention_bwd wgmma dk_dv / dq "
-        + ", ".join(f"D={d} {fab(d, 0)} / {fab(d, 1)}" for d in (64, 128, 256)) + " bytes")
+        + ", ".join(f"D={d} {fab(d, 0)} / {fab(d, 1)}" for d in (64, 128, 256))
+        + f" bytes; wkv6_state segmented f32 {wks(0)}, bf16 {wks(1)} bytes")
     import torch
 
     from repro_torch.kernels import decode_attention as dapy
@@ -5073,6 +5358,14 @@ def build_report(_build):
     if fa(256) <= 0 or fa(112) != fa(128):
         raise PhaseFailed("flash_attention: no wgmma kernel at D=256, or D=112 not laid out as "
                           "128")
+    from repro_torch.kernels import wkv6_state as wspy
+
+    wsc = _build.load("wkv6_state").repro_wkv6_state_clusters
+    wsc.argtypes, wsc.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for code in (0, 1):  # the segment rule's table against the card
+        got = {g: wsc(code, g) for g in wspy.RESIDENT_CLUSTERS}
+        log(f"  wkv6_state clusters resident at once by segments ({'bf16' if code else 'f32'}): "
+            f"{got}; the rule's table {'equal' if got == wspy.RESIDENT_CLUSTERS else 'DIFFERS'}")
     for d, g in ((64, 1), (256, 8)):  # stablelm's and paligemma's decode steps
         clusters = da.repro_decode_attention_clusters(d, 1, g, 4)
         log(f"  decode_attention split_kv clusters of 4 resident at once (D={d} bf16, "

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan",
-           "flash_attention_bwd", "wkv6_scan_bwd")
+           "flash_attention_bwd", "wkv6_scan_bwd", "wkv6_state")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,6 +64,9 @@ SIGNATURES = {
         # r, k, v, w, u, do, dr, dk, dv, dw, du, ckpt, part, du_part, BH, T,
         # u_rows, dtype, w_f32, variant, stream
         [_P] * 14 + [_I] * 6 + [_P], _I),
+    "wkv6_state": (
+        # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, segments, stream
+        [_P] * 5 + [_I] * 5 + [_P] + [_I] * 2 + [_P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

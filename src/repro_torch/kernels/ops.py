@@ -44,6 +44,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import wkv6_scan as _wkv
+from repro_torch.kernels import wkv6_state as _wks
 
 COUNTERS: Dict[str, _build.OpCounter] = {
     "decode_attention": _da.counter,
@@ -51,6 +52,7 @@ COUNTERS: Dict[str, _build.OpCounter] = {
     "batched_gemm": _bg.counter,
     "grouped_gemm": _gg.counter,
     "wkv6_scan": _wkv.counter,
+    "wkv6_state": _wks.counter,
     "flash_attention_bwd": _fa.bwd_counter,
     "wkv6_scan_bwd": _wkv.bwd_counter,
 }
@@ -304,6 +306,37 @@ def wkv6_scan(
         return _wkv.wkv6_scan(r, k, v, w, u, init_state, final_state)
     _check_plain_device(r, "wkv6_scan")
     return wkv6_scan_plain(r, k, v, w, u, init_state, final_state)
+
+
+def wkv6_state_plain(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+    final_state: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain version of ``wkv6_state``, on any device."""
+    _wks.counter.plain_calls += 1
+    state = ref.wkv6_state(k, v, w, init_state)
+    if final_state is None:
+        return state
+    return final_state.copy_(state.view(final_state.shape))
+
+
+def wkv6_state(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+    final_state: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The RWKV-6 state after the last step, with no outputs (the JAX
+    package's ``_wkv_final_state``): from ``init_state`` (zero if None),
+    written into ``final_state`` when given (it may be ``init_state``)."""
+    if k.is_cuda:
+        return _wks.wkv6_state(k, v, w, init_state, final_state)
+    _check_plain_device(k, "wkv6_state")
+    return wkv6_state_plain(k, v, w, init_state, final_state)
 
 
 # The decode step is a handful of elementwise ops and one small product per

@@ -294,6 +294,41 @@ def wkv6_scan(
     return out.reshape(*lead, T, V).to(r.dtype), state
 
 
+def wkv6_state(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    init_state: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The WKV6 state after step T, with no outputs: the JAX package's
+    ``_wkv_final_state`` (``repro.models.rwkv``), which a bf16 prefill keeps.
+
+    k, w (..., T, N) and v (..., T, V), leading dims (BH,) or (B, H); w
+    float32 in the model's use; init_state (BH, N, V) or None (zero). In
+    the reference's order, in float32: decay = exp(-exp(w_t)), kv = k_t^T
+    v_t, S = decay[..., None] * S + kv. Returns the float32 (BH, N, V) state.
+    """
+    T, N = k.shape[-2:]
+    V = v.shape[-1]
+    bh = math.prod(k.shape[:-2])
+    kf = k.reshape(bh, T, N).float()
+    vf = v.reshape(bh, T, V).float()
+    decay = torch.exp(-torch.exp(w.reshape(bh, T, N).float()))
+    if init_state is None:
+        state = torch.zeros((bh, N, V), dtype=torch.float32, device=k.device)
+    else:
+        state = init_state.reshape(bh, N, V).float().clone()
+    if k.device.type == "meta":
+        # as in ``wkv6_scan``: the T steps' arithmetic in one dispatch
+        kv = kf[..., None] * vf[..., None, :]                           # (bh, T, N, V)
+        return (decay[..., None] * state[:, None] + kv)[:, -1]
+    with _full_f32():
+        for t in range(T):
+            kv = kf[:, t, :, None] * vf[:, t, None, :]
+            state = decay[:, t, :, None] * state + kv
+    return state
+
+
 def wkv6_chunk_states(
     k: torch.Tensor,
     v: torch.Tensor,

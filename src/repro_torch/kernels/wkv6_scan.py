@@ -2,8 +2,11 @@
 
 Wrapper of ``csrc/wkv6_scan.cu``, the port of the JAX package's Pallas
 ``wkv6_scan``. Unlike the TPU kernel it starts from a given state and
-returns the state after the last step, so the serving prefill (fresh or a
-chunked continuation) needs no second scan for the state. Its plain
+returns the state after the last step: a float32 prefill (fresh or a
+chunked continuation) keeps that state; a bf16 prefill scans its outputs
+with w rounded to bf16 and keeps instead the state of the state pass
+(``wkv6_state``, float32 w), so this kernel's state goes to a scratch
+buffer there. Its plain
 PyTorch version is ``ref.wkv6_scan``; ``ops.wkv6_scan`` picks between them
 by the device of the tensors. On the card every call takes the chunked
 kernel: chunks of ``CHUNK`` steps, each from the state entering it through

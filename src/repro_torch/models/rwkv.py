@@ -17,8 +17,9 @@ the cache's new state rolled with float32 ``w`` (the reference's
 ``_wkv_final_state``; its decode step keeps ``w`` float32 too). In float32
 the two coincide and one ``wkv6_scan`` launch writes the state after the
 last token straight into the cache; in a narrower model dtype, by that
-fixed rule, a first launch gives the outputs and leaves the cache alone,
-and a second, with float32 ``w``, writes the state in place.
+fixed rule (``prefill_launches``), one ``wkv6_scan`` launch gives the
+outputs and leaves the cache alone, and one ``wkv6_state`` launch (the
+state pass: no outputs), with float32 ``w``, writes the state in place.
 ``rwkv_train`` is the train mode: from a zero previous token and a zero
 state, keeping no state; under autograd on the card, ``ops.wkv6_scan`` runs
 K5 forward and its backward kernel. ``rwkv_decode`` is one token for R
@@ -85,11 +86,14 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, object]]:
             "shift_cm": ((cfg.d_model,), None)}
 
 
-def prefill_scans(dtype: torch.dtype) -> int:
-    """``wkv6_scan`` calls a prefill makes per layer in model dtype ``dtype``:
-    one in float32; two in a narrower dtype (the outputs from rounded w,
-    then the kept state from float32 w)."""
-    return 1 if dtype == torch.float32 else 2
+def prefill_launches(dtype: torch.dtype) -> Dict[str, int]:
+    """Calls a prefill makes per layer in model dtype ``dtype``, by op: in
+    float32 one ``wkv6_scan`` (the outputs and the kept state); in a
+    narrower dtype one ``wkv6_scan`` (the outputs, from w rounded to the
+    dtype) and one ``wkv6_state`` (the kept state, from float32 w)."""
+    if dtype == torch.float32:
+        return {"wkv6_scan": 1}
+    return {"wkv6_scan": 1, "wkv6_state": 1}
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -132,7 +136,11 @@ def _channel_mix(p: Params, x: torch.Tensor, shifted: torch.Tensor, chan: Callab
 def rwkv_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache,
                  plain: bool = False) -> torch.Tensor:
     """x (B, S, d) -> the block's output (B, S, d), from the state in
-    ``cache``, which ends as the state after the last token."""
+    ``cache``, which ends as the state after the last token. In a narrower
+    dtype than float32 the outputs' scan writes its own state into a
+    scratch tensor, never into the cache, and the state pass then writes
+    the kept state into ``cache["wkv"]``; both run on one stream, so the
+    scan reads the incoming state first."""
     H, N = dims(cfg)
     B, S, d = x.shape
     h = layers.rmsnorm(p["norm_tm"]["scale"], x, cfg.norm_eps)
@@ -143,12 +151,13 @@ def rwkv_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache,
 
     scan = ops.wkv6_scan_plain if plain else ops.wkv6_scan
     wkv = cache["wkv"]
-    if prefill_scans(r.dtype) == 1:  # float32: one scan gives the outputs and the kept state
+    if "wkv6_state" not in prefill_launches(r.dtype):  # float32: one scan, outputs and state
         o, _ = scan(heads(r), heads(k), heads(v), heads(w), p["u"],
                     init_state=wkv, final_state=wkv)
     else:  # the outputs from w rounded to r's dtype, the kept state from float32 w
         o, _ = scan(heads(r), heads(k), heads(v), heads(w.to(r.dtype)), p["u"], init_state=wkv)
-        scan(heads(r), heads(k), heads(v), heads(w), p["u"], init_state=wkv, final_state=wkv)
+        state = ops.wkv6_state_plain if plain else ops.wkv6_state
+        state(heads(k), heads(v), heads(w), init_state=wkv, final_state=wkv)
     o = o.transpose(1, 2).reshape(B, S, d)
     x = x + torch.matmul(layers.groupnorm_heads(o, H) * g, p["wo"])
     cache["shift_tm"].copy_(h[:, -1])
