@@ -24,10 +24,16 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 
   1. holds every kernel against its plain PyTorch version on the card, in
      float32 and bfloat16, at the shapes of the serving path and at the
-     edges of K4's tiles, and times the kernel, the plain version and
-     ``scaled_dot_product_attention`` (the library yardstick, which the
-     port never calls); an attention softcap must give the plain version's
-     output with no kernel launch (the op's rule, as the reference's);
+     edges of K4's tiles (K4 also with ``q_offset`` read from a device
+     buffer, as a captured prefill piece launches it: n queries at start 0,
+     mid-block, on block edges and with start + n = 2048 against a whole
+     cache of 2048 keys, against its plain version and bitwise against the
+     host-int launch, after its two controls, a stale offset buffer and an
+     offset off by one, were caught), and times the kernel, the plain
+     version and ``scaled_dot_product_attention`` (the library yardstick,
+     which the port never calls); an attention softcap must give the plain
+     version's output with no kernel launch (the op's rule, as the
+     reference's);
   2. builds stablelm-1.6b at full width (bf16, seeded random weights) and
      compares the kernel path's logits with the plain path's over a
      777-token prefill and 8 decode steps;
@@ -262,13 +268,28 @@ Every engine decodes through CUDA graphs, by the engine's rule on the card
 (``repro_torch.serving.graphs``): each decode step (the merged one, or each
 tenant's) runs eagerly once, is then captured and replayed from the next
 step on; phases 3, 5c, 6b and 7b fail unless every program of the main path
-ran eagerly exactly once and replayed from then on. After each of them, the
+ran eagerly exactly once and replayed from then on. Engines of the
+architectures that take pieces (``serving.engine.takes_pieces``: stablelm,
+rwkv6, paligemma and zamba2 here; granite-moe's MoE capacity keeps whole
+prompts) prefill by pieces of fixed lengths (``prefill_pieces``), each a
+program captured when the engine is built (one per tenant and piece size,
+44 at cache 2048): the phases fail unless each was captured exactly once
+at build and the run replayed one a piece, and count K4, K5 and K5-state
+launches once per layer and piece. Their kernels rows add K4 at a piece of
+the median prompt against the whole cache, its offset on the card. After each of them, the
 model is served again by an eager engine (``graphs=False``) and a graphed
 one in lockstep, in both modes, over the same weights, prompts and slots:
 the logits of a steady step (bitwise), every cache after 8 steps (K/V,
 RWKV's state and token shifts, Mamba2's state and conv tails; bitwise),
 every request's 32 greedy tokens and the kernels' launches by variant must
-be equal, and replays = decode passes - eager passes. Two negative controls
+be equal, and replays = decode passes - eager passes; before the first
+decode step every prompt's prefill, installed into its slot, must give the
+same first token and bitwise the same caches on both engines (the eager one
+prefills by the same pieces, eagerly); the graphed pieces' logits and
+caches must lie within MODEL_RTOL of the whole prompt's eager prefill, and
+the prefill controls, each from zeroed caches, must fail the bitwise check:
+pieces replayed over a start buffer left unstaged (models with attention),
+and a prompt whose recurrent state was not zeroed (RWKV, Mamba2). Two negative controls
 each run in a short round from zeroed caches, the engines shown equal just
 before: replays over token and length buffers left unstaged must fail the
 logit check, and a step decoded twice (for a model with recurrent state) or
@@ -276,12 +297,15 @@ not at all (attention only: writing K/V twice at one position changes
 nothing) must fail the cache check. Each mode's wall per step of both
 engines, the device time of a step's graphs replayed back to back (CUDA
 events), both idle shares, the capture seconds and the bytes the captures
-reserved go into a ``graphs`` JSON line. ``--profile`` profiles the graphed
-and the eager engine and says whether the profiler saw every kernel inside
-the graphs.
+reserved go into a ``graphs`` JSON line, the engines' prefill programs
+(route, captures, capture seconds, pool bytes, replays, build seconds,
+prefill p50, decode tokens/s) into a ``prefills`` line. ``--profile``
+profiles the graphed and the eager engine and says whether the profiler saw
+every kernel inside the graphs, and one prefill of the median prompt whole,
+as pieces run eagerly and as pieces replayed (wall, kernel time, idle share).
 
-Prints a ``fleet`` JSON line (phase 8), a ``front_door`` JSON line (phase 9),
-a ``train`` and a ``train_graphs`` JSON line (phase 10), a ``dryrun_steps``
+Prints a ``prefills`` JSON line (phases 3, 5, 6, 7), a ``fleet`` JSON line
+(phase 8), a ``front_door`` JSON line (phase 9), a ``train`` and a ``train_graphs`` JSON line (phase 10), a ``dryrun_steps``
 JSON line (phase 11), an ``examples`` JSON line (phase 12), a
 ``graphs`` JSON line (phases 3, 5, 6, 7), a ``k3_rule`` JSON line (phase 1),
 a ``kernels`` JSON line (with phase 11's launches by variant on the rows of
@@ -496,6 +520,37 @@ def measure_flash(ops, dev, gen, dtype, B, Hq, Hkv, Sq, Skv, D, window, q_offset
     return row
 
 
+def measure_flash_piece(ops, dev, gen, Hq, Hkv, D, n, start, iters=20):
+    """K4 as a captured prefill piece launches it (bf16, n queries at
+    ``start`` against the whole cache, the offset read on the card),
+    checked as in phase 1 and timed beside its plain version, SDPA (one
+    call over the keys the piece sees) and its CUDA-core variant; the bound
+    counts the keys the piece reads, start + n of them."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = torch.bfloat16
+    (q, k, v), offset, err = check_flash_device_offset(ops, dev, gen, dtype, Hq, Hkv, D, n, start)
+    seen = start + n
+    nbytes, flops = flash_work(1, Hq, Hkv, n, seen, D, True, 0, start, str(dtype))
+    bound_ms, bound_by = bound(nbytes, flops, str(dtype))
+    kw = dict(causal=True, q_offset=offset)
+    row = {
+        "variant": fa.variant(dtype, D), "max_abs_err": err,
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters),
+        "plain_ms": time_ms(lambda: ops.flash_attention_plain(q, k, v, causal=True,
+                                                              q_offset=start), 3, 1),
+        "library_ms": time_ms(sdpa_flash(q, k[:, :, :seen].contiguous(),
+                                         v[:, :, :seen].contiguous(), True, 0, start), iters),
+        "prior_ms": time_ms(lambda: fa.flash_attention(q, k, v, kernel="cuda_core", **kw), iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"    ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) prior_ms={row['prior_ms']:.4f} (CUDA cores)")
+    return row
+
+
 def decode_inputs(gen, dev, dtype, B, Hq, Hkv, S, D, lengths):
     import torch
 
@@ -656,6 +711,77 @@ def flash_controls(ops, dev, gen, D=112):
         must_fail(f"flash_attention bf16 (1, 8, 1, 777, 777, {D}) with {name}'s columns 96-{D - 1} "
                   "zeroed, against the plain version on the whole rows",
                   lambda: check_close("    (control)", got, want, "torch.bfloat16"))
+
+
+# K4 with q_offset read from a device buffer, as a captured prefill piece
+# launches it: n queries at absolute positions start..start+n-1 against a
+# whole cache of CACHE_LEN keys. Offsets: 0, mid-block, block edges, and
+# start + n == CACHE_LEN.
+DEVICE_OFFSET_CASES = ((64, 0), (100, 37), (64, 64), (128, 512), (1, 1000), (512, 1024),
+                       (64, 1984), (1024, 1024))
+
+
+def check_flash_device_offset(ops, dev, gen, dtype, Hq, Hkv, D, n, start, Skv=None):
+    """K4 with ``q_offset`` a 0-dim int64 on the card against the plain
+    version at the host offset ``start``, and bitwise against the host-int
+    launch on the same inputs. Returns (inputs, the offset buffer, max
+    error)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    Skv = Skv or CACHE_LEN
+    q = torch.randn((1, Hq, n, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
+    offset = torch.full((), start, dtype=torch.int64, device=dev)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=offset)
+    host = ops.flash_attention(q, k, v, causal=True, q_offset=start)
+    want = ops.flash_attention_plain(q, k, v, causal=True, q_offset=start)
+    torch.cuda.synchronize()
+    name = (f"flash_attention {str(dtype)[6:]} {(1, Hq, Hkv, n, Skv, D)} q_offset={start} "
+            f"from a device buffer [{fa.variant(dtype, D)}]")
+    err = check_close(name, got, want, str(dtype))
+    if not torch.equal(got, host):
+        raise PhaseFailed(f"{name}: not bitwise equal to the host-int launch (max gap "
+                          f"{float((got.float() - host.float()).abs().max()):.3e})")
+    return (q, k, v), offset, err
+
+
+def device_offset_controls(ops, dev, gen, dtype, Hq, Hkv, D):
+    """The device offset's two controls, each against the plain version at
+    the true offset, must fail ``check_close``: the buffer left at the
+    previous piece's start (stale: 0 where the piece starts at 512), and
+    the offset off by one (1 where the piece starts at 0: each row sees one
+    key more)."""
+    import torch
+
+    for what, n, start, read in (("stale offset buffer (the previous piece's 0)", 128, 512, 0),
+                                 ("offset off by one (1 for 0)", 64, 0, 1)):
+        q = torch.randn((1, Hq, n, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((1, Hkv, CACHE_LEN, D), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        offset = torch.full((), read, dtype=torch.int64, device=dev)
+        got = ops.flash_attention(q, k, v, causal=True, q_offset=offset)
+        want = ops.flash_attention_plain(q, k, v, causal=True, q_offset=start)
+        torch.cuda.synchronize()
+        must_fail(f"flash_attention {str(dtype)[6:]} D={D} at start {start} with the {what}, "
+                  "against the plain version at the true start",
+                  lambda: check_close("    (control)", got, want, str(dtype)))
+
+
+def phase_device_offsets(ops, dev, gen):
+    """K4 with its offset on the card, both variants (wgmma: bf16 D 64,
+    112, 128, 256; cuda_core: float32 D 64 and bf16 D 32), the controls
+    first."""
+    import torch
+
+    for dtype, D, Hq, Hkv in ((torch.bfloat16, 64, 32, 32), (torch.bfloat16, 112, 32, 32),
+                              (torch.bfloat16, 128, 28, 4), (torch.bfloat16, 256, 8, 1),
+                              (torch.float32, 64, 32, 32), (torch.bfloat16, 32, 8, 1)):
+        device_offset_controls(ops, dev, gen, dtype, Hq, Hkv, D)
+        for n, start in DEVICE_OFFSET_CASES:
+            check_flash_device_offset(ops, dev, gen, dtype, Hq, Hkv, D, n, start)
 
 
 def decode_controls(ops, dev, gen, B, Hq, Hkv, S, D, kernel):
@@ -823,6 +949,7 @@ def phase_kernels(ops, dev, seed):
         # were caught.
         if dtype == torch.bfloat16:
             flash_controls(ops, dev, gen, 112)
+            phase_device_offsets(ops, dev, gen)
             for Hkv in (1, 2):
                 decode_controls(ops, dev, gen, 10, 8 * Hkv, Hkv, 2048, 256, "mma")
         for D in EXTRA_HEAD_DIMS:
@@ -1070,6 +1197,34 @@ R_TENANTS = 4
 SLOTS = 4
 REQUESTS = 16
 MAX_NEW = 32
+PREFILL_REPORT = {}  # model -> mode -> the prefill route's numbers, in the ``prefills`` line
+
+
+def prefill_pieces(S, chunk, cache_len):
+    from repro_torch.serving.engine import prefill_pieces as rule
+
+    return rule(S, chunk, cache_len)
+
+
+def piece_sizes(chunk, cache_len):
+    from repro_torch.serving.engine import piece_sizes as rule
+
+    return rule(chunk, cache_len)
+
+
+def takes_pieces(cfg):
+    from repro_torch.serving.engine import takes_pieces as rule
+
+    return rule(cfg)
+
+
+def prefills_run(cfg, prompts):
+    """The forward passes a model's serving engine (graphed, so on the piece
+    route where the architecture takes it) runs to prefill ``prompts``: one
+    per piece, or one per prompt."""
+    if not takes_pieces(cfg):
+        return len(prompts)
+    return sum(len(prefill_pieces(len(p), 0, CACHE_LEN)) for _, p in prompts)
 
 
 def run_engine(model, stacked, mode, prompts, ops, kernels):
@@ -1081,13 +1236,21 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
     step program (``MultiTenantEngine.programs.stats()``): it fails unless each
     program ran eagerly exactly once (its first step) and replayed from
     then on, and unless the model's decode was called once per eager pass
-    and once per capture (a replay runs no Python)."""
+    and once per capture (a replay runs no Python). On the piece route
+    (``serving.engine.prefill_route``) the engine captures its prefill
+    programs when it is built: it fails unless each (tenant, piece size)
+    was captured exactly once, after one eager warm-up a size, and the run
+    replayed one program a piece (``prefill_pieces``) and captured none."""
     import torch
 
     from repro_torch.serving import EngineConfig, InferenceRequest, MultiTenantEngine
 
+    t_build = time.perf_counter()
     eng = MultiTenantEngine(model, stacked_params=stacked, config=EngineConfig(
         num_tenants=R_TENANTS, slots_per_tenant=SLOTS, cache_len=CACHE_LEN, mode=mode))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t_build
+    built = eng.programs.stats()
     reqs = [InferenceRequest(tenant_id=t, prompt=p, max_new_tokens=MAX_NEW) for t, p in prompts]
     calls = [0]
     decode = model.forward_decode_tenants  # forward_decode runs through it too
@@ -1131,6 +1294,26 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
         f"{stats['eager_passes']} eager + {stats['replays']} replays, {stats['captures']} "
         f"captures in {stats['capture_s']:.3f} s, {stats['pool_bytes'] / 2**20:.1f} MiB reserved "
         f"by the captures; the model's decode called {calls[0]} times")
+    if eng.prefill_route == "pieces":
+        pieces = sum(len(prefill_pieces(len(p), 0, CACHE_LEN)) for _, p in prompts)
+        log(f"    prefill programs (pieces, {'CUDA graphs' if stats['graphed'] else 'eager'}): "
+            f"{stats['prefill_programs']} programs, {stats['prefill_warm_ups']} warm-ups and "
+            f"{built['prefill_captures']} captures at build in {t_build:.3f} s (captures "
+            f"{stats['prefill_capture_s']:.3f} s, {stats['prefill_pool_bytes'] / 2**20:.1f} MiB "
+            f"reserved); serving: {stats['prefill_replays']} replays for {pieces} pieces of "
+            f"{len(prompts)} prompts, {stats['prefill_captures'] - built['prefill_captures']} "
+            "captures")
+        if not stats["graphed"] or built["prefill_captures"] != built["prefill_programs"] \
+                or stats["prefill_captures"] != built["prefill_captures"] \
+                or built["prefill_replays"] or stats["prefill_replays"] != pieces \
+                or stats["prefill_eager_passes"] \
+                or stats["prefill_warm_ups"] != len(piece_sizes(0, CACHE_LEN)):
+            raise PhaseFailed(f"{mode}: prefill programs are not one capture each at build and "
+                              f"one replay a piece: built {built}, after {stats}, {pieces} pieces")
+    else:
+        log(f"    prefills: whole prompts, eager ({model.cfg.name}: "
+            f"{'pieces' if takes_pieces(model.cfg) else 'MoE or ring cache, no pieces'}); engine "
+            f"built in {t_build:.3f} s")
     if len(eng.finished) != REQUESTS or len(done) != REQUESTS:
         raise PhaseFailed(f"{mode}: not every request finished with {MAX_NEW} tokens")
     for k in kernels:
@@ -1143,6 +1326,10 @@ def run_engine(model, stacked, mode, prompts, ops, kernels):
         raise PhaseFailed(f"{mode}: decode steps are not one eager pass and replays per "
                           f"program: {stats}, {calls[0]} decode calls")
     tokens = {r.request_id: list(r.generated) for r in reqs}
+    PREFILL_REPORT.setdefault(model.cfg.name, {})[mode] = {
+        "route": eng.prefill_route, "engine_build_s": t_build,
+        "prefill_p50_ms": rep["prefill_p50_s"] * 1e3, "decode_tokens_per_s": decode_tps,
+        **{k: v for k, v in stats.items() if k.startswith("prefill_")}}
     del eng
     return tokens, reqs, launches, stats["decode_passes"]
 
@@ -1178,19 +1365,22 @@ def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
             raise PhaseFailed(f"{name}: {launches[name]} launches on the serving path, not all "
                               f"{want}: {by_variant}")
     n_attn = attention_layers(cfg)
+    prefills = prefills_run(cfg, prompts)  # one a piece on the piece route
     for mode, per, n in zip(("space_time", "time_only"), per_mode, passes):
-        if per["flash_attention"] != n_attn * REQUESTS:
+        if per["flash_attention"] != n_attn * prefills:
             raise PhaseFailed(f"{mode}: flash_attention launched {per['flash_attention']} times, "
-                              f"not {n_attn} per prefill")
+                              f"not {n_attn} per prefill piece ({prefills})")
         if per["decode_attention"] != n_attn * n:
             raise PhaseFailed(f"{mode}: decode_attention launched {per['decode_attention']} "
                               f"times in {n} decode passes, not {n_attn} per pass")
-    log(f"  launches per mode: flash_attention {n_attn} attention layers x {REQUESTS} prefills; "
+    log(f"  launches per mode: flash_attention {n_attn} attention layers x {prefills} prefill "
+        f"passes ({'pieces' if takes_pieces(cfg) else 'whole prompts'} of {REQUESTS} prompts); "
         f"decode_attention {n_attn} x {passes[0]} merged passes (space_time), x {passes[1]} "
         "per-tenant passes (time_only)")
     graph_checks(ops, cfg, model, stacked, prompts)
     if profile:
         profile_serving(model, stacked, prompts)
+        profile_prefill(model, stacked, prompts)
     return cfg, launches, per_mode, lens
 
 
@@ -1257,6 +1447,7 @@ def serve_both_modes(model, stacked, prompts, ops, kernels):
 GRAPH_LOGIT_STEP = 4    # step 1 prefills and runs each program eagerly, 2 captures
 GRAPH_CACHE_STEP = 8
 CONTROL_PROMPT = 64
+CONTROL_PREFILL = 100   # the prefill controls' prompts: pieces 64, 32, 4
 CONTROL_STEP = 3        # the control acts at this step of its round
 GRAPH_TIME_ITERS = 10
 GRAPH_REPORT = {}       # model -> mode -> numbers, printed as the ``graphs`` line
@@ -1264,13 +1455,19 @@ GRAPH_REPORT = {}       # model -> mode -> numbers, printed as the ``graphs`` li
 
 def engine_pair(model, stacked, mode):
     """An eager engine (the yardstick) and a graphed one over the same
-    stacked weights, each with caches of its own."""
+    stacked weights, each with caches of its own; the eager one prefills by
+    the pieces the graphed one replays, where the architecture takes them."""
     from repro_torch.serving import EngineConfig, MultiTenantEngine
 
-    def make(graphs):
-        return MultiTenantEngine(model, stacked_params=stacked, graphs=graphs, config=EngineConfig(
-            num_tenants=R_TENANTS, slots_per_tenant=SLOTS, cache_len=CACHE_LEN, mode=mode))
-    return make(False), make(True)
+    def make(graphs, pieces=None):
+        return MultiTenantEngine(model, stacked_params=stacked, graphs=graphs, pieces=pieces,
+                                 config=EngineConfig(num_tenants=R_TENANTS, slots_per_tenant=SLOTS,
+                                                     cache_len=CACHE_LEN, mode=mode))
+    eager, graph = make(False, takes_pieces(model.cfg)), make(True)
+    if eager.prefill_route != graph.prefill_route:
+        raise PhaseFailed(f"{model.cfg.name}: the engines prefill by {eager.prefill_route} and "
+                          f"{graph.prefill_route}")
+    return eager, graph
 
 
 def caches_differ(a, b):
@@ -1299,6 +1496,149 @@ def counted_step(eng, ops, into):
     for k, c in ops.COUNTERS.items():
         into.setdefault(k, ops._build.OpCounter()).add(c.since(before[k]))
     return wall
+
+
+def counted_admit(eng, ops, into):
+    """``eng._admit()`` (every queued request's prefill, installed into its
+    slot, no decode step), its launches by op added to ``into``."""
+    before = {k: c.copy() for k, c in ops.COUNTERS.items()}
+    eng._admit()
+    for k, c in ops.COUNTERS.items():
+        into.setdefault(k, ops._build.OpCounter()).add(c.since(before[k]))
+
+
+def first_tokens(eng):
+    """(tenant, slot) -> the first token of the request there."""
+    return {key: req.generated[0] for key, req in eng.active.items()}
+
+
+def prefill_control_round(eager, graph, prompts, control):
+    """Prefills on both engines from zeroed slots and scratch caches: the
+    first R_TENANTS prompts (one a tenant) must leave the engines equal,
+    then the next R_TENANTS are admitted with ``control(graph)`` in force.
+    Returns (first tokens equal, caches that differ) after the control's
+    admissions; the requests are then drained."""
+    import torch
+
+    from repro_torch.serving import InferenceRequest
+
+    for eng in (eager, graph):  # slots and scratch: an earlier control wrote past its prompts
+        for caches in (eng.caches, eng.scratch):
+            for layers in caches.values():
+                for c in layers:
+                    c.zero_()
+        for t, p in prompts[:R_TENANTS]:
+            eng.submit(InferenceRequest(tenant_id=t, prompt=p, max_new_tokens=2))
+        eng._admit()
+    if first_tokens(eager) != first_tokens(graph) or caches_differ(eager, graph):
+        raise PhaseFailed(f"prefill control round: the engines differ before the control: first "
+                          f"tokens {first_tokens(eager)} and {first_tokens(graph)}, caches "
+                          f"{caches_differ(eager, graph)}")
+    for eng in (eager, graph):
+        for t, p in prompts[R_TENANTS:2 * R_TENANTS]:
+            eng.submit(InferenceRequest(tenant_id=t, prompt=p, max_new_tokens=2))
+    eager._admit()
+    undo = control(graph)
+    try:
+        graph._admit()
+    finally:
+        undo()
+    out = first_tokens(eager) == first_tokens(graph), caches_differ(eager, graph)
+    eager.run_until_drained()
+    graph.run_until_drained()
+    torch.cuda.synchronize()
+    return out
+
+
+def stale_start(graph):
+    """Negative control: every piece replays with the start buffer as the
+    last piece before it left it (nothing is staged into it)."""
+    pp = graph.programs.prefill
+
+    def run(tenant, tokens, start):
+        prog = pp.programs[(tenant, tokens.shape[1])]
+        prog.tokens.copy_(tokens)
+        return prog.run()
+    pp.run = run
+
+    def undo():
+        del pp.run
+    return undo
+
+
+def state_unreset(graph):
+    """Negative control: a prompt's first piece continues from the recurrent
+    state the last prompt left in the scratch cache (nothing is zeroed)."""
+    state, graph._state = graph._state, []
+
+    def undo():
+        graph._state = state
+    return undo
+
+
+def prefill_vs_whole(ops, cfg, model, stacked, graph, prompts):
+    """The graphed engine's piece route against the whole-prompt eager
+    prefill (``Model.forward_prefill`` of the whole prompt into a fresh
+    cache) on the same weights, prompt by prompt, by the port's bf16 rule
+    (``hold_bf16``'s: no farther than twice the plain path, plus 0.1% of the
+    largest magnitude): the last piece's logits, and every cache the model
+    keeps (K/V over the prompt's positions: the scratch keeps older prompts'
+    keys past them, which no query sees), each no farther from the whole
+    prompt's than twice the plain path's pieces (``plain_kernels=True``,
+    the same lengths) are from the plain path's whole prompt. In bf16 the
+    two differ by more than rounding where state is kept (RWKV-6 carries
+    the kept float32-w state across pieces, the whole prompt's output scan
+    its own), which the plain path shows as well. Returns the largest gaps
+    by cache and the logits', (kernel, plain)."""
+    import torch
+
+    from repro_torch.core.tenancy import tenant_view
+    from repro_torch.models import build_model
+
+    plain = build_model(cfg, device=model.device, plain_kernels=True)
+
+    def live(caches, name, n):
+        return [c[:, :, :n] if name in ("k", "v") else c for c in caches[name]]
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+
+    gaps = {}
+    with torch.no_grad():
+        for t, p in prompts:
+            params = tenant_view(stacked, t)
+            tokens = torch.as_tensor(np.asarray(p, np.int64), device=model.device)[None, :]
+            pieces = prefill_pieces(len(p), 0, CACHE_LEN)
+            got = graph._run_pieces(t, tokens)
+            want, whole = model.forward_prefill(params, tokens, CACHE_LEN)
+            p_whole, p_whole_c = plain.forward_prefill(params, tokens, CACHE_LEN)
+            p_got, p_got_c, pos = None, None, 0
+            for n in pieces:
+                p_got, p_got_c = plain.forward_prefill(params, tokens[:, pos:pos + n], CACHE_LEN,
+                                                       caches=p_got_c, start=pos or None)
+                pos += n
+            pairs = {"logits": ([got], [want], [p_got], [p_whole])}
+            for name in whole:
+                pairs[name] = (live(graph.scratch, name, len(p)), live(whole, name, len(p)),
+                               live(p_got_c, name, len(p)), live(p_whole_c, name, len(p)))
+            for name, (k_got, k_want, p_g, p_w) in pairs.items():
+                for a, b, c, d in zip(k_got, k_want, p_g, p_w):
+                    (e_k, scale), (e_p, _) = gap(a, b), gap(c, d)
+                    old = gaps.get(name, (0.0, 0.0, 0.0))
+                    gaps[name] = (max(old[0], e_k), max(old[1], e_p), max(old[2], scale))
+                    if not e_k <= 2 * e_p + 1e-3 * scale:
+                        raise PhaseFailed(
+                            f"{cfg.name} prompt of {len(p)}, pieces {pieces}: {name} of the "
+                            f"graphed pieces {e_k:.4e} from the whole prompt's, more than twice "
+                            f"the plain path's {e_p:.4e} (+0.1% of {scale:.4e})")
+            del whole, p_whole_c, p_got_c
+    log(f"    pieces (graphed) vs the whole prompt (eager), {len(prompts)} prompts, largest gap, "
+        "kernel path / plain path / max |value|: "
+        + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e} / {v[2]:.3e}" for k, v in sorted(gaps.items()))
+        + " (kernel <= 2 x plain + 0.1%: ok)")
+    del plain
+    torch.cuda.empty_cache()
+    return {k: {"kernel": v[0], "plain": v[1], "max": v[2]} for k, v in gaps.items()}
 
 
 def control_round(ops, eager, graph, prompts, control):
@@ -1397,6 +1737,12 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
     logit_check = cache_check = None
     step = 0
     with torch.no_grad():
+        # every prompt's prefill, installed into its slot: the first tokens
+        # and every cache bitwise equal (the same pieces, or whole prompts)
+        for name, eng in (("graph", graph), ("eager", eager)):
+            counted_admit(eng, ops, launches[name])
+        admit_tokens = first_tokens(eager) == first_tokens(graph)
+        admit_caches = caches_differ(eager, graph)
         while eager.queue or eager.active or graph.queue or graph.active:
             step += 1
             if step > MAX_NEW + 2:
@@ -1420,6 +1766,27 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
         kind, control = ("decoded twice", decode_twice) if recurrent else (
             "decode skipped", decode_skipped)
         state = control_round(ops, eager, graph, short, control)
+        prefill = {"route": graph.prefill_route, "first_tokens_equal": admit_tokens,
+                   "caches_differ": admit_caches}
+        if graph.prefill_route == "pieces":
+            st_p = graph.programs.stats()
+            prefill.update({k[len("prefill_"):]: v for k, v in st_p.items()
+                            if k.startswith("prefill_")})
+            # the controls' prefills: prompts of CONTROL_PREFILL tokens (three pieces)
+            longer = [(i % R_TENANTS, rng.randint(1, cfg.vocab_size, size=CONTROL_PREFILL).tolist())
+                      for i in range(2 * R_TENANTS)]
+            # a stale start moves attention's positions (RWKV-6 reads none);
+            # unreset state carries RWKV-6's and Mamba2's into the next prompt
+            controls = [("stale start", stale_start)] if model.has_attention else []
+            if recurrent:
+                controls.append(("recurrent state left unreset", state_unreset))
+            for what, fn in controls:
+                equal, differ = prefill_control_round(eager, graph, longer, fn)
+                prefill[what.replace(" ", "_") + "_control"] = {
+                    "first_tokens_equal": equal, "caches_differ": differ, "caught": bool(differ)}
+            if mode == "space_time":
+                prefill["vs_whole_gaps"] = prefill_vs_whole(
+                    ops, cfg, model, stacked, graph, prompts[:2])
     k3 = {n: launches[n]["decode_attention"] for n in launches}
     n_attn = attention_layers(cfg)
     steady = slice(GRAPH_LOGIT_STEP - 1, None)  # from the first steady replay on
@@ -1439,6 +1806,7 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
         "stale_inputs_control": {"logits_bitwise": stale[0], "logit_max_gap": stale[1],
                                  "tokens_equal": stale[2]},
         "state_control": {"kind": kind, "caches_differ": state[3]},
+        "prefill": prefill,
     }
     caught_stale = not stale[0] and stale[1] > TOL["torch.bfloat16"][1]
     caught_state = bool(state[3])
@@ -1453,6 +1821,12 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
         f"back to back {device_ms:.3f} ms of device time; idle share {row['eager_idle']:.3f} "
         f"eager, {row['graph_idle']:.3f} graphed (CUDA events); {st_g['captures']} captures in "
         f"{st_g['capture_s']:.3f} s, {st_g['pool_bytes'] / 2**20:.1f} MiB reserved by them")
+    log(f"    prefills ({prefill['route']}): first tokens "
+        f"{'equal' if admit_tokens else 'DIFFER'}, installed caches "
+        f"{'bitwise equal' if not admit_caches else f'differ: {admit_caches}'}"
+        + "".join(f"; control, {k[:-len('_control')].replace('_', ' ')}: caches that differ "
+                  f"{v['caches_differ'] or 'none'}: {'caught' if v['caught'] else 'NOT caught'}"
+                  for k, v in prefill.items() if k.endswith("_control")))
     log(f"    control, stale token and length buffers: logits "
         f"{'bitwise equal' if stale[0] else f'max gap {stale[1]:.3e}'}, the step's tokens "
         f"{'equal' if stale[2] else 'differ'}: {'caught' if caught_stale else 'NOT caught'}; "
@@ -1467,7 +1841,12 @@ def graph_vs_eager(ops, cfg, model, stacked, prompts, mode):
                                                            cfg.num_heads, cfg.num_kv_heads)))
     if not (logit_check[0] or logit_check[1] <= TOL["torch.bfloat16"][1]) or cache_check \
             or same_tokens != len(prompts) or not passes_ok or not k3_ok \
-            or by_op["graph"] != by_op["eager"] or not caught_stale or not caught_state:
+            or by_op["graph"] != by_op["eager"] or not caught_stale or not caught_state \
+            or not admit_tokens or admit_caches \
+            or not all(v["caught"] for k, v in prefill.items() if k.endswith("_control")) \
+            or (graph.prefill_route == "pieces" and len(
+                [k for k in prefill if k.endswith("_control")])
+                != model.has_attention + recurrent):
         raise PhaseFailed(f"{cfg.name} {mode}: graphed decode differs from eager, or a control "
                           f"was not caught: {row}")
     del eager, graph
@@ -1567,14 +1946,22 @@ def main_path_kernel_rows(ops, dev, seed, cfg, prompt_lens, launches, per_mode, 
     log(f"  {cfg.name} flash_attention at a median prefill: {s_med} tokens")
     fl = measure_flash(ops, dev, gen, torch.bfloat16, 1, Hq, Hkv, s_med, s_med, D, 0, prior=True)
     per_st, per_to = per_mode
-    rows = []
-    for name, shape, n, row in (
-            ("decode_attention", "merged decode (space_time)", per_st["decode_attention"], merged),
-            ("decode_attention", "one tenant's decode (time_only)", per_to["decode_attention"],
-             single),
-            ("flash_attention", "median prefill", launches["flash_attention"], fl)):
-        rows.append(kernel_row(name, f"{path}{cfg.name} {shape}, D={D}", n, row))
-    return rows
+    cases = [
+        ("decode_attention", "merged decode (space_time)", per_st["decode_attention"], merged),
+        ("decode_attention", "one tenant's decode (time_only)", per_to["decode_attention"],
+         single),
+        ("flash_attention", "median prefill", launches["flash_attention"], fl)]
+    if takes_pieces(cfg):  # the launch the piece route makes: a piece against the whole cache
+        pieces = prefill_pieces(s_med, 0, CACHE_LEN)
+        n, start = (pieces[1], pieces[0]) if len(pieces) > 1 else (pieces[0], 0)
+        log(f"  {cfg.name} flash_attention at the median prefill's piece of {n} at {start} "
+            f"(pieces {pieces}), {CACHE_LEN} cached keys, the offset read on the card")
+        cases.append(("flash_attention", f"median prefill's piece of {n} at {start} against "
+                                         f"{CACHE_LEN} cached keys",
+                      launches["flash_attention"],
+                      measure_flash_piece(ops, dev, gen, Hq, Hkv, D, n, start)))
+    return [kernel_row(name, f"{path}{cfg.name} {shape}, D={D}", n, row)
+            for name, shape, n, row in cases]
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2690,18 +3077,22 @@ def phase_rwkv(ops, dev, seed, profile=False):
     per_layer = rwkv.prefill_launches(model.dtype)
     with scan_w_dtypes() as w_dtypes:
         launches, per_mode, _ = serve_both_modes(model, stacked, prompts, ops, tuple(per_layer))
-    # per layer and (unchunked) prefill: the outputs' scan (w rounded to the
-    # model dtype) and, in bf16, the state pass (float32 w) for the kept state
+    # per layer and prefill pass (a piece of the prompt, on the piece route):
+    # the outputs' scan (w rounded to the model dtype) and, in bf16, the
+    # state pass (float32 w) for the kept state
+    prefills = prefills_run(cfg, prompts)
     for mode, per in zip(("space_time", "time_only"), per_mode):
         for op, n in per_layer.items():
-            if per[op] != cfg.num_layers * n * REQUESTS:
+            if per[op] != cfg.num_layers * n * prefills:
                 raise PhaseFailed(f"{mode}: {op} launched {per[op]} times, not "
-                                  f"{cfg.num_layers * n} per prefill")
+                                  f"{cfg.num_layers * n} per prefill pass ({prefills})")
     by_variant = {op: dict(ops.COUNTERS[op].variants) for op in per_layer}
-    log(f"  launches per mode: " + ", ".join(f"{op} {cfg.num_layers * n * REQUESTS} = "
-                                            f"{cfg.num_layers} layers x {n} x {REQUESTS} prefills"
+    log(f"  launches per mode: " + ", ".join(f"{op} {cfg.num_layers * n * prefills} = "
+                                            f"{cfg.num_layers} layers x {n} x {prefills} prefill "
+                                            f"passes ({REQUESTS} prompts)"
                                             for op, n in per_layer.items())
-        + f"; by variant on the serving path: {by_variant}; w of the wkv6_scan launches: "
+        + f"; by variant on the serving path: {by_variant}; w of the wkv6_scan calls "
+        f"({len(w_dtypes)}: eager warm-ups and captures, whose launches replays repeat): "
         f"{sorted(set(str(d) for d in w_dtypes))}")
     from repro_torch.kernels import wkv6_state as ws
 
@@ -2710,7 +3101,9 @@ def phase_rwkv(ops, dev, seed, profile=False):
         if by_variant[op] != {want_variant[op]: launches[op]}:
             raise PhaseFailed(f"{op}: {launches[op]} launches on the serving path, not all "
                               f"{want_variant[op]}: {by_variant[op]}")
-    if len(w_dtypes) != launches["wkv6_scan"] or torch.float32 in w_dtypes:
+    # every launch is an eager call or a replay of a captured call: the spy
+    # sees both kinds of call, and a replay repeats what it saw captured
+    if not w_dtypes or torch.float32 in w_dtypes:
         raise PhaseFailed(f"wkv6_scan: {len(w_dtypes)} calls for {launches['wkv6_scan']} launches, "
                           f"w dtypes {set(w_dtypes)}: a scan took float32 w")
     graph_checks(ops, cfg, model, stacked, prompts)
@@ -2728,41 +3121,63 @@ def phase_rwkv(ops, dev, seed, profile=False):
 
 
 def profile_prefill(model, stacked, prompts):
-    """K5's and the state pass's share of a prefill: torch.profiler over one
-    tenant's prefill of the median prompt (after two unprofiled ones).
-    Prints the host wall time, the device time in kernels and the idle
-    share, and each kernel's device time, launches and share of the kernel
-    time."""
+    """Where a prefill's time goes, by route: torch.profiler over one
+    tenant's prefill of the median prompt (after two unprofiled ones) as a
+    whole prompt (eager), as the engine's pieces run eagerly, and as the
+    pieces replayed from the programs an engine captured at its build.
+    Prints each route's host wall, device time in kernels, idle share and
+    kernel count, and K5's and the state pass's time, launches and share of
+    the kernel time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.tenancy import tenant_view
+    from repro_torch.serving import EngineConfig, MultiTenantEngine
 
     t, prompt = sorted(prompts, key=lambda p: len(p[1]))[len(prompts) // 2]
     params = tenant_view(stacked, t)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=model.device)[None, :]
-    with torch.no_grad():
-        for _ in range(2):
-            model.forward_prefill(params, tokens, CACHE_LEN)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    routes = [("whole", lambda: model.forward_prefill(params, tokens, CACHE_LEN))]
+    if takes_pieces(model.cfg):
+        for name, graphs in (("pieces, eager", False), ("pieces, graphed", True)):
             t0 = time.perf_counter()
-            model.forward_prefill(params, tokens, CACHE_LEN)
+            eng = MultiTenantEngine(model, stacked_params=stacked, graphs=graphs, pieces=True,
+                                    config=EngineConfig(num_tenants=R_TENANTS, slots_per_tenant=1,
+                                                        cache_len=CACHE_LEN))
+            st = eng.programs.stats()
+            log(f"  {name} engine built in {time.perf_counter() - t0:.3f} s: "
+                f"{st['prefill_captures']} captures in {st['prefill_capture_s']:.3f} s, "
+                f"{st['prefill_pool_bytes'] / 2**20:.1f} MiB reserved")
+            routes.append((name, lambda eng=eng: eng._run_pieces(t, tokens)))
+    for name, run in routes:
+        with torch.no_grad():
+            for _ in range(2):
+                run()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    parts = {}
-    for what, key in (("K5", "wkv6_chunked"), ("K5-state", "wkv6_state")):
-        mine = [e for e in kernels if key in e.key]
-        parts[what] = (sum(e.self_device_time_total for e in mine), sum(e.count for e in mine))
-    log(f"  profile prefill of {tokens.shape[1]} tokens (tenant {t}): wall {wall * 1e3:.3f} ms, "
-        f"kernels {busy_us / 1e3:.3f} ms (idle share {1 - busy_us / 1e6 / wall:.3f}); "
-        + "; ".join(f"{what} {us / 1e3:.3f} ms in {n} launches, share of kernel time "
-                    f"{us / max(busy_us, 1e-9):.3f}, of wall {us / 1e6 / wall:.3f}"
-                    for what, (us, n) in parts.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        parts = {}
+        for what, key in (("K4", "flash_"), ("K5", "wkv6_chunked"), ("K5-state", "wkv6_state")):
+            mine = [e for e in kernels if key in e.key]
+            if mine:
+                parts[what] = (sum(e.self_device_time_total for e in mine),
+                               sum(e.count for e in mine))
+        log(f"  profile prefill of {tokens.shape[1]} tokens (tenant {t}), {name}: wall "
+            f"{wall * 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms (idle share "
+            f"{1 - busy_us / 1e6 / wall:.3f}), {sum(e.count for e in kernels)} device activities"
+            + "".join(f"; {what} {us / 1e3:.3f} ms in {n} launches, share of kernel time "
+                      f"{us / max(busy_us, 1e-9):.3f}, of wall {us / 1e6 / wall:.3f}"
+                      for what, (us, n) in parts.items()))
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    del routes
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 6
@@ -5536,6 +5951,8 @@ def main(argv=None) -> int:
         log(json.dumps({"examples": examples}))
     if GRAPH_REPORT:
         log(json.dumps({"graphs": GRAPH_REPORT}))
+    if PREFILL_REPORT:
+        log(json.dumps({"prefills": PREFILL_REPORT}))
     if K3_SURVEY:
         log(json.dumps({"k3_rule": K3_SURVEY}))
     if rows:

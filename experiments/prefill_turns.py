@@ -1,18 +1,34 @@
 #!/usr/bin/env python3
-"""One architecture's prefill on the card: host wall, kernel time and K4's share.
+"""Prefills on the card, by route: host wall, kernel time, launches, idle share.
 
-    python3 experiments/prefill_turns.py                       # zamba2-7b, this checkout
-    python3 experiments/prefill_turns.py --root DIR --arch paligemma-3b
+    python3 experiments/prefill_turns.py                       # zamba2-7b, whole prompts
+    python3 experiments/prefill_turns.py --root DIR --arch stablelm-1.6b,rwkv6-1.6b \\
+        --routes whole,pieces,graphed
 
-Builds ``--arch`` at full width and depth (bf16, seeded random weights, one
-tenant) from the port under ``DIR/src`` (default: the checkout this script
-lies in), so that two checkouts can be compared in one call with one copy
-of the script. It prefills the 16 prompts ``chip_smoke.py``'s serving phases
-draw for seed 0 (128-1024 random tokens) into a cache of 2048 positions,
-twice unmeasured, then ``--repeats`` times each, every prefill timed on the
-host clock around a synchronize. One prefill of the median prompt runs
-under ``torch.profiler``: its kernel time, and K4's (``flash_attention``
-kernels) time and launches. Prints one JSON line with the card's name and
+Builds each ``--arch`` at full width and depth (bf16, seeded random weights,
+one tenant) from the port under ``DIR/src`` (default: the checkout this
+script lies in), so that two checkouts can be compared in one call with one
+copy of the script. It prefills the 16 prompts ``chip_smoke.py``'s serving
+phases draw for seed 0 (128-1024 random tokens) into a cache of 2048
+positions by each route of ``--routes``:
+
+- ``whole``: one ``forward_prefill`` of the whole prompt into a fresh cache
+  (the eager engine's route);
+- ``pieces``: the same prompt as the engine's piece lengths (512, 128, ...
+  for 742 tokens: descending powers of two below 2048), eagerly, the first
+  piece fresh and each later one a continuation from a host-int ``start``
+  (what a checkout without device starts can run);
+- ``graphed``: an engine of one tenant on the graph route, which captures
+  one program a piece size when it is built; each prefill replays them
+  (``MultiTenantEngine._run_pieces``). Needs a checkout with the piece
+  route; its build's capture seconds and pool bytes are reported.
+
+Each route prefills two prompts unmeasured, then every prompt ``--repeats``
+times, each prefill timed on the host clock around a synchronize. One
+prefill of the median prompt runs under ``torch.profiler``: its wall, its
+kernel time and kernel count (device activities), the idle share (1 -
+kernel time / wall) and K4's (``flash_attention`` kernels) time and
+launches. Prints one JSON line per (arch, route) with the card's name and
 power limit. Needs a CUDA card; exits 2 without one.
 """
 
@@ -31,73 +47,129 @@ REQUESTS = 16
 CACHE_LEN = 2048
 
 
+def pieces(S: int):
+    """The piece route's lengths at cache 2048 with no chunk: S in
+    descending powers of two below 2048 (1024s first)."""
+    top = CACHE_LEN // 2
+    rest = S % top
+    return [top] * (S // top) + [1 << i for i in range(rest.bit_length() - 1, -1, -1)
+                                 if rest >> i & 1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="zamba2-7b", help="comma list")
+    ap.add_argument("--routes", default="whole", help="comma list of whole, pieces, graphed")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("prefill_turns: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
+    from repro_torch.kernels import _build
+
+    _build.build()  # every kernel at once, one nvcc a source
+    ident = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    for arch in args.arch.split(","):
+        for route in args.routes.split(","):
+            rec = measure(arch, route, args)
+            rec["card"] = ident
+            print(json.dumps({"prefill_turns": rec}), flush=True)
+            torch.cuda.empty_cache()
+    return 0
+
+
+def measure(arch: str, route: str, args) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.config import get_config
+    from repro_torch.core.tenancy import tenant_view
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     dev = torch.device("cuda", 0)
-    cfg = get_config(args.arch)
+    cfg = get_config(arch)
     model = build_model(cfg, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
-    params = model.init(gen)
+    stacked = model.init_stacked([gen])
+    params = tenant_view(stacked, 0)
     rng = np.random.RandomState(args.seed)
     lens = rng.randint(128, 1025, size=REQUESTS)
     prompts = [torch.as_tensor(rng.randint(1, cfg.vocab_size, size=(1, int(n))), device=dev)
                for n in lens]
+    build = {}
+    if route == "whole":
+        def prefill(tokens):
+            return model.forward_prefill(params, tokens, CACHE_LEN)[0]
+    elif route == "pieces":
+        def prefill(tokens):
+            pos, cache = 0, None
+            for n in pieces(tokens.shape[1]):
+                logits, cache = model.forward_prefill(
+                    params, tokens[:, pos:pos + n], CACHE_LEN, caches=cache,
+                    start=None if cache is None else pos)
+                pos += n
+            return logits
+    elif route == "graphed":
+        from repro_torch.serving import EngineConfig, MultiTenantEngine
+
+        t0 = time.perf_counter()
+        eng = MultiTenantEngine(model, stacked_params=stacked, graphs=True, config=EngineConfig(
+            num_tenants=1, slots_per_tenant=1, cache_len=CACHE_LEN))
+        st = eng.programs.stats()
+        build = {"engine_build_s": time.perf_counter() - t0, "engine_route": eng.prefill_route,
+                 **{k: v for k, v in st.items() if k.startswith("prefill_")}}
+
+        def prefill(tokens):
+            return eng._run_pieces(0, tokens)
+    else:
+        raise SystemExit(f"prefill_turns: no route {route!r}")
     walls = []
     with torch.no_grad():
         for tokens in prompts[:2]:
-            model.forward_prefill(params, tokens, CACHE_LEN)
+            prefill(tokens)
         torch.cuda.synchronize()
         for _ in range(args.repeats):
             for tokens in prompts:
                 t0 = time.perf_counter()
-                model.forward_prefill(params, tokens, CACHE_LEN)
+                prefill(tokens)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
         median = sorted(prompts, key=lambda t: t.shape[1])[REQUESTS // 2]
         ops.reset_counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.forward_prefill(params, median, CACHE_LEN)
+            prefill(median)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     k4 = [e for e in kernels if "flash_" in e.key]
-    k4_ms = sum(e.self_device_time_total for e in k4) / 1e3
-    ident = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                           capture_output=True, text=True).stdout.strip()
     rec = {
-        "root": args.root, "arch": cfg.name, "card": ident,
+        "root": args.root, "arch": cfg.name, "route": route, **build,
         "prompt_lens": [int(n) for n in lens], "repeats": args.repeats,
         "wall_ms_p50": float(np.median(walls)), "wall_ms_mean": float(np.mean(walls)),
         "wall_ms_min": float(np.min(walls)), "wall_ms_max": float(np.max(walls)),
-        "profiled_tokens": int(median.shape[1]), "profiled_wall_ms": prof_wall,
-        "kernel_ms": busy, "idle_share": 1 - busy / prof_wall,
-        "k4_ms": k4_ms, "k4_launches": sum(e.count for e in k4),
-        "k4_by_variant": dict(ops.COUNTERS["flash_attention"].variants),
+        "wall_ms_sum_16": float(np.sum(walls) / args.repeats),
+        "profiled_tokens": int(median.shape[1]),
+        "profiled_pieces": pieces(median.shape[1]) if route != "whole" else [],
+        "profiled_wall_ms": prof_wall, "kernel_ms": busy, "idle_share": 1 - busy / prof_wall,
+        "device_activities": sum(e.count for e in kernels),
+        "k4_ms": sum(e.self_device_time_total for e in k4) / 1e3,
+        "k4_launches": sum(e.count for e in k4),
+        "launches_by_op": {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches},
         "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]],
     }
-    print(json.dumps({"prefill_turns": rec}), flush=True)
-    return 0
+    return rec
 
 
 if __name__ == "__main__":

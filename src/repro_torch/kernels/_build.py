@@ -43,9 +43,9 @@ SIGNATURES = {
         # scale, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention": (
-        # q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset,
-        # dtype, variant, scale, stream
-        [_P] * 5 + [_I] * 11 + [_F, _P], _I),
+        # q, k, v, out, lse, q_offset_dev, B, Hq, Hkv, Sq, Skv, D, causal,
+        # window, q_offset, dtype, variant, scale, stream
+        [_P] * 6 + [_I] * 11 + [_F, _P], _I),
     "batched_gemm": (
         # x, w, out, R, M, N, K, dtype, variant, tile_rows, k_splits, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),

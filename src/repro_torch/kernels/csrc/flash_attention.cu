@@ -4,7 +4,11 @@
 // flash_attention (pallas_call at :150, body _flash_kernel at :29).
 // q (B,Hq,Sq,D) against k/v (B,Hkv,Skv,D); query row i sits at absolute
 // position i + q_offset (the TPU kernel fixes q_offset = Skv - Sq; here it
-// is a runtime argument, so chunked prefill runs this kernel too). A key at
+// is a runtime argument, so chunked prefill runs this kernel too). The offset
+// is a host int, or one int64 in device memory (`q_offset_dev`, non-null),
+// which every thread reads once at its start: how a captured prefill program
+// takes the position of its piece, which changes from replay to replay, as
+// the reference's jitted continuation takes a traced `start`. A key at
 // position p is visible to a query at position x iff p < Skv, p <= x when
 // causal, and x - p < window when window > 0. Online softmax with float32
 // accumulation; a row with no visible key yields 0.
@@ -77,9 +81,11 @@ flash_kernel(const typename Elem<BF16>::T* __restrict__ q,
              const typename Elem<BF16>::T* __restrict__ k,
              const typename Elem<BF16>::T* __restrict__ v,
              typename Elem<BF16>::T* __restrict__ out,
+             const long long* __restrict__ q_offset_dev,
              int Hq, int Hkv, int Sq, int Skv, int causal, int window,
              int q_offset, float scale) {
   using E = Elem<BF16>;
+  if (q_offset_dev) q_offset = (int)*q_offset_dev;
   constexpr int DQ = D / kQuad;  // q / accumulator elements per thread
   static_assert(BK <= 64, "visibility bits live in one 64-bit word");
   __shared__ float k_s[BK * D];
@@ -168,9 +174,9 @@ flash_kernel(const typename Elem<BF16>::T* __restrict__ q,
 }
 
 template <bool BF16, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           const long long* q_offset_dev, int B, int Hq, int Hkv, int Sq, int Skv,
+           int causal, int window, int q_offset, float scale, cudaStream_t stream) {
   using T = typename Elem<BF16>::T;
   // keys per tile: 2 * BK * D floats of static shared memory (<= 48 KB) and
   // s[BK] + q + acc (BK + D / 2 floats) in registers
@@ -178,7 +184,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + kRows - 1) / kRows, B * Hq);
   flash_kernel<BF16, D, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Skv,
+      static_cast<const T*>(v), static_cast<T*>(out), q_offset_dev, Hq, Hkv, Sq, Skv,
       causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
@@ -220,9 +226,12 @@ template <int D, int DP>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map, uint16_t* __restrict__ out,
-            float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
-            int q_offset, float scale_log2) {
+            float* __restrict__ lse, const long long* __restrict__ q_offset_dev, int Hq, int Hkv,
+            int Sq, int Skv, int causal, int window, int q_offset, float scale_log2) {
   static_assert(D <= DP && DP % 64 == 0 && D % 8 == 0, "D columns inside DP, whole boxes");
+  // read before the roles split: the producer's tile count needs it before
+  // its first TMA load, the consumers' masks after
+  if (q_offset_dev) q_offset = (int)*q_offset_dev;
   using S = tc::Smem<DP>;
   extern __shared__ char smem_raw[];
   char* q_s = sm90::align_atom(smem_raw);
@@ -371,9 +380,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 }
 
 template <int D, int DP = D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                 int Hq, int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
-                 float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                 const long long* q_offset_dev, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int causal, int window, int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   const uint32_t box[3] = {64, 64, 1};
   const uint64_t q_dims[3] = {(uint64_t)D, (uint64_t)Sq, (uint64_t)B * Hq};
@@ -388,8 +397,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + tc::kRows - 1) / tc::kRows, B * Hq);
   flash_wgmma<D, DP><<<grid, tc::kThreads, tc::Smem<DP>::kBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<uint16_t*>(out), lse, Hq, Hkv, Sq, Skv, causal, window,
-      q_offset, scale * tc::kLog2e);
+      q_map, k_map, v_map, static_cast<uint16_t*>(out), lse, q_offset_dev, Hq, Hkv, Sq, Skv,
+      causal, window, q_offset, scale * tc::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -401,37 +410,40 @@ extern "C" {
 // the current device, 16-byte aligned. lse (B,Hq,Sq) float32 or null: where
 // given, the wgmma kernel writes each row's log-sum-exp of its scaled
 // visible scores (+inf for a row with no visible key), what the backward's
-// wgmma kernels read; the CUDA-core kernel takes none. dtype: 0 float32, 1
-// bfloat16. variant: 0 CUDA cores, 1 wgmma (bf16 only). Returns 0, a
-// cudaError_t, or REPRO_BAD_ARGUMENT.
+// wgmma kernels read; the CUDA-core kernel takes none. q_offset_dev: null,
+// or one int64 on the device that both kernels read in place of q_offset.
+// dtype: 0 float32, 1 bfloat16. variant: 0 CUDA cores, 1 wgmma (bf16 only).
+// Returns 0, a cudaError_t, or REPRO_BAD_ARGUMENT.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-                          int D, int causal, int window, int q_offset,
-                          int dtype, int variant, float scale, void* stream) {
+                          void* out, void* lse, const void* q_offset_dev, int B, int Hq,
+                          int Hkv, int Sq, int Skv, int D, int causal, int window,
+                          int q_offset, int dtype, int variant, float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0 ||
       B * Hq > 65535)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_ = static_cast<float*>(lse);
+  const long long* qo = static_cast<const long long*>(q_offset_dev);
   if (variant == 1) {
     if (dtype == 1 && D == 64)
-      return launch_wgmma<64>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
-                              scale, st);
+      return launch_wgmma<64>(q, k, v, out, lse_, qo, B, Hq, Hkv, Sq, Skv, causal, window,
+                              q_offset, scale, st);
     if (dtype == 1 && D == 112)  // two boxes, columns 112-127 TMA's zero fill
-      return launch_wgmma<112, 128>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window,
+      return launch_wgmma<112, 128>(q, k, v, out, lse_, qo, B, Hq, Hkv, Sq, Skv, causal, window,
                                     q_offset, scale, st);
     if (dtype == 1 && D == 128)
-      return launch_wgmma<128>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
-                               scale, st);
+      return launch_wgmma<128>(q, k, v, out, lse_, qo, B, Hq, Hkv, Sq, Skv, causal, window,
+                               q_offset, scale, st);
     if (dtype == 1 && D == 256)
-      return launch_wgmma<256>(q, k, v, out, lse_, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,
-                               scale, st);
+      return launch_wgmma<256>(q, k, v, out, lse_, qo, B, Hq, Hkv, Sq, Skv, causal, window,
+                               q_offset, scale, st);
     return REPRO_BAD_ARGUMENT;
   }
   if (variant != 0 || lse) return REPRO_BAD_ARGUMENT;
 #define REPRO_CUDA_CORE(BF16, DIM)                                                                \
   if (dtype == (BF16 ? 1 : 0) && D == DIM)                                                        \
-    return launch<BF16, DIM>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, scale, st);
+    return launch<BF16, DIM>(q, k, v, out, qo, B, Hq, Hkv, Sq, Skv, causal, window, q_offset,     \
+                             scale, st);
   REPRO_CUDA_CORE(false, 32)
   REPRO_CUDA_CORE(false, 64)
   REPRO_CUDA_CORE(false, 112)

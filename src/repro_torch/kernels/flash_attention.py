@@ -3,7 +3,10 @@
 Wrapper of ``csrc/flash_attention.cu``, the port of the JAX package's
 Pallas ``flash_attention``. Unlike the TPU kernel, ``q_offset`` (absolute
 position of the first query) is a runtime argument, so chunked prefill
-runs the kernel too. Its plain PyTorch version is ``ref.attention``;
+runs the kernel too: a host int, or a 0-dim int64 tensor on the card that
+the kernel reads in place (a captured prefill program's ``start``, which
+changes from replay to replay; the wrapper never reads its value). Its
+plain PyTorch version is ``ref.attention``;
 ``ops.flash_attention`` picks between them by the device of the tensors.
 On the card, ``variant`` picks one of the source's two kernels by dtype
 and head dim before the launch: the bf16 tensor-core kernel (wgmma fed by
@@ -26,7 +29,7 @@ version is ``ref.attention_bwd``; it counts its launches in
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -60,7 +63,7 @@ def flash_attention(
     window: int = 0,
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
     kernel: Optional[str] = None,
     lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -73,7 +76,9 @@ def flash_attention(
     (B,Hq,Sq) buffer, is filled with each row's log-sum-exp of its scaled
     visible scores (+inf where none is visible) as ``ref.attention_lse``
     gives it; only the wgmma kernel writes one (training's autograd route
-    passes it, serving none).
+    passes it, serving none). ``q_offset`` may be a 0-dim int64 tensor on
+    q's card (``check_offset``): both kernels then read it on the device,
+    and nothing here synchronises, so the launch can be captured.
     """
     _build.check_device(q)
     if logit_softcap != 0.0:
@@ -100,21 +105,34 @@ def flash_attention(
         if kind != "wgmma":
             raise ValueError(f"flash_attention: the {kind} kernel writes no lse")
         _stats(lse, (B, Hq, Sq), q.device, "lse")
+    offset_dev = None
+    if isinstance(q_offset, torch.Tensor):
+        check_offset(q_offset, q.device)
+        offset_dev, q_offset = q_offset.data_ptr(), 0
+    else:
+        q_offset = Skv - Sq if q_offset is None else int(q_offset)
     out = torch.empty_like(q)
     if Sq == 0 or Skv == 0:
         return out.zero_()
     scale = scale if scale is not None else D ** -0.5
-    q_offset = Skv - Sq if q_offset is None else int(q_offset)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         status = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+            None if lse is None else lse.data_ptr(), offset_dev, B, Hq, Hkv, Sq, Skv, D,
             int(bool(causal)), int(window), q_offset, _build.DTYPE_CODES[q.dtype],
             _build.VARIANT_CODES[kind], float(scale), _build.stream_of(q))
     _build.check_status(lib, "flash_attention", status)
     counter.launched(kind)
     return out
+
+
+def check_offset(q_offset: torch.Tensor, device: torch.device) -> None:
+    """Raise unless a tensor ``q_offset`` is what the kernels read in place
+    of a host int: one int64 on ``device``. Its value is not looked at."""
+    if q_offset.dtype != torch.int64 or q_offset.numel() != 1 or q_offset.device != device:
+        raise ValueError(f"flash_attention: a tensor q_offset must be one int64 on {device}, "
+                         f"got {tuple(q_offset.shape)} {q_offset.dtype} on {q_offset.device}")
 
 
 def _stats(t: torch.Tensor, shape, device, what: str) -> None:
@@ -145,6 +163,8 @@ def check_bwd(q: torch.Tensor, k: torch.Tensor, *, q_offset: Optional[int] = Non
     sends it to the plain version). ``ops.flash_attention`` asks before the
     forward launch, so a call the backward cannot take never starts."""
     Sq, Skv = q.shape[2], k.shape[2]
+    if isinstance(q_offset, torch.Tensor):  # training passes none; its value would sync
+        raise ValueError("flash_attention_bwd: takes a host q_offset (0), not a tensor")
     if Sq != Skv or (q_offset is not None and int(q_offset) != 0):
         raise ValueError(f"flash_attention_bwd: takes Sq == Skv with q_offset 0 (training), "
                          f"got Sq={Sq} Skv={Skv} q_offset={q_offset}")

@@ -34,7 +34,7 @@ autograd differentiates the plain versions.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -194,7 +194,7 @@ def flash_attention_plain(
     window: int = 0,
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The plain version of ``flash_attention``, on any device."""
     _fa.counter.plain_calls += 1
@@ -214,9 +214,11 @@ def flash_attention(
     window: int = 0,
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Prefill attention (GQA, causal, optional sliding window, q_offset)."""
+    """Prefill attention (GQA, causal, optional sliding window, q_offset: a
+    host int, or a 0-dim int64 tensor on the tensors' device that K4 and the
+    plain version read there)."""
     if not q.is_cuda:
         _check_plain_device(q, "flash_attention")
     if flash_attention_route(q.is_cuda, logit_softcap) == "kernel":

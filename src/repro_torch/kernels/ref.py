@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -49,9 +49,19 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_groups, bm: int) -> tor
     return out.reshape(T, -1).to(x.dtype)
 
 
-def _mask(sq: int, skv: int, q_offset: int, causal: bool, window: int,
+Offset = Union[int, torch.Tensor]
+
+
+def _offset(q_offset: Offset) -> Offset:
+    """A host offset as an int; a 0-dim integer tensor (K4's offset read on
+    the device) as it is, so that no value leaves the device."""
+    return q_offset if isinstance(q_offset, torch.Tensor) else int(q_offset)
+
+
+def _mask(sq: int, skv: int, q_offset: Offset, causal: bool, window: int,
           kv_start: int, device) -> torch.Tensor:
-    """(Sq, C) bool: key positions kv_start..kv_start+C visible to each query."""
+    """(Sq, C) bool: key positions kv_start..kv_start+C visible to each
+    query; ``q_offset`` a host int or a 0-dim tensor on ``device``."""
     q_pos = torch.arange(sq, device=device)[:, None] + q_offset
     kv_pos = torch.arange(kv_start, kv_start + skv, device=device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
@@ -81,12 +91,13 @@ def attention(
     window: int = 0,
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Offset] = None,
 ) -> torch.Tensor:
     """Dense attention. q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
 
     q_offset: absolute position of the first query (default Skv - Sq:
-    queries are the suffix).
+    queries are the suffix), a host int or a 0-dim integer tensor on q's
+    device (what a captured prefill passes).
     """
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -99,7 +110,7 @@ def attention(
         s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
         if logit_softcap > 0.0:
             s = logit_softcap * torch.tanh(s / logit_softcap)
-        mask = _mask(Sq, Skv, int(q_offset), causal, window, 0, q.device)
+        mask = _mask(Sq, Skv, _offset(q_offset), causal, window, 0, q.device)
         o = _masked_softmax_av(s, mask, v.float()[:, :, None])
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
@@ -125,7 +136,7 @@ def attention_lse(
     with _full_f32():
         qg = q.reshape(B, Hkv, g, Sq, D).float()
         s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
-        mask = _mask(Sq, Skv, int(q_offset), causal, window, 0, q.device)
+        mask = _mask(Sq, Skv, _offset(q_offset), causal, window, 0, q.device)
         lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
     lse = torch.where(mask.any(dim=-1), lse, math.inf)
     return lse.reshape(B, Hq, Sq)
@@ -182,7 +193,7 @@ def attention_chunked(
     scale: Optional[float] = None,
     logit_softcap: float = 0.0,
     kv_chunk: int = 1024,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Offset] = None,
 ) -> torch.Tensor:
     """O(S)-memory attention: a loop over KV chunks with an online softmax.
 
@@ -207,7 +218,7 @@ def attention_chunked(
             s = torch.matmul(qg, kb.transpose(-1, -2))
             if logit_softcap > 0.0:
                 s = logit_softcap * torch.tanh(s / logit_softcap)
-            mask = _mask(Sq, kb.shape[-2], int(q_offset), causal, window, c0, q.device)
+            mask = _mask(Sq, kb.shape[-2], _offset(q_offset), causal, window, c0, q.device)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.where(mask, torch.exp(s - m_new), 0.0)

@@ -16,7 +16,7 @@ device (the opt-in that holds the kernels against them on the card).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -122,7 +122,7 @@ def attn_prefill_continue(
     kind: AttentionKind,
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
-    start: int,
+    start: Union[int, torch.Tensor],
     rope: Tuple[torch.Tensor, torch.Tensor],
     plain: bool = False,
 ) -> torch.Tensor:
@@ -132,7 +132,11 @@ def attn_prefill_continue(
     Linear (non-ring) caches only: slot == position, so causal masking
     against the whole cache is exact and stale slots past start+S are never
     visible. The flash kernel takes ``q_offset = start`` at run time.
-    rope: ``layers.rope_tables`` of positions start..start+S-1.
+    ``start`` is a host int, or a 0-dim int64 tensor on the cache's device
+    (the reference's traced ``start``): K and V are then written through a
+    device index and K4 reads the offset on the card, so nothing syncs and
+    the call can be captured. rope: ``layers.rope_tables`` of positions
+    start..start+S-1.
     """
     if kind == AttentionKind.SLIDING and cfg.sliding_window > 0:
         raise NotImplementedError(
@@ -142,8 +146,13 @@ def attn_prefill_continue(
     q, k, v = _project_qkv(p, x, cfg)
     q = layers.apply_rope(q, *rope).contiguous()
     k = layers.apply_rope(k, *rope)
-    cache_k[:, :, start:start + S] = k.to(cache_k.dtype)
-    cache_v[:, :, start:start + S] = v.to(cache_v.dtype)
+    if isinstance(start, torch.Tensor):
+        slots = torch.arange(S, device=x.device) + start
+        cache_k.index_copy_(2, slots, k.to(cache_k.dtype))
+        cache_v.index_copy_(2, slots, v.to(cache_v.dtype))
+    else:
+        cache_k[:, :, start:start + S] = k.to(cache_k.dtype)
+        cache_v[:, :, start:start + S] = v.to(cache_v.dtype)
     o = _flash(plain)(q, cache_k, cache_v, causal=True, q_offset=start)
     return torch.matmul(_merge_heads(o), p["wo"])
 

@@ -55,7 +55,7 @@ Caches are updated in place; the returned caches are the ones passed in
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -369,16 +369,24 @@ class Model:
         tokens: torch.Tensor,
         cache_len: int,
         caches: Optional[Caches] = None,
-        start: Optional[int] = None,
+        start: Optional[Union[int, torch.Tensor]] = None,
         *,
         prefix_embeds: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Caches]:
         """Prefill. Returns (last-position logits (B, V), caches).
 
-        Fresh sequences: leave ``caches``/``start`` unset. Chunked
-        continuation: pass the previous chunk's caches and the absolute
-        position of this chunk's first token (not for sliding-window ring
-        caches).
+        Fresh sequences: leave ``caches``/``start`` unset. Continuation (a
+        chunk, or a piece of the engine's captured prefill): pass the
+        caches the earlier tokens left and the absolute position of this
+        chunk's first token (not for sliding-window ring caches), as a host
+        int or, as the reference's jitted continuation takes a traced int32,
+        a 0-dim int64 tensor on the model's device. A tensor ``start`` is
+        never read on the host: positions are ``arange(S) + start``, K and V
+        go into the cache through a device index and K4 reads the offset on
+        the card, so the call can be captured as a CUDA graph. RWKV-6 and
+        Mamba2 layers continue from the state in ``caches`` and need no
+        position; a piece that starts a prompt at 0 continues from zeroed
+        state, which is what a fresh prefill starts from.
 
         ``prefix_embeds`` (B, P, frontend_embed_dim or d_model), for a
         config with a stub frontend: the first P positions of the embedded
@@ -395,10 +403,13 @@ class Model:
         fresh = caches is None
         if fresh:
             caches = self.init_caches(B, cache_len)
-        start = 0 if start is None else int(start)
+        if start is None:
+            start = 0
+        elif not isinstance(start, torch.Tensor):
+            start = int(start)
         rope = None
         if self.has_attention:
-            rope = layers.rope_tables(torch.arange(start, start + S, device=tokens.device),
+            rope = layers.rope_tables(torch.arange(S, device=tokens.device) + start,
                                       cfg.head_dim, cfg.rope_theta)
         for i, kind in enumerate(self.blocks):
             lp, c = self._layer_params(params, i), self._layer_cache(caches, i)

@@ -32,21 +32,41 @@ reference's jitted ``_decode_all`` / ``_decode_one``: tokens and lengths go
 through static device buffers, and on the card each step (the merged one,
 or each tenant's) is captured as a CUDA graph after its first, eager run
 and replayed from then on (``graphs.use_graphs``; ``graphs=False`` runs
-eagerly on the card). Prefills stay eager: nearly every prompt has a length
-of its own. The caches and the stacked weights are captured by pointer:
-they are written in place and never rebound.
+eagerly on the card). The caches and the stacked weights are captured by
+pointer: they are written in place and never rebound.
+
+Prefills, the counterpart of the reference's jitted ``_prefill`` and
+``_prefill_cont``, take one of two routes, fixed when the engine is built
+(``prefill_route``), never as a fallback:
+
+- the piece route (graphed engines of an architecture ``takes_pieces``
+  allows: no sliding-window ring cache, no MoE FFN, whose capacity depends
+  on the sequence length): a prompt of S tokens is prefilled as pieces of
+  the lengths ``prefill_pieces`` gives, every length from a fixed set
+  (``piece_sizes``), each a continuation from a ``start`` on the device
+  into one scratch single-sequence cache made at build, whose recurrent
+  state is zeroed before a prompt's first piece and which is then copied
+  into the request's slot. On the card every (tenant, piece size) is
+  captured as a CUDA graph when the engine is built
+  (``graphs.PrefillPrograms``), so a prefill replays a few graphs;
+  ``pieces=True`` runs the same pieces eagerly (how the card's checks hold
+  the graphs against eager bit for bit);
+- the whole-prompt route (eager engines, and MoE and ring-cache
+  architectures): one eager ``forward_prefill`` per prompt into a fresh
+  cache, or fixed-size chunks with ``prefill_chunk``, as the reference's
+  engine runs them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.config import ScheduleConfig
+from repro_torch.config import AttentionKind, BlockKind, ModelConfig, ScheduleConfig
 from repro_torch.core.scheduler import DynamicSpaceTimeScheduler
 from repro_torch.core.tenancy import stack_params, tenant_view
 from repro_torch.core.workload import Workload
@@ -63,10 +83,14 @@ class EngineConfig:
     slots_per_tenant: int = 4
     cache_len: int = 256
     mode: str = "space_time"        # "space_time" | "time_only"
-    # >0: prefill prompts in fixed-size chunks (the flash kernel takes the
-    # chunk's start position at run time; the WKV6 scan starts from the
-    # state the previous chunk left). Requires a non-sliding-window
-    # architecture (chunked continuation needs linear caches).
+    # >0: prefill prompts in chunks of this many tokens (the flash kernel
+    # takes the chunk's start position at run time; the WKV6 scan and the
+    # SSD scan start from the state the previous chunk left). On the
+    # whole-prompt route, fixed-size chunks and a shorter last one; on the
+    # piece route, floor(S / C) pieces of C, then the rest in powers of two
+    # (``prefill_pieces``), and with 0 pieces of powers of two below
+    # cache_len. Requires a non-sliding-window architecture (chunked
+    # continuation needs linear caches).
     prefill_chunk: int = 0
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     seed: int = 0
@@ -81,6 +105,51 @@ class EngineConfig:
             raise ValueError(f"mode must be 'space_time' or 'time_only', got {self.mode!r}")
 
 
+def piece_sizes(chunk: int, cache_len: int) -> Tuple[int, ...]:
+    """The fixed set of prefill piece lengths, longest first: ``chunk``
+    (``prefill_chunk``, when 0 < chunk < cache_len, else the largest power
+    of two below ``cache_len``), then every power of two below it. At most
+    1 + log2(cache_len) sizes: one program per tenant and size."""
+    top = chunk if 0 < chunk < cache_len else 1 << max(cache_len - 1, 1).bit_length() - 1
+    return (top,) + tuple(1 << i for i in range((top - 1).bit_length() - 1, -1, -1))
+
+
+def prefill_pieces(S: int, chunk: int, cache_len: int) -> List[int]:
+    """The piece lengths of an S-token prompt on the piece route:
+    floor(S / top) pieces of the longest size ``top`` (``piece_sizes``),
+    then the rest in descending powers of two (its binary digits). They sum
+    to S, each lies in ``piece_sizes(chunk, cache_len)``, and there are at
+    most floor(S / top) + log2(top) of them; e.g. 742 at cache_len 2048 is
+    512, 128, 64, 32, 4, 2."""
+    top = piece_sizes(chunk, cache_len)[0]
+    rest = S % top
+    return [top] * (S // top) + [1 << i for i in range(rest.bit_length() - 1, -1, -1)
+                                 if rest >> i & 1]
+
+
+def takes_pieces(cfg: ModelConfig) -> bool:
+    """Whether an architecture may prefill by pieces: no sliding-window
+    layer (its ring cache cannot continue: ``attn_prefill_continue``) and
+    no MoE FFN (its capacity comes from the sequence length, so pieces
+    would route tokens differently from the whole prompt)."""
+    ring = any(cfg.attention_kind_at(i) == AttentionKind.SLIDING and cfg.sliding_window > 0
+               for i in range(cfg.num_layers))
+    return not ring and BlockKind.ATTN_MOE not in cfg.layer_pattern
+
+
+def prefill_route(cfg: ModelConfig, graphed: bool, pieces: Optional[bool] = None) -> str:
+    """"pieces" or "whole", decided when the engine is built: ``pieces``
+    where given (True raises for an architecture ``takes_pieces``
+    refuses), else "pieces" exactly for a graphed engine of an architecture
+    that takes them."""
+    if pieces is None:
+        return "pieces" if graphed and takes_pieces(cfg) else "whole"
+    if pieces and not takes_pieces(cfg):
+        raise ValueError(f"{cfg.name}: a sliding-window or MoE architecture prefills whole "
+                         "prompts, not pieces")
+    return "pieces" if pieces else "whole"
+
+
 class MultiTenantEngine:
     """Serve R tenants of one model.
 
@@ -89,7 +158,11 @@ class MultiTenantEngine:
     tree with a leading tenant axis, e.g. from ``Model.init_stacked``).
     ``graphs`` picks how decode steps run: None by the device (CUDA graphs
     on the card, eager elsewhere), False eager, True graphs (the card only;
-    raises elsewhere); see ``serving.graphs``.
+    raises elsewhere); see ``serving.graphs``. ``pieces`` picks the prefill
+    route (``prefill_route``): None by the rule (pieces for a graphed
+    engine of an architecture that takes them), True pieces on either route,
+    False whole prompts. On the graph route the piece programs are
+    captured here, so the engine's build pays for them and no request does.
     """
 
     def __init__(
@@ -100,6 +173,7 @@ class MultiTenantEngine:
         *,
         stacked_params: Optional[Any] = None,
         graphs: Optional[bool] = None,
+        pieces: Optional[bool] = None,
     ):
         if config is None:
             raise ValueError("MultiTenantEngine needs an EngineConfig")
@@ -116,11 +190,16 @@ class MultiTenantEngine:
         self.cfg = config
         self.device = model.device
         self.stacked_params = stacked_params
-        self.programs = _graphs.StepPrograms(self.device, _graphs.use_graphs(self.device, graphs))
+        graphed = _graphs.use_graphs(self.device, graphs)
+        self.programs = _graphs.StepPrograms(self.device, graphed)
+        self.prefill_route = prefill_route(model.cfg, graphed, pieces)
 
         R, B = config.num_tenants, config.slots_per_tenant
         self.caches = model.init_caches(B, config.cache_len, tenants=R)
         self.slots = SlotManager(R, B)
+        self.scratch = None  # the piece route's single-sequence cache
+        if self.prefill_route == "pieces":
+            self._build_pieces()
 
         schedule = config.schedule or ScheduleConfig(
             batching_window_s=0.0,
@@ -206,9 +285,11 @@ class MultiTenantEngine:
         for wl in batch:
             req: InferenceRequest = wl.payload
             t, s = req.tenant_id, req.slot
-            params_t = tenant_view(self.stacked_params, t)
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)[None, :]
-            logits, cache = self._run_prefill(params_t, tokens)
+            if self.scratch is None:
+                logits, cache = self._run_prefill(tenant_view(self.stacked_params, t), tokens)
+            else:
+                logits, cache = self._run_pieces(t, tokens), self.scratch
             tok = int(torch.argmax(logits[0]))
             req.generated.append(tok)
             req.first_token_time = time.perf_counter()
@@ -222,6 +303,46 @@ class MultiTenantEngine:
             self.active[(t, s)] = req
             outs.append(tok)
         return outs
+
+    def _build_pieces(self) -> None:
+        """The piece route: a ``start`` buffer, the scratch cache and one
+        program per (tenant, piece size); on the graph route they are
+        captured now, then the scratch cache is zeroed (the warm-ups wrote
+        it), so that every engine starts from the same scratch."""
+        model, cache_len = self.model, self.cfg.cache_len
+        self.start = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.scratch = model.init_caches(1, cache_len)
+        # every cache but K/V is recurrent state: RWKV-6's and Mamba2's
+        self._state = [c for name, layers in self.scratch.items() if name not in ("k", "v")
+                       for c in layers]
+        params, scratch = self.stacked_params, self.scratch
+
+        def make_step(t):
+            params_t = tenant_view(params, t)
+            return lambda tokens, start: model.forward_prefill(
+                params_t, tokens, cache_len, caches=scratch, start=start)[0]
+        prefill = _graphs.PrefillPrograms(
+            make_step, self.cfg.num_tenants, piece_sizes(self.cfg.prefill_chunk, cache_len),
+            self.start, self.device, self.programs.share)
+        self.programs.prefill = prefill
+        if self.programs.graphed:
+            prefill.capture()
+            for layers in self.scratch.values():
+                for c in layers:
+                    c.zero_()
+
+    def _run_pieces(self, tenant: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Tenant ``tenant``'s prompt (1, S) prefilled into the scratch cache
+        by pieces, from zeroed recurrent state (K/V need no reset: the
+        causal mask at each piece's start hides every slot past its last
+        token); returns the last piece's logits."""
+        for c in self._state:
+            c.zero_()
+        pos = 0
+        for n in prefill_pieces(tokens.shape[1], self.cfg.prefill_chunk, self.cfg.cache_len):
+            logits = self.programs.prefill.run(tenant, tokens[:, pos:pos + n], pos)
+            pos += n
+        return logits
 
     def _run_prefill(self, params_t, tokens):
         """Whole-prompt or chunked prefill."""

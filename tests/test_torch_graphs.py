@@ -405,18 +405,33 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
     for mod, name, fn in ((ops, "flash_attention", flash), (fa, "flash_attention", flash),
                           (ops, "decode_attention", decode), (da, "decode_attention", decode)):
         monkeypatch.setattr(mod, name, fn)
-    # the graph route on the CPU, with the card's two calls stood in for
+    # the graph route on the CPU, with the card's two calls stood in for:
+    # the engine's build captures its prefill programs (their stand-in
+    # captures put back no cache: the engine zeroes its scratch cache after
+    # them), its decode captures put the stacked caches back
     monkeypatch.setattr(graphs, "use_graphs", lambda device, g=None: g is not False)
-    monkeypatch.setattr(graphs, "GraphShare", lambda device: None)
+    building = {}
+    monkeypatch.setattr(graphs, "GraphShare", lambda device: ModelShare({}, building["model"]))
     init = engine_mod.MultiTenantEngine.__init__
 
-    def on_graph_route(self, *args, **kwargs):
-        init(self, *args, **kwargs)
+    def on_graph_route(self, model, *args, **kwargs):
+        building["model"] = model
+        init(self, model, *args, **kwargs)
         if self.programs.graphed:
-            self.programs.share = ModelShare(self.caches, self.model)
+            self.programs.share.caches = self.caches
     monkeypatch.setattr(engine_mod.MultiTenantEngine, "__init__", on_graph_route)
     monkeypatch.setattr(chip_smoke, "MAX_NEW", 10)
     monkeypatch.setattr(chip_smoke, "GRAPH_REPORT", {})
+    monkeypatch.setattr(chip_smoke, "PREFILL_REPORT", {})
+    # a cache of 256 and prompts cut to 200 tokens: each engine's build
+    # captures 4 tenants x 8 piece sizes at smoke width in seconds
+    monkeypatch.setattr(chip_smoke, "CACHE_LEN", 256)
+    serve = chip_smoke.serve_prompts
+
+    def short_prompts(cfg, seed, n=None):
+        prompts, lens = serve(cfg, seed, n)
+        return [(t, p[:200]) for t, p in prompts], [min(n, 200) for n in lens]
+    monkeypatch.setattr(chip_smoke, "serve_prompts", short_prompts)
     ops.reset_counters()
     cfg = repro_torch.config.get_config("zamba2-7b")
     chip_smoke.phase_serving(CPU, 0, ops, "zamba2-7b",
@@ -431,3 +446,12 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
         assert not row["stale_inputs_control"]["logits_bitwise"]
         assert row["state_control"]["kind"] == "decoded twice"
         assert {"ssm", "conv_x"} <= set(row["state_control"]["caches_differ"])
+        # the piece route: prefills bitwise equal to the same pieces run
+        # eagerly, and both of its controls caught
+        pre = row["prefill"]
+        assert pre["route"] == "pieces" and pre["first_tokens_equal"] and not pre["caches_differ"]
+        assert pre["stale_start_control"]["caught"]
+        unreset = pre["recurrent_state_left_unreset_control"]
+        assert {"ssm", "conv_x"} <= set(unreset["caches_differ"])
+        assert pre["captures"] == pre["programs"] == 4 * 8  # sizes 128, 64, ..., 1
+    assert set(chip_smoke.PREFILL_REPORT[cfg.name]) == {"space_time", "time_only"}
