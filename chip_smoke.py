@@ -171,16 +171,31 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      profiler), the capture's seconds and pool against the eager step's
      peak memory; two controls, each from equal states, must fail the same
      check: replays over an unstaged batch, and a program that does not
-     write its step counter back. It prints a ``train`` line, a
-     ``train_graphs`` line and the two backward kernels' rows;
+     write its step counter back; (f) the AdamW kernels (``kernels/adamw.py``:
+     the global norm, then every leaf's update in one pass) on an edge tree
+     and on stablelm-1.6b's and rwkv6-1.6b's full-width trees, with seeded
+     gradients where the clip binds and where it does not: the update kernel
+     given the plain step's scale, bias corrections and lr bitwise equal to
+     the plain update, the norm kernel within ``adamw.norm_rtol`` of a
+     float64 sum and bitwise equal to itself over two launches, whether a
+     whole kernel step is bitwise equal to a plain step recorded; three
+     controls must fail those checks (bc1 and bc2 swapped, the last leaf's
+     last element left out, the largest leaf left out of the norm); both
+     kernels timed on each tree beside the plain versions and their bounds.
+     In (d) and (e) the AdamW kernels must launch once each a step, and a
+     gradient made contiguous for them is named. ``--profile`` adds the
+     AdamW kernels' device ms a step. It prints a ``train`` line, a
+     ``train_graphs`` line, an ``adamw`` line and the backward and AdamW
+     kernels' rows;
  11. runs ``launch.steps.build_step``'s programs on the card at full width
      and depth in bf16, the assigned shapes' batch cut to fit (train_4k 4 x
      4096, microbatch 1 and 4, stablelm-1.6b and rwkv6-1.6b; prefill_32k 1 x
      32768, both; decode_32k 4 sequences of stablelm-1.6b against caches of
      32768; the merged decode of 4 stablelm-1.6b tenants, one sequence
      each): each step's meta arguments must be the bytes the card holds
-     for them, each kernel's launches by variant those of the program (no
-     plain call), and its time and peak memory are printed beside the meta
+     for them, each kernel's launches by variant those of the program (the
+     train steps' AdamW kernels once each a call; no plain call), and its
+     time and peak memory are printed beside the meta
      run's temporaries; the eager decode step at 32768 is profiled once
      (its kernel share of the wall, K3's time); K3, K4, K5, K5-state and
      both backward kernels are held against their plain versions at
@@ -199,8 +214,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      prints a ``dryrun_steps`` line;
  12. runs the port's example scripts (``repro_torch/examples``):
      ``train_small`` (300 steps of a 4-layer stablelm variant in float32,
-     graphed: K4 cuda_core 2 x 4 x 300 launches, its backward 4 x 300, the
-     loss falling), ``multi_tenant_serving`` (4 tenants, 16 requests of 12
+     graphed: K4 cuda_core 2 x 4 x 300 launches, its backward 4 x 300, each
+     AdamW kernel 300, the loss falling), ``multi_tenant_serving`` (4 tenants, 16 requests of 12
      tokens, every one served; K4 in the prefills, K3 once per layer and
      decode pass, the decode step graphed) and ``spacetime_ablation`` (K1
      simt once per dispatch) in process at the reference's sizes, with no
@@ -305,7 +320,8 @@ every kernel inside the graphs, and one prefill of the median prompt whole,
 as pieces run eagerly and as pieces replayed (wall, kernel time, idle share).
 
 Prints a ``prefills`` JSON line (phases 3, 5, 6, 7), a ``fleet`` JSON line
-(phase 8), a ``front_door`` JSON line (phase 9), a ``train`` and a ``train_graphs`` JSON line (phase 10), a ``dryrun_steps``
+(phase 8), a ``front_door`` JSON line (phase 9), a ``train``, a ``train_graphs`` and an
+``adamw`` JSON line (phase 10), a ``dryrun_steps``
 JSON line (phase 11), an ``examples`` JSON line (phase 12), a
 ``graphs`` JSON line (phases 3, 5, 6, 7), a ``k3_rule`` JSON line (phase 1),
 a ``kernels`` JSON line (with phase 11's launches by variant on the rows of
@@ -345,6 +361,8 @@ REPLACES = {
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:84",
     # no Pallas kernel: the reference's jnp lax.scan _wkv_final_state
     "wkv6_state": "src/repro/models/rwkv.py:188",
+    # no Pallas kernel: the reference's jnp adamw_update, fused by XLA
+    "adamw": "src/repro/training/optimizer.py:41",
 }
 ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phases 3 and 6's path
 EXTRA_HEAD_DIMS = (112, 256)  # zamba2-7b's and paligemma-3b's head dims
@@ -361,12 +379,12 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, sleep_cycles: int = SLEEP_CYCLES_PER_CALL) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls, by
     CUDA events. The calls are queued behind a sleep kernel long enough for
-    the host to enqueue them all (~0.2 ms of sleep per call), so the events
-    time the card's work and not the host's launch cost, which paces a
-    kernel of a few tens of microseconds otherwise."""
+    the host to enqueue them all (``sleep_cycles`` a call, ~0.2 ms by
+    default), so the events time the card's work and not the host's launch
+    cost, which paces a kernel of a few tens of microseconds otherwise."""
     import torch
 
     for _ in range(warmup):
@@ -374,7 +392,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(sleep_cycles * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -4470,6 +4488,7 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     wall = time.perf_counter() - t0
     st = made[0].stats()
     n_made = len(made)
+    strided = leaf_paths(state.params, made[0].step.step_fn.made_contiguous)
     made.clear()  # the program (its graph's pool) goes with train()'s return
     log(f"  train() ran its step {'graphed' if st['graphed'] else 'eagerly'}: "
         f"{st['eager_passes']} eager pass, {st['captures']} capture ({st['capture_s']:.3f} s, "
@@ -4490,10 +4509,12 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
     width = cfg.head_dim if op == "flash_attention" else seq
     fwd_v = (fa.variant if op == "flash_attention" else wk.variant)(dt, width)
     bwd_v = (fa.bwd_variant if op == "flash_attention" else wk.bwd_variant)(dt, width)
-    want = {op: {fwd_v: n_layers * TRAIN_STEPS * 2}, op + "_bwd": {bwd_v: n_layers * TRAIN_STEPS}}
+    want = {op: {fwd_v: n_layers * TRAIN_STEPS * 2}, op + "_bwd": {bwd_v: n_layers * TRAIN_STEPS},
+            **adamw_launches(state.params, TRAIN_STEPS)}
     log("  launches over the run: " + ", ".join(
         f"{k} {v[1]}" for k, v in counts.items() if v[0]) + "; plain calls: "
-        + str({k: v[2] for k, v in counts.items() if v[2]}))
+        + str({k: v[2] for k, v in counts.items() if v[2]}) + "; gradients made contiguous "
+        f"for the AdamW kernel: {strided or 'none'}")
     for name, (n, variants, plain) in counts.items():
         if variants != want.get(name, {}) or plain:
             raise PhaseFailed(f"{arch} train(): {name} launched {variants}, not "
@@ -4524,7 +4545,7 @@ def train_full(ops, arch, batch, seq, op, dev, seed, ckpt_dir):
            "tokens_per_s": tokens / (float(np.median(steps_ms)) / 1e3),
            "wall_s": wall, "peak_mem_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
            "checkpoint_gb": size / 1e9, "checkpoint_save_s": save_s,
-           "checkpoint_restore_s": restore_s,
+           "checkpoint_restore_s": restore_s, "made_contiguous": strided,
            "launches": {k: v[1] for k, v in counts.items() if v[0]}}
     log(f"  {arch} train(): median step {rec['median_step_ms']:.1f} ms (steps 1-{TRAIN_STEPS - 1}"
         f"), {rec['tokens_per_s']:.0f} tokens/s, peak memory {rec['peak_mem_gb']:.2f} GB, loss "
@@ -4651,7 +4672,8 @@ def graph_train_check(ops, arch, batch, seq, op, dev, seed):
     width = cfg.head_dim if op == "flash_attention" else seq
     fwd_v = (fa.variant if op == "flash_attention" else wk.variant)(dt, width)
     bwd_v = (fa.bwd_variant if op == "flash_attention" else wk.bwd_variant)(dt, width)
-    want = {op: {fwd_v: 2 * n}, op + "_bwd": {bwd_v: n}}
+    want = {op: {fwd_v: 2 * n}, op + "_bwd": {bwd_v: n}, **adamw_launches(graph.params, 1)}
+    strided = leaf_paths(graph.params, step_fn.made_contiguous)
     captured = {k: dict(c.variants) for k, c in graph.launches.items()}
     plain = {k: c.plain_calls for k, c in ops.COUNTERS.items() if c.plain_calls}
     total = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
@@ -4660,7 +4682,8 @@ def graph_train_check(ops, arch, batch, seq, op, dev, seed):
         f"(loss, grad_norm, lr) bitwise equal in {same}/{GRAPH_TRAIN_STEPS} steps (max gap "
         f"{gap:.3e}); params, moments and step: {differ} leaves differ (max gap {sgap:.3e}); "
         f"{st['eager_passes']} eager pass, {st['captures']} capture, {st['replays']} replays; "
-        f"a replay launches {captured}; both programs launched {total}; plain calls {plain}")
+        f"a replay launches {captured}; both programs launched {total}; plain calls {plain}; "
+        f"gradients made contiguous: {strided or 'none'}")
     ok = (same == GRAPH_TRAIN_STEPS and differ == 0 and captured == want and not plain
           and total == want_total and (st["eager_passes"], st["captures"], st["replays"])
           == (1, 1, GRAPH_TRAIN_STEPS - 1))
@@ -4699,7 +4722,7 @@ def graph_train_check(ops, arch, batch, seq, op, dev, seed):
            "eager_step_reserved_mib": reserved["eager"],
            "graph_step_reserved_mib": reserved["graph"],
            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches_per_replay": captured}
+           "launches_per_replay": captured, "made_contiguous": strided}
     log(f"    wall {walls['eager']:.3f} ms a steady step eager, {walls['graph']:.3f} graphed; "
         f"replays back to back {device_ms:.3f} ms of device time; idle share "
         f"{row['eager_idle']:.3f} eager, {row['graph_idle']:.3f} graphed (CUDA events); "
@@ -4745,18 +4768,308 @@ def graph_train_check(ops, arch, batch, seq, op, dev, seed):
     torch.cuda.empty_cache()
 
 
+# (f) the AdamW kernels (kernels/adamw.py) against the plain update
+# gradient std by clip regime: a global norm of ~40 (scale ~0.025 at clip 1)
+# or ~0.4 (scale 1) over the ~1.6e9 parameters of either tree
+ADAMW_REGIMES = {"clip binds": 1e-3, "clip does not bind": 1e-5}
+ADAMW_STATE_STEP = 10  # updates applied before: the bias corrections are step 11's
+ADAMW_LR = 3e-4
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)  # make_train_step's
+ADAMW_FLOPS = 17       # float32 operations an element of the update (a divide or root one)
+ADAMW_ITERS = 5
+# the wrappers' host cost grows with the leaves (~1-2 ms a call for rwkv6's
+# 411 at the norm, more than the norm kernel's device time): queue ~5 ms a call
+ADAMW_SLEEP_CYCLES = 10_000_000
+ADAMW_REPORT = {}      # arch -> the checks' numbers, in the ``train`` line's ``adamw``
+# edge tree (numel, dtype): off the vector and tile edges, both dtypes, and
+# more leaves than one pack (two launches of each kernel)
+ADAMW_EDGE = ([(1, "float32"), (7, "bfloat16"), (9, "float32"), (8191, "bfloat16"),
+               (8193, "float32"), (3 * 8192 + 5, "bfloat16")]
+              + [(3 + i % 13, "bfloat16" if i % 4 else "float32") for i in range(700)])
+
+
+def leaf_paths(params, indices):
+    """The tree paths ("layers/3/mlp/w1") of ``tree_leaves`` indices."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in walk(v, f"{prefix}{k}/")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in walk(v, f"{prefix}{i}/")]
+        return [prefix[:-1]]
+    paths = walk(params, "")
+    return [paths[i] for i in indices]
+
+
+def adamw_packs(leaves):
+    from repro_torch.kernels import adamw as aw
+
+    return len(aw.plan([p.numel() for p in leaves], [p.dtype for p in leaves]).packs)
+
+
+def adamw_launches(params, updates):
+    """The AdamW kernels' launches over ``updates`` updates of ``params``:
+    one of each a pack (one pack for both real trees)."""
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.tree import tree_leaves
+
+    n = adamw_packs(tree_leaves(params)) * updates
+    return {"adamw_norm": {aw.VARIANT: n}, "adamw_update": {aw.VARIANT: n}}
+
+
+def adamw_state(leaves, dev, seed, std):
+    """Seeded gradients of ``std`` in each param's dtype, and float32 moments
+    as after some steps (m ~ N(0, std), v ~ N(0, std)^2)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    grads, mus, nus = [], [], []
+    for p in leaves:
+        grads.append(torch.randn(p.shape, generator=gen, device=dev).mul_(std).to(p.dtype))
+        mus.append(torch.randn(p.shape, generator=gen, device=dev).mul_(std))
+        nus.append(torch.randn(p.shape, generator=gen, device=dev).mul_(std).square_())
+    return grads, mus, nus
+
+
+def adamw_run(params, grads, mus, nus, fn):
+    """``fn(params, grads, mus, nus)`` on copies of the params and moments;
+    returns the copies (params, mus, nus) after it."""
+    import torch
+
+    out = ([t.clone() for t in params], [t.clone() for t in mus], [t.clone() for t in nus])
+    fn(out[0], grads, out[1], out[2])
+    torch.cuda.synchronize()
+    return out
+
+
+def adamw_gap(got, want):
+    """(leaves of params and moments that are not bitwise equal, the largest
+    |got - want| over them)."""
+    import torch
+
+    differ, gap = 0, 0.0
+    for a_list, b_list in zip(got, want):
+        for a, b in zip(a_list, b_list):
+            if not torch.equal(a, b):
+                differ += 1
+                gap = max(gap, float((a.float() - b.float()).abs().max()))
+    return differ, gap
+
+
+def require_bitwise(what, got, want):
+    differ, gap = adamw_gap(got, want)
+    n = sum(len(x) for x in want)
+    log(f"    {what}: {n - differ}/{n} leaves bitwise equal (max gap {gap:.3e})")
+    if differ:
+        raise PhaseFailed(f"{what}: {differ} of {n} param and moment leaves differ from the "
+                          f"plain update (max gap {gap:.3e})")
+    return gap
+
+
+def exact_norm(grads):
+    """The gradients' global L2 norm summed in float64."""
+    import torch
+
+    return float(torch.sqrt(sum(torch.sum(torch.square(g.double())) for g in grads)))
+
+
+def require_norm(what, got, exact, rtol):
+    rel = abs(got - exact) / exact
+    log(f"    {what}: {got:.9g} against the float64 sum's {exact:.9g}: relative error "
+        f"{rel:.3e} (bound {rtol:.3e}) {'ok' if rel <= rtol else 'FAIL'}")
+    if not rel <= rtol:
+        raise PhaseFailed(f"{what}: relative error {rel:.3e} over the bound {rtol:.3e}")
+    return rel
+
+
+def adamw_tree_check(ops, what, leaves, dev, seed, std, controls=False):
+    """The AdamW kernels on one tree (``leaves``, the params) at gradient
+    ``std``: (a) the norm kernel against the float64 sum within its bound
+    (``adamw.norm_rtol``) and bitwise equal to itself over two launches;
+    (b) the update kernel given the plain step's scalars bitwise equal to
+    the plain update; the whole kernel step (``adamw_update`` on the card:
+    its own norm, then the scalars) against the plain step, recorded. With
+    ``controls``, bc1 and bc2 swapped and a leaf's last element left out of
+    the update must fail (b)'s check, and a norm without the largest leaf
+    (a)'s. Returns the record, the grads and the moments."""
+    import torch
+
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.training.optimizer import AdamWState, adamw_update, update_scalars
+
+    grads, mus, nus = adamw_state(leaves, dev, seed, std)
+    step0 = torch.full((), ADAMW_STATE_STEP, dtype=torch.int32, device=dev)
+    lr0 = torch.full((), ADAMW_LR, dtype=torch.float32, device=dev)
+    plan = aw.plan([p.numel() for p in leaves], [p.dtype for p in leaves])
+    rtol = aw.norm_rtol(plan.tiles)
+    ops.reset_counters()
+    gn_plain = ops.adamw_norm_plain(grads)
+    scale, _, bc1, bc2, lr = update_scalars(gn_plain, step0, lr0)
+    plain = adamw_run(leaves, grads, mus, nus, lambda p, g, m, v: ops.adamw_update_plain(
+        p, g, m, v, scale, bc1, bc2, lr, **ADAMW_HYPER))
+    kern = adamw_run(leaves, grads, mus, nus, lambda p, g, m, v: ops.adamw_update(
+        p, g, m, v, scale, bc1, bc2, lr, **ADAMW_HYPER))
+    gap = require_bitwise(f"{what}: the update kernel given the plain step's scalars", kern, plain)
+    del kern
+    exact = exact_norm(grads)
+    gn = ops.adamw_norm(grads)
+    again = ops.adamw_norm(grads)
+    torch.cuda.synchronize()
+    rel = require_norm(f"{what}: the norm kernel", float(gn), exact, rtol)
+    rel_plain = abs(float(gn_plain) - exact) / exact
+    if not torch.equal(gn, again):
+        raise PhaseFailed(f"{what}: two launches of the norm kernel gave {float(gn)!r} and "
+                          f"{float(again)!r}")
+
+    def whole(p, g, m, v):
+        adamw_update(g, AdamWState(step0.clone(), m, v), p, lr0)
+    step = adamw_run(leaves, grads, mus, nus, whole)
+    step_differ, step_gap = adamw_gap(step, plain)
+    del step
+    launched = {k: dict(c.variants) for k, c in ops.COUNTERS.items() if c.launches}
+    plain_calls = {k: c.plain_calls for k, c in ops.COUNTERS.items() if c.plain_calls}
+    want = {"adamw_norm": {aw.VARIANT: 3 * len(plan.packs)},
+            "adamw_update": {aw.VARIANT: 2 * len(plan.packs)}}
+    whole_verdict = ("bitwise equal" if not step_differ
+                     else f"{step_differ} leaves differ, max gap {step_gap:.3e}")
+    log(f"    {what}: scale {float(scale):.6g} (plain norm {float(gn_plain):.9g}, relative error "
+        f"{rel_plain:.3e}); the whole kernel step against the plain step: {whole_verdict}; "
+        f"launches {launched}, plain calls {plain_calls}")
+    if launched != want or plain_calls != {"adamw_norm": 1, "adamw_update": 1}:
+        raise PhaseFailed(f"{what}: AdamW launches {launched} (want {want}), plain calls "
+                          f"{plain_calls}")
+    rec = {"scale": float(scale), "grad_norm": float(gn), "grad_norm_plain": float(gn_plain),
+           "grad_norm_f64": exact, "norm_rel_err": rel, "norm_rel_err_plain": rel_plain,
+           "norm_rtol": rtol, "update_bitwise": True, "update_max_gap": gap,
+           "whole_step_bitwise": not step_differ, "whole_step_max_gap": step_gap}
+    if controls:
+        must_fail("bc1 and bc2 swapped", lambda: require_bitwise(
+            f"{what}, bc1 and bc2 swapped", adamw_run(
+                leaves, grads, mus, nus, lambda p, g, m, v: aw.update(
+                    p, g, m, v, scale, bc2, bc1, lr, **ADAMW_HYPER)), plain))
+
+        def dropped(p, g, m, v):  # the last leaf's last element left out of the plan
+            aw.update(p[:-1] + [p[-1].view(-1)[:-1]], g[:-1] + [g[-1].view(-1)[:-1]],
+                      m[:-1] + [m[-1].view(-1)[:-1]], v[:-1] + [v[-1].view(-1)[:-1]],
+                      scale, bc1, bc2, lr, **ADAMW_HYPER)
+        must_fail("a leaf's last element dropped", lambda: require_bitwise(
+            f"{what}, the last leaf's last element dropped",
+            adamw_run(leaves, grads, mus, nus, dropped), plain))
+        big = max(range(len(grads)), key=lambda i: grads[i].numel())
+        must_fail("the largest leaf left out of the norm", lambda: require_norm(
+            f"{what}, the norm without leaf {big}",
+            float(aw.norm(grads[:big] + grads[big + 1:])), exact, rtol))
+        rec["controls_caught"] = 3
+    del plain
+    torch.cuda.empty_cache()
+    return rec, grads, mus, nus
+
+
+def adamw_rows(ops, arch, leaves, grads, mus, nus, rec):
+    """The two kernels timed on ``arch``'s tree (in place, ADAMW_ITERS
+    launches) beside the plain versions and their bounds: the kernels line's
+    rows, launches unset."""
+    import torch
+
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.kernels import ref
+
+    scal = [torch.full((), x, dtype=torch.float32, device=grads[0].device)
+            for x in (rec["scale"], 0.5, 0.1, ADAMW_LR)]
+    ms_norm = time_ms(lambda: aw.norm(grads), ADAMW_ITERS, sleep_cycles=ADAMW_SLEEP_CYCLES)
+    ms_update = time_ms(lambda: aw.update(leaves, grads, mus, nus, *scal, **ADAMW_HYPER),
+                        ADAMW_ITERS, sleep_cycles=ADAMW_SLEEP_CYCLES)
+    plain_norm = time_ms(lambda: ref.adamw_norm(grads), 2, 1)
+    plain_update = time_ms(lambda: ref.adamw_update(leaves, grads, mus, nus, *scal,
+                                                    **ADAMW_HYPER), 2, 1)
+    n = sum(p.numel() for p in leaves)
+    g_bytes = sum(g.numel() * g.element_size() for g in grads)
+    p_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    norm_bound, norm_by = bound(g_bytes + 4, 2 * n, "torch.float32")
+    upd_bound, upd_by = bound(g_bytes + 2 * p_bytes + 16 * n + 16, ADAMW_FLOPS * n,
+                              "torch.float32")
+    dtypes = sorted({str(p.dtype).replace("torch.", "") for p in leaves})
+    shape = f"{arch} tree: {len(leaves)} leaves, {n} params ({'/'.join(dtypes)})"
+    base = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": REPLACES["adamw"], "variant": aw.VARIANT, "shape": shape,
+            "library_ms": None}  # no one PyTorch call: bf16 params, f32 moments, a global clip
+    rows = [{"name": "adamw_norm", **base, "max_abs_err": abs(rec["grad_norm"]
+                                                              - rec["grad_norm_f64"]),
+             "rel_err": rec["norm_rel_err"], "ms": ms_norm, "plain_ms": plain_norm,
+             "bound_ms": norm_bound, "bound_by": norm_by},
+            {"name": "adamw_update", **base, "max_abs_err": rec["update_max_gap"],
+             "ms": ms_update, "plain_ms": plain_update, "bound_ms": upd_bound,
+             "bound_by": upd_by}]
+    for r in rows:
+        log(f"    {r['name']} [{aw.VARIANT}] {shape}: ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"kernel/bound={r['ms'] / r['bound_ms']:.2f}; library: none")
+    log(f"    a step's two kernels {ms_norm + ms_update:.3f} ms against the plain version's "
+        f"{plain_norm + plain_update:.3f} ms; bound {norm_bound + upd_bound:.3f} ms")
+    return rows
+
+
+def phase_adamw(ops, dev, seed):
+    """(f) The AdamW kernels: an edge tree (sizes off the vector and tile
+    edges, both dtypes, two packs), then stablelm-1.6b's and rwkv6-1.6b's
+    full-width trees (seeded params; seeded gradients in the clip regime
+    that binds and in one that does not), each through
+    ``adamw_tree_check`` (its controls on the full trees where the clip
+    binds), and both kernels timed on each full tree. Returns {arch: the
+    two rows}."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    edge = [torch.randn(n, device=dev).to(getattr(torch, d)) for n, d in ADAMW_EDGE]
+    log(f"  AdamW edge tree: {len(edge)} leaves, {adamw_packs(edge)} packs")
+    ADAMW_REPORT["edge"] = adamw_tree_check(ops, "edge tree", edge, dev, seed, 1e-2)[0]
+    del edge
+    rows = {}
+    for arch, *_ in TRAIN_ARCHS:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        leaves = tree_leaves(build_model(get_config(arch), device=dev).init(gen))
+        log(f"  AdamW {arch}: {len(leaves)} leaves, {sum(p.numel() for p in leaves)} params, "
+            f"{adamw_packs(leaves)} pack")
+        report = {}
+        for regime, std in ADAMW_REGIMES.items():
+            binds = regime == "clip binds"
+            rec, grads, mus, nus = adamw_tree_check(ops, f"{arch}, {regime}", leaves, dev,
+                                                    seed + 1, std, controls=binds)
+            if binds != (rec["scale"] < 1.0):
+                raise PhaseFailed(f"{arch}: the clip regime '{regime}' gave scale "
+                                  f"{rec['scale']}")
+            report[regime] = rec
+            if binds:
+                rows[arch] = adamw_rows(ops, arch, leaves, grads, mus, nus, rec)
+            del grads, mus, nus
+            torch.cuda.empty_cache()
+        ADAMW_REPORT[arch] = report
+        del leaves
+        torch.cuda.empty_cache()
+    log(f"    {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 # Kernel function names of csrc/ on the training path (forward and backward).
 PORT_KERNEL_NAMES = ("flash_wgmma", "flash_kernel", "delta_kernel", "dkdv_wgmma", "dq_wgmma",
-                     "rows_kernel", "dkdv_kernel", "dq_kernel", "wkv6_chunked", "wkv6_bwd")
+                     "rows_kernel", "dkdv_kernel", "dq_kernel", "wkv6_chunked", "wkv6_bwd",
+                     "adamw_norm_kernel", "adamw_update_kernel")
+ADAMW_KERNEL_NAMES = ("adamw_norm_kernel", "adamw_update_kernel")
 
 
 def profile_train(arch, batch, seq, dev, seed, steps=3):
     """Where a full-width bf16 train step's time goes: after two warm-up
     steps, the host wall of forward + backward and of the optimizer update,
     each ended by a synchronize; then torch.profiler over ``steps`` whole
-    steps: wall and kernel time a step, the device's idle share (1 - kernel
-    time / wall), kernels a step, the kernels that take the most time, and
-    the port's own kernels among the rest."""
+    steps: wall and kernel time a step, the AdamW kernels' device time a
+    step, the device's idle share (1 - kernel time / wall), kernels a step,
+    the kernels that take the most time, and the port's own kernels among
+    the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4802,10 +5115,15 @@ def profile_train(arch, batch, seq, dev, seed, steps=3):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    opt_us = sum(e.self_device_time_total for e in kernels
+                 if any(name in e.key for name in ADAMW_KERNEL_NAMES))
     log(f"  profile {arch} train step ({batch} x {seq}, bf16): forward + backward "
         f"{np.median(fb) * 1e3:.1f} ms, optimizer {np.median(up) * 1e3:.1f} ms ({len(leaves)} "
-        f"leaves); profiled wall {wall / steps * 1e3:.1f} ms/step, kernels "
-        f"{busy_us / steps / 1e3:.1f} ms/step, device idle share {1 - busy_us / 1e6 / wall:.3f}, "
+        f"leaves; host wall of the eager update to a synchronize), optimizer kernels "
+        f"{opt_us / steps / 1e3:.3f} ms/step of device time (the profiler: "
+        f"{', '.join(ADAMW_KERNEL_NAMES)}); profiled wall {wall / steps * 1e3:.1f} ms/step, "
+        f"kernels {busy_us / steps / 1e3:.1f} ms/step, device idle share "
+        f"{1 - busy_us / 1e6 / wall:.3f}, "
         f"{sum(e.count for e in kernels) / steps:.0f} kernels/step")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:10]:
@@ -4822,9 +5140,10 @@ def profile_train(arch, batch, seq, dev, seed, steps=3):
 def phase_train(ops, dev, seed, profile=False):
     """Phase 10: (a, b) the backward kernels, (c) the full-width 2-layer
     kernel path against the plain path, (d) train() at full width and depth
-    (its step graphed), (e) the graphed train step against the eager one;
-    with ``profile``, where each model's train step's time goes. Returns
-    (the backward kernels' rows, the train record)."""
+    (its step graphed), (e) the graphed train step against the eager one,
+    (f) the AdamW kernels against the plain update; with ``profile``, where
+    each model's train step's time goes. Returns (the backward and AdamW
+    kernels' rows, the train record)."""
     rows = phase_bwd_kernels(ops, dev, seed)
     for arch, _, _, op in TRAIN_ARCHS:
         train_vs_plain(ops, arch, op, dev, seed)
@@ -4837,6 +5156,12 @@ def phase_train(ops, dev, seed, profile=False):
             records.append(rec)
     for arch, batch, seq, op in TRAIN_ARCHS:
         graph_train_check(ops, arch, batch, seq, op, dev, seed)
+    adamw = phase_adamw(ops, dev, seed)
+    for rec in records:  # the kernels' launches on the main path: (d)'s train()
+        for row in adamw[rec["arch"]]:
+            row["launches_by_variant"] = rec["launches"].get(row["name"], {})
+            row["launches"] = sum(row["launches_by_variant"].values())
+            rows.append(row)
     if profile:
         for arch, batch, seq, _ in TRAIN_ARCHS:
             profile_train(arch, batch, seq, dev, seed)
@@ -4869,7 +5194,8 @@ DRYRUN_POD1 = ("stablelm-1.6b", "train_4k")
 DRYRUN_TIMEOUT_S = 300
 P11_KERNELS = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
                "wkv6_scan": "chunked", "wkv6_scan_bwd": "cluster", "wkv6_state": "segmented",
-               "decode_attention": "split_kv"}
+               "decode_attention": "split_kv", "adamw_norm": "multi_tensor",
+               "adamw_update": "multi_tensor"}
 
 
 def cut_shape(name, batch, seq=None):
@@ -5080,6 +5406,7 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_step
     from repro_torch.models import rwkv
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
     name = cut_shape(shape_name, batch, seq)
@@ -5130,7 +5457,9 @@ def p11_step(ops, dev, seed, arch, shape_name, batch, seq, mb, tenants):
     L = cfg.num_layers
     if kind == "train":
         op = "flash_attention" if cfg.ssm is None else "wkv6_scan"
-        want = {op: 2 * L * mb * calls, op + "_bwd": L * mb * calls}
+        packs = adamw_packs(tree_leaves(args[0]))  # the meta params
+        want = {op: 2 * L * mb * calls, op + "_bwd": L * mb * calls,
+                "adamw_norm": packs * calls, "adamw_update": packs * calls}
     elif kind == "prefill":
         per_layer = (rwkv.prefill_launches(torch.bfloat16) if cfg.ssm is not None
                      else {"flash_attention": 1})
@@ -5631,7 +5960,8 @@ def phase_examples(ops, dev, seed):
         fwd_v = fa.variant(torch.float32, cfg.head_dim)
         bwd_v = fa.bwd_variant(torch.float32, cfg.head_dim)
         want = {"flash_attention": {fwd_v: cfg.num_layers * steps * 2},
-                "flash_attention_bwd": {bwd_v: cfg.num_layers * steps}}
+                "flash_attention_bwd": {bwd_v: cfg.num_layers * steps},
+                **adamw_launches(state.params, steps)}
         losses = [float(line.split("loss")[1].split()[0]) for line in lines if "loss" in line]
         st = made[0].stats()
         log(f"  train_small: {lines[0]}; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
@@ -5723,7 +6053,8 @@ def build_report(_build):
     and its backward's two variants, the state pass, and how many of K3's
     clusters fit on the card at once at stablelm's and paligemma's decode
     shapes (split_kv at 4 splits, mma at 8 and 16) and of the state pass's
-    at every segment count (beside ``wkv6_state.RESIDENT_CLUSTERS``)."""
+    at every segment count (beside ``wkv6_state.RESIDENT_CLUSTERS``), and the
+    AdamW update kernel's parameter bytes (beside ``adamw.PARAM_BYTES``)."""
     import ctypes
 
     for name in _build.SOURCES:
@@ -5781,6 +6112,15 @@ def build_report(_build):
         got = {g: wsc(code, g) for g in wspy.RESIDENT_CLUSTERS}
         log(f"  wkv6_state clusters resident at once by segments ({'bf16' if code else 'f32'}): "
             f"{got}; the rule's table {'equal' if got == wspy.RESIDENT_CLUSTERS else 'DIFFERS'}")
+    from repro_torch.kernels import adamw as awpy
+
+    awb = _build.load("adamw").repro_adamw_param_bytes
+    awb.argtypes, awb.restype = [], ctypes.c_int
+    log(f"  adamw_update_kernel parameters: {awb()} bytes (the wrapper's {awpy.PARAM_BYTES}, "
+        f"the limit {awpy.PARAM_LIMIT_BYTES})")
+    if awb() != awpy.PARAM_BYTES:
+        raise PhaseFailed(f"adamw: the kernel's parameters are {awb()} bytes, the wrapper says "
+                          f"{awpy.PARAM_BYTES}")
     for d, g in ((64, 1), (256, 8)):  # stablelm's and paligemma's decode steps
         clusters = da.repro_decode_attention_clusters(d, 1, g, 4)
         log(f"  decode_attention split_kv clusters of 4 resident at once (D={d} bf16, "
@@ -5924,7 +6264,7 @@ def main(argv=None) -> int:
                 row = next((r for r in rows if r["name"] == name), None)
                 if row is not None:
                     row["phase11_launches_by_variant"] = by_variant
-                    row["phase11_max_abs_err"] = dry["kernel_max_abs_err"][name]
+                    row["phase11_max_abs_err"] = dry["kernel_max_abs_err"].get(name)
         if 12 in phases:
             torch.cuda.empty_cache()
             log("phase 12: the example scripts (train_small, multi_tenant_serving, "
@@ -5945,6 +6285,8 @@ def main(argv=None) -> int:
         log(json.dumps({"train": trained}))
     if TRAIN_GRAPH_REPORT:
         log(json.dumps({"train_graphs": TRAIN_GRAPH_REPORT}))
+    if ADAMW_REPORT:
+        log(json.dumps({"adamw": ADAMW_REPORT}))
     if dry is not None:
         log(json.dumps({"dryrun_steps": dry}))
     if examples is not None:

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan",
-           "flash_attention_bwd", "wkv6_scan_bwd", "wkv6_state")
+           "flash_attention_bwd", "wkv6_scan_bwd", "wkv6_state", "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each library's entry point: (argtypes, restype)
 SIGNATURES = {
     "decode_attention": (
@@ -67,6 +68,11 @@ SIGNATURES = {
     "wkv6_state": (
         # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, segments, stream
         [_P] * 5 + [_I] * 5 + [_P] + [_I] * 2 + [_P], _I),
+    "adamw": (
+        # kind, n_leaves, first_f32, tile0, tiles, total_tiles, ptrs, numels,
+        # tile0s, partials, done, gnorm, scale, bc1, bc2, lr, b1, c1, b2, c2,
+        # eps, wd, stream
+        [_I] * 3 + [_L] * 3 + [_P] * 10 + [_F] * 6 + [_P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

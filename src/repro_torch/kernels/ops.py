@@ -1,4 +1,4 @@
-"""Dispatch layer over the GEMM, attention and WKV6 kernels.
+"""Dispatch layer over the GEMM, attention, WKV6 and AdamW kernels.
 
 Routing is by the device of the tensors, never by a fallback: a CUDA
 tensor goes to the hand-written kernel (which raises on anything it does
@@ -29,16 +29,25 @@ wgmma backward), K5's chunked kernel the state entering each 16-step chunk
 (``ckpt``); both are saved for the backward. Otherwise the forward kernel
 is launched directly, as for serving, and writes neither. On the CPU
 autograd differentiates the plain versions.
+
+The optimizer. ``adamw_norm`` (a tree's global gradient norm) and
+``adamw_update`` (every leaf's AdamW update in place, given the scale,
+bias corrections and lr as device scalars) replace no Pallas kernel: the
+JAX package's ``adamw_update`` is jnp that XLA fuses. On CUDA tensors they
+launch ``kernels/adamw.py``'s two kernels (``COUNTERS["adamw_norm"]``,
+``["adamw_update"]``, one launch a pack of leaves); on the CPU and the meta
+device the plain versions, ``ref.adamw_norm`` and ``ref.adamw_update``.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -55,6 +64,8 @@ COUNTERS: Dict[str, _build.OpCounter] = {
     "wkv6_state": _wks.counter,
     "flash_attention_bwd": _fa.bwd_counter,
     "wkv6_scan_bwd": _wkv.bwd_counter,
+    "adamw_norm": _aw.norm_counter,
+    "adamw_update": _aw.counter,
 }
 
 
@@ -339,6 +350,44 @@ def wkv6_state(
         return _wks.wkv6_state(k, v, w, init_state, final_state)
     _check_plain_device(k, "wkv6_state")
     return wkv6_state_plain(k, v, w, init_state, final_state)
+
+
+def adamw_norm_plain(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The plain version of ``adamw_norm``, on any device."""
+    _aw.norm_counter.plain_calls += 1
+    return ref.adamw_norm(grads)
+
+
+def adamw_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The float32 global L2 norm of a tree's gradients (its leaves, in
+    order), as a 0-dim tensor on their device."""
+    if grads and grads[0].is_cuda:
+        return _aw.norm(grads)
+    if grads:
+        _check_plain_device(grads[0], "adamw_norm")
+    return adamw_norm_plain(grads)
+
+
+def adamw_update_plain(params, grads, mus, nus, scale, bc1, bc2, lr, *, b1: float, b2: float,
+                       eps: float, weight_decay: float) -> None:
+    """The plain version of ``adamw_update``, on any device."""
+    _aw.counter.plain_calls += 1
+    ref.adamw_update(params, grads, mus, nus, scale, bc1, bc2, lr, b1=b1, b2=b2, eps=eps,
+                     weight_decay=weight_decay)
+
+
+def adamw_update(params, grads, mus, nus, scale, bc1, bc2, lr, *, b1: float, b2: float,
+                 eps: float, weight_decay: float) -> None:
+    """AdamW's update of a tree's leaves (lists of params, gradients and
+    float32 moments) IN PLACE, given the gradient scale, the bias
+    corrections and the lr as float32 scalar tensors on their device."""
+    if params and params[0].is_cuda:
+        return _aw.update(params, grads, mus, nus, scale, bc1, bc2, lr, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay)
+    if params:
+        _check_plain_device(params[0], "adamw_update")
+    return adamw_update_plain(params, grads, mus, nus, scale, bc1, bc2, lr, b1=b1, b2=b2,
+                              eps=eps, weight_decay=weight_decay)
 
 
 # The decode step is a handful of elementwise ops and one small product per

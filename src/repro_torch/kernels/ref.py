@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GEMM, attention and WKV6 kernels.
+"""Plain PyTorch versions of the GEMM, attention, WKV6 and AdamW kernels.
 
 These are the semantic ground truth the CUDA kernels are held against on
 the card, and what ``ops`` runs for tensors that lie on the CPU. They
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -439,3 +439,40 @@ def wkv6_step(
     with _full_f32():
         out = torch.matmul(r.float()[:, None, :], state + uf * kv)[:, 0]
     return decay[:, :, None] * state + kv, out.to(r.dtype)
+
+
+def adamw_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of ``grads`` in float32: each leaf's sum of
+    squares, the leaves' sums added in order, then the square root."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+
+
+@torch.no_grad()
+def adamw_update(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    mus: Sequence[torch.Tensor],
+    nus: Sequence[torch.Tensor],
+    scale: torch.Tensor,
+    bc1: torch.Tensor,
+    bc2: torch.Tensor,
+    lr: torch.Tensor,
+    *,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float,
+) -> None:
+    """AdamW's update of each leaf IN PLACE, in float32 whatever the param
+    dtype (the JAX package's ``adamw_update`` past its norm): the gradient
+    scaled by ``scale``, the moments ``mus``/``nus`` (float32) advanced, the
+    param moved by ``lr`` times the bias-corrected step plus decoupled
+    weight decay and rounded back to its dtype. ``scale``, ``bc1``, ``bc2``
+    and ``lr`` are float32 scalar tensors."""
+    for p, g, m, v in zip(params, grads, mus, nus):
+        g32 = g.float() * scale
+        m.mul_(b1).add_((1 - b1) * g32)
+        v.mul_(b2).add_((1 - b2) * torch.square(g32))
+        p32 = p.float()
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p32
+        p.copy_(p32 - lr * delta)

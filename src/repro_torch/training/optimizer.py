@@ -6,9 +6,16 @@ whatever the param dtype, the gradient is clipped by its global norm, and
 the update is computed in float32 and cast back to each param's dtype, as
 the reference does; ``torch.optim.AdamW`` on bf16 params would do the
 arithmetic in bf16. Unlike the reference, ``adamw_update`` updates the
-params and the moments IN PLACE (under ``torch.no_grad()``), one leaf at a
-time, so a full-width step never holds a second float32 copy of the
-gradient tree; it returns the same tensors.
+params and the moments IN PLACE (under ``torch.no_grad()``), so a
+full-width step never holds a second float32 copy of the gradient tree; it
+returns the same tensors.
+
+Where the reference leaves the update to XLA's fusion, the port routes it
+through ``kernels.ops`` by the device of the tensors: on the card two
+hand-written launches (``kernels/adamw.py``: the global norm, then every
+leaf's update in one pass), on the CPU and the meta device the plain
+PyTorch version (``kernels/ref.py``), op for op what this module ran
+before. Between them sit the few scalar ops of ``update_scalars``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -70,18 +78,29 @@ def adamw_update(
     """One AdamW step with global-norm clipping. Returns (params, state,
     metrics), the params and moments updated in place."""
     gflat = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gflat))
+    gnorm = ops.adamw_norm(gflat)
+    scale, step, bc1, bc2, lr = update_scalars(gnorm, state.step, lr, b1=b1, b2=b2,
+                                               grad_clip=grad_clip)
+    ops.adamw_update(tree_leaves(params), gflat, tree_leaves(state.mu), tree_leaves(state.nu),
+                     scale, bc1, bc2, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
+
+
+def update_scalars(
+    gnorm: torch.Tensor,
+    step: torch.Tensor,
+    lr: torch.Tensor,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    grad_clip: float = 1.0,
+) -> Tuple[torch.Tensor, ...]:
+    """The scalars an update reads, from the global norm and the steps
+    applied so far, as float32 tensors on the norm's device (the step
+    int32): (gradient scale, new step, bc1, bc2, lr)."""
     scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
+    step = step + 1
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
     lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
-    for p, g, m, v in zip(tree_leaves(params), gflat, tree_leaves(state.mu),
-                          tree_leaves(state.nu)):
-        g32 = g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g32)
-        v.mul_(b2).add_((1 - b2) * torch.square(g32))
-        p32 = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p32
-        p.copy_(p32 - lr * delta)
-    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
+    return scale, step, bc1, bc2, lr

@@ -9,8 +9,9 @@ Where the reference compiles the step (``jax.jit``), ``train`` runs it as a
 and replayed, on the CPU and the meta device eagerly (``graphs=False`` asks
 for eager on the card). On the card, every attention layer's forward and
 backward run the hand-written K4 kernels and every RWKV-6 layer's the K5
-kernels (``kernels.ops``' autograd route). Log lines and the checkpoint
-cadence are the reference's.
+kernels (``kernels.ops``' autograd route), and the update the AdamW
+kernels (``kernels/adamw.py``). Log lines and the checkpoint cadence are
+the reference's.
 """
 
 from __future__ import annotations
@@ -46,7 +47,12 @@ def make_train_step(
 ) -> Callable:
     """Builds the (params, opt, tokens, labels) -> (params, opt, metrics)
     step. Params and moments are updated in place and returned; a param
-    the loss does not reach gets a zero gradient, as under JAX."""
+    the loss does not reach gets a zero gradient, as under JAX. The AdamW
+    kernel takes contiguous gradients, so one that autograd hands over
+    strided (zamba2's depthwise conv weights) is copied into a contiguous
+    tensor of the same values first, on every device; the step's
+    ``made_contiguous`` lists those leaves (``tree_leaves`` indices) of its
+    last call."""
 
     def train_step(params, opt: AdamWState, tokens, labels):
         leaves = tree_leaves(params)
@@ -55,6 +61,8 @@ def make_train_step(
         loss, metrics = model.forward_train(params, tokens, labels)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        train_step.made_contiguous = [i for i, g in enumerate(grads) if not g.is_contiguous()]
+        grads = [g.contiguous() for g in grads]
         lr = lr_schedule(opt.step, base_lr, warmup_steps, total_steps)
         params, opt, opt_metrics = adamw_update(
             grads, opt, params, lr, weight_decay=weight_decay
@@ -63,6 +71,7 @@ def make_train_step(
         metrics.update(opt_metrics)
         return params, opt, metrics
 
+    train_step.made_contiguous = []
     return train_step
 
 

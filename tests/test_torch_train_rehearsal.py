@@ -4,7 +4,8 @@
 count a launch of their variant and run their plain versions; the ops take
 the autograd route they take on the card (the ``torch.autograd.Function``
 whose forward and backward are those wrappers) instead of the CPU's plain
-route; stablelm-1.6b and rwkv6-1.6b are their bf16 smoke variants and the
+route, and the AdamW wrappers count a launch a pack and run the plain
+update; stablelm-1.6b and rwkv6-1.6b are their bf16 smoke variants and the
 phase's shapes are shrunk. So the phase's control flow and checks run here:
 the backward kernels against both yardsticks, the kernel path against the
 plain path in float32 and bf16, ``train()`` with its launch, loss and
@@ -47,6 +48,7 @@ def smoke(monkeypatch):
 
     import repro_torch.config
     from repro_torch.config import smoke_variant
+    from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6_scan as wk
@@ -93,6 +95,16 @@ def smoke(monkeypatch):
         wk.bwd_counter.launched(kind)
         return ref.wkv6_scan_bwd(r, k, v, w, u, do)
 
+    def adamw_norm(grads):  # one launch a pack, as the card's wrapper counts
+        for _ in aw.plan([g.numel() for g in grads], [g.dtype for g in grads]).packs:
+            aw.norm_counter.launched(aw.VARIANT)
+        return ref.adamw_norm(grads)
+
+    def adamw_update(params, grads, mus, nus, scale, bc1, bc2, lr, **hyper):
+        for _ in aw.plan([p.numel() for p in params], [p.dtype for p in params]).packs:
+            aw.counter.launched(aw.VARIANT)
+        ref.adamw_update(params, grads, mus, nus, scale, bc1, bc2, lr, **hyper)
+
     def flash_op(q, k, v, *, causal=True, window=0, scale=None, logit_softcap=0.0,
                  q_offset=None):  # ops.flash_attention's route for a CUDA tensor
         if ops._grad_needed(q, k, v):
@@ -109,7 +121,10 @@ def smoke(monkeypatch):
 
     for mod, name, fn in ((fa, "flash_attention", flash), (fa, "flash_attention_bwd", flash_bwd),
                           (wk, "wkv6_scan", scan), (wk, "wkv6_scan_bwd", scan_bwd),
-                          (ops, "flash_attention", flash_op), (ops, "wkv6_scan", scan_op)):
+                          (aw, "norm", adamw_norm), (aw, "update", adamw_update),
+                          (ops, "flash_attention", flash_op), (ops, "wkv6_scan", scan_op),
+                          (ops, "adamw_norm", lambda grads: aw.norm(grads)),
+                          (ops, "adamw_update", lambda *a, **k: aw.update(*a, **k))):
         monkeypatch.setattr(mod, name, fn)
     monkeypatch.setattr(chip_smoke, "FLASH_BWD_CASES", ((1, 4, 4, 40, 64, 0),
                                                         (1, 4, 1, 30, 32, 5)))
@@ -137,12 +152,17 @@ def test_phase_10_runs_its_checks_on_the_cpu(smoke):
     chip_smoke, ops = smoke
     rows, records = chip_smoke.phase_train(ops, torch.device("cpu"), 0)
     json.dumps({"train": records, "kernels": rows})
-    assert [r["name"] for r in rows] == ["flash_attention_bwd", "wkv6_scan_bwd"]
+    assert [r["name"] for r in rows] == ["flash_attention_bwd", "wkv6_scan_bwd"] + [
+        "adamw_norm", "adamw_update"] * 2
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(r) for r in rows)
-    assert [(r["variant"], r["prior"]) for r in rows] == [("wgmma", "cuda_core"),
-                                                          ("cluster", "chunked")]
+    assert [(r["variant"], r["prior"]) for r in rows[:2]] == [("wgmma", "cuda_core"),
+                                                              ("cluster", "chunked")]
+    for rec, row in zip([records[0]] * 2 + [records[1]] * 2, rows[2:]):  # the AdamW kernels
+        assert row["launches_by_variant"] == {"multi_tensor": rec["steps"]} == {
+            "multi_tensor": row["launches"]} and row["library_ms"] is None
+        assert row["shape"].startswith(rec["arch"])
     for rec, row, op in zip(records, rows, ("flash_attention", "wkv6_scan")):
         assert rec["launches"][op + "_bwd"] == row["launches_by_variant"] == {
             row["variant"]: row["launches"]}
@@ -160,7 +180,9 @@ def test_phase_10_runs_its_checks_on_the_cpu(smoke):
                                ("rwkv6-1.6b", "wkv6_scan", "chunked", "cluster")):
         row = report[arch]
         assert (row["bitwise_steps"], row["state_leaves_differ"]) == (4, 0)
-        assert row["launches_per_replay"] == {op: {fwd: 4}, op + "_bwd": {bwd: 2}}
+        assert row["launches_per_replay"] == {op: {fwd: 4}, op + "_bwd": {bwd: 2},
+                                              "adamw_norm": {"multi_tensor": 1},
+                                              "adamw_update": {"multi_tensor": 1}}
         assert row["controls"]["unstaged_batch"]["bitwise_steps"] < 2
         assert row["controls"]["frozen_step_counter"]["bitwise_steps"] < 2
 
