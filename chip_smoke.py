@@ -98,7 +98,16 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      GB in bf16), kernel path against plain path; (b) serves the 16
      requests of phase 3 for four granite-moe tenants (10.7 GB) and four
      zamba2 tenants (45.9 GB, 8.2 GB of caches) in both modes, with their
-     kernels rows;
+     kernels rows. Before (a), zamba2's Mamba2 mixer: SSD-scan against its
+     plain version at the graphed prefill's pieces (1-512 tokens) from a
+     seeded state and at whole prompts (742, 777) from zero, in three decay
+     regimes, SSD-step over 3 successive steps merged (R 4 x B 4) and for
+     one tenant (R 1), float32 and bf16, two launches the same bits, two
+     controls of each that must fail; (a)'s plain path runs their plain
+     versions, and P8 holds a 6-layer zamba2 prefill bitwise under
+     ``cudnn.allow_tf32`` True against False; (b) counts SSD-scan once per
+     Mamba2 layer (68) per prefill piece (and per eager whole prompt) and
+     SSD-step once per Mamba2 layer per decode pass, no plain call;
   8. measures ``HardwareSpec``'s two launch terms (the host time of an empty
      launch, and what a synchronize after it adds), then serves a live
      fleet: two replicas, each a ``MultiTenantEngine`` over the same four
@@ -363,8 +372,12 @@ REPLACES = {
     "wkv6_state": "src/repro/models/rwkv.py:188",
     # no Pallas kernel: the reference's jnp adamw_update, fused by XLA
     "adamw": "src/repro/training/optimizer.py:41",
+    # no Pallas kernel: the reference's jnp ssd_scan and mamba2_decode
+    "ssd_scan": "src/repro/models/ssm.py:93",
+    "ssd_step": "src/repro/models/ssm.py:257",
 }
 ATTENTION_KERNELS = ("decode_attention", "flash_attention")  # phases 3 and 6's path
+SSD_KERNELS = ("ssd_scan", "ssd_step")  # zamba2's Mamba2 layers, phase 7
 EXTRA_HEAD_DIMS = (112, 256)  # zamba2-7b's and paligemma-3b's head dims
 
 
@@ -1374,7 +1387,9 @@ def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
         f"{R_TENANTS * SLOTS * seq_bytes / 1e9:.2f} GB for {R_TENANTS * SLOTS} slots")
     torch.cuda.empty_cache()
     prompts, lens = serve_prompts(cfg, seed)
-    launches, per_mode, passes = serve_both_modes(model, stacked, prompts, ops, ATTENTION_KERNELS)
+    n_mamba = mamba_layers(cfg)
+    kernels = ATTENTION_KERNELS + (SSD_KERNELS if n_mamba else ())
+    launches, per_mode, passes = serve_both_modes(model, stacked, prompts, ops, kernels)
     k3_want = k3_variant(model.dtype, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads)
     for name, want in (("flash_attention", flash_variant), ("decode_attention", k3_want)):
         by_variant = dict(ops.COUNTERS[name].variants)
@@ -1395,11 +1410,36 @@ def phase_serving(dev, seed, ops, arch, profile=False, flash_variant="wgmma"):
         f"passes ({'pieces' if takes_pieces(cfg) else 'whole prompts'} of {REQUESTS} prompts); "
         f"decode_attention {n_attn} x {passes[0]} merged passes (space_time), x {passes[1]} "
         "per-tenant passes (time_only)")
+    if n_mamba:
+        ssd_serving_checks(ops, n_mamba, prefills, launches, per_mode, passes)
     graph_checks(ops, cfg, model, stacked, prompts)
     if profile:
         profile_serving(model, stacked, prompts)
         profile_prefill(model, stacked, prompts)
     return cfg, launches, per_mode, lens
+
+
+def ssd_serving_checks(ops, n_mamba, prefills, launches, per_mode, passes):
+    """SSD-scan once per Mamba2 layer per prefill pass (a piece on the graph
+    route) and SSD-step once per Mamba2 layer per decode pass (merged in
+    space_time, a tenant's in time_only), in each mode, every launch its
+    kernel's one variant (plain calls: none, checked by serve_both_modes)."""
+    from repro_torch.kernels import ssd
+
+    for mode, per, n in zip(("space_time", "time_only"), per_mode, passes):
+        if per["ssd_scan"] != n_mamba * prefills or per["ssd_step"] != n_mamba * n:
+            raise PhaseFailed(f"{mode}: ssd_scan launched {per['ssd_scan']} times and ssd_step "
+                              f"{per['ssd_step']}, not {n_mamba} per prefill pass ({prefills}) "
+                              f"and per decode pass ({n})")
+    for name, variant in (("ssd_scan", ssd.SCAN_VARIANT), ("ssd_step", ssd.STEP_VARIANT)):
+        by_variant = dict(ops.COUNTERS[name].variants)
+        if by_variant != {variant: launches[name]}:
+            raise PhaseFailed(f"{name}: {launches[name]} launches on the serving path, not all "
+                              f"{variant}: {by_variant}")
+    log(f"  launches per mode: ssd_scan {n_mamba} Mamba2 layers x {prefills} prefill passes, "
+        f"ssd_step {n_mamba} x {passes[0]} merged passes (space_time), x {passes[1]} per-tenant "
+        f"passes (time_only); by variant: ssd_scan {dict(ops.COUNTERS['ssd_scan'].variants)}, "
+        f"ssd_step {dict(ops.COUNTERS['ssd_step'].variants)}")
 
 
 def stacked_tenants(model, dev, seed, init=None):
@@ -1628,7 +1668,13 @@ def prefill_vs_whole(ops, cfg, model, stacked, graph, prompts):
             tokens = torch.as_tensor(np.asarray(p, np.int64), device=model.device)[None, :]
             pieces = prefill_pieces(len(p), 0, CACHE_LEN)
             got = graph._run_pieces(t, tokens)
+            before = {k: c.copy() for k, c in ops.COUNTERS.items()}
             want, whole = model.forward_prefill(params, tokens, CACHE_LEN)
+            scan = ops.COUNTERS["ssd_scan"].since(before["ssd_scan"])
+            if (scan.launches, scan.plain_calls) != (mamba_layers(cfg), 0):
+                raise PhaseFailed(f"{cfg.name} whole prompt of {len(p)}: ssd_scan launched "
+                                  f"{scan.launches} times, not once per Mamba2 layer "
+                                  f"({mamba_layers(cfg)}), and {scan.plain_calls} plain calls")
             p_whole, p_whole_c = plain.forward_prefill(params, tokens, CACHE_LEN)
             p_got, p_got_c, pos = None, None, 0
             for n in pieces:
@@ -3034,6 +3080,20 @@ def model_vs_plain_f32_bf16(ops, cfg, dev, seed, init=None, keep=None, note=""):
         log(f"    {op} launches over both kernel runs: {got}")
         if got != want:
             raise PhaseFailed(f"{cfg.name}: {op} launches {got}, not {want}")
+    from repro_torch.kernels import ssd
+
+    n_mamba = mamba_layers(cfg)
+    for op, variant, per_run in (("ssd_scan", ssd.SCAN_VARIANT, 3 * n_mamba),
+                                 ("ssd_step", ssd.STEP_VARIANT, DECODE_STEPS * n_mamba)):
+        c = ops.COUNTERS[op]
+        want = {variant: 2 * per_run} if per_run else {}
+        # the plain runs (plain_kernels=True) call the plain version as often
+        if dict(c.variants) != want or c.plain_calls != 2 * per_run:
+            raise PhaseFailed(f"{cfg.name}: {op} launches {dict(c.variants)} and plain calls "
+                              f"{c.plain_calls}, not {want} and {2 * per_run}")
+        if per_run:
+            log(f"    {op} launches over both kernel runs: {dict(c.variants)}; plain calls over "
+                f"both plain runs: {c.plain_calls}")
     k32, p32 = runs["f32", False], runs["f32", True]
     kbf, pbf = runs["bf16", False], runs["bf16", True]
     whole = cfg.moe is None
@@ -3258,13 +3318,16 @@ LLAMA4_LAYERS = 2  # one period of its pattern: a dense layer, then an MoE layer
 
 
 def phase_new_archs(ops, dev, seed, profile=False):
-    """Phase 7: (a) granite-moe-1b-a400m and zamba2-7b at full width,
-    kernel path against plain path in float32 and bf16, then
-    llama4-maverick at full width and LLAMA4_LAYERS layers in bf16; (b)
-    four tenants of granite-moe and of zamba2 served in both modes (K4 by
-    the wrapper's rule once per attention layer per prefill, K3 by its rule
-    once per attention layer per decode pass), with their kernels rows.
-    Returns the rows."""
+    """Phase 7: (a) zamba2's SSD-scan and SSD-step against their plain
+    versions (``phase_ssd_kernels``), granite-moe-1b-a400m and zamba2-7b at
+    full width, kernel path against plain path in float32 and bf16, P8
+    (``p8_check``), then llama4-maverick at full width and LLAMA4_LAYERS
+    layers in bf16; (b) four tenants of granite-moe and of zamba2 served in
+    both modes (K4 by the wrapper's rule once per attention layer per
+    prefill, K3 by its rule once per attention layer per decode pass,
+    zamba2's SSD-scan and SSD-step once per Mamba2 layer per prefill piece
+    and decode pass), with their kernels rows (zamba2's SSD rows from
+    ``measure_ssd``). Returns the rows."""
     import dataclasses
 
     import torch
@@ -3272,9 +3335,13 @@ def phase_new_archs(ops, dev, seed, profile=False):
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
 
+    log(f" (a) {ZAMBA}'s Mamba2 mixer: SSD-scan and SSD-step against their plain versions at "
+        "full width")
+    phase_ssd_kernels(ops, dev, seed)
     log(f" (a) {MOE_ARCH} and {ZAMBA} at full width, kernel path vs plain path, f32 and bf16")
     for arch in (MOE_ARCH, ZAMBA):
         model_vs_plain_f32_bf16(ops, get_config(arch), dev, seed)
+    p8_check(get_config(ZAMBA), dev, seed)
     full = get_config(LLAMA4)
     log(f"  {LLAMA4}: {LLAMA4_LAYERS} of {full.num_layers} layers at full width (a dense layer, "
         f"then an MoE layer of all {full.moe.num_experts} experts and the shared expert), bf16")
@@ -3291,7 +3358,352 @@ def phase_new_archs(ops, dev, seed, profile=False):
         torch.cuda.empty_cache()
         log(f"kernels at {arch}'s serving path's shapes")
         rows += main_path_kernel_rows(ops, dev, seed, cfg, lens, launches, per_mode)
+        if mamba_layers(cfg):
+            rows += measure_ssd(ops, dev, seed, int(np.median(lens)), launches, per_mode)
     return rows
+
+
+# Mamba2's SSD mixer (SSD-scan, SSD-step) against its plain versions at
+# zamba2-7b's full width: 112 heads of P = 64, state N = 64, conv window 4.
+SSD_HEADS, SSD_P, SSD_N = 112, 64, 64
+SSD_PIECES = (1, 4, 64, 128, 512)   # the graphed prefill's pieces, from a seeded state
+SSD_FRESH = (742, 777)              # whole prompts from zero, off the kernel's chunk
+# dt = softplus(dt_raw), dt_raw ~ N(mean, std); A = -linspace(1, 16) (zamba2's
+# init): "strong" decays by up to e^-21 a step, "weak" by at most e^-0.04
+SSD_DECAYS = {"default": (0.0, 1.0), "strong": (1.0, 1.0), "weak": (-6.0, 0.5)}
+SSD_STEP_SEQS = ((4, 4), (1, 4))    # (R, B): the merged decode step, one tenant's
+SSD_STEPS = 3                       # successive steps: the shifted windows are read back
+SSD_STEP_FLOPS = 5                  # float32 operations a state element: 2 x, 1 +, 1 FMA
+SSD_PLAIN_SLEEP_CYCLES = 10_000_000  # ~5 ms a call: the plain versions' tens of launches queue
+P8_LAYERS = 6                       # P8's zamba2 cut: 5 Mamba2 layers and the shared attention
+# SSD-scan in float32 against its plain version: the plain version takes the
+# model's chunk of 256 steps, the kernel 64, and exp(cum_l - cum_m) rounds as
+# eps |cum|, which grows with the chunk: on the CPU the plain version at 256
+# is 1.1e-5 of max |y| from a float64 recurrence and at 64 2.9e-6 (8 of
+# zamba2's decay rates over 777 steps, tests/test_torch_kernels_ssd.py). An
+# element may differ by 1e-4 of the largest |value| besides TOL.
+SSD_SCAN_ATOL_OF_MAX = 1e-4
+
+
+def mamba_layers(cfg) -> int:
+    """Layers that run SSD-scan in a prefill and SSD-step in a decode pass
+    (zamba2-7b: 68 of 81)."""
+    from repro_torch.config import BlockKind
+
+    return sum(k == BlockKind.MAMBA2 for k in cfg.layer_pattern)
+
+
+def ssd_scan_inputs(gen, dev, dtype, S, decay="default", state=True):
+    """xh (1, S, H, P) ~ N(0, 1), dt (1, S, H) = softplus(N(mean, std)) of
+    ``decay``, A (H,) = -linspace(1, 16), Bm, Cm (1, S, N) ~ 0.5 N(0, 1),
+    in the scan's dtypes; a seeded state (1, H, P, N) ~ N(0, 1) or None."""
+    import torch
+    import torch.nn.functional as F
+
+    mean, std = SSD_DECAYS[decay]
+    xh = torch.randn((1, S, SSD_HEADS, SSD_P), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((1, S, SSD_HEADS), generator=gen, device=dev) * std + mean)
+    A = -torch.linspace(1.0, 16.0, SSD_HEADS, device=dev)
+    Bm, Cm = ((torch.randn((1, S, SSD_N), generator=gen, device=dev) * 0.5).to(dtype)
+              for _ in range(2))
+    s0 = torch.randn((1, SSD_HEADS, SSD_P, SSD_N), generator=gen, device=dev) if state else None
+    return (xh, dt, A, Bm, Cm), s0
+
+
+def ssd_scan_tol(dtype, want):
+    """(rtol, atol) of a scan check: TOL, and in float32 an atol of
+    SSD_SCAN_ATOL_OF_MAX of the largest |value|."""
+    rtol, atol = TOL[str(dtype)]
+    if str(dtype) != "torch.bfloat16":
+        atol = max(atol, SSD_SCAN_ATOL_OF_MAX * float(want.float().abs().max()))
+    return rtol, atol
+
+
+def ssd_chunk():
+    from repro_torch.config import get_config
+
+    return get_config(ZAMBA).ssm.chunk_size
+
+
+def check_ssd_scan(ops, name, inputs, s0, kernel=None, plain=None):
+    """SSD-scan on ``kernel`` = (inputs, state), by default the plain
+    version's own, against its plain version at the model's chunk (or
+    ``plain``, its result): y and the final state; returns (max error of
+    y, y, state)."""
+    import torch
+
+    xh = inputs[0]
+    want, want_s = plain or ops.ssd_scan_plain(*inputs, ssd_chunk(), init_state=s0)
+    k_inputs, k_s0 = kernel or (inputs, s0)
+    got, got_s = ops.ssd_scan(*k_inputs, ssd_chunk(), init_state=k_s0)
+    torch.cuda.synchronize()
+    err = check_close(f"{name} y", got, want, str(xh.dtype), ssd_scan_tol(xh.dtype, want))
+    check_close(f"{name} final state", got_s, want_s, "torch.float32",
+                ssd_scan_tol(torch.float32, want_s))
+    return err, got, got_s
+
+
+def ssd_step_inputs(gen, dev, dtype, R, B):
+    """zamba2's decode mixer at full width for R tenants x B slots: the
+    tenant-stacked params (conv weights ~ 0.1 N(0, 1), biases ~ 0.1 N(0, 1),
+    A_log = log(linspace(1, 16)), D ~ 1 + 0.2 N(0, 1), dt_bias ~ 0.5 N(0,
+    1), norm ~ 1 + 0.1 N(0, 1)), caches (windows ~ N(0, 1), state ~ N(0, 1))
+    and SSD_STEPS steps' projections (~ N(0, 1)), all seeded."""
+    import torch
+
+    H, P, N, W = SSD_HEADS, SSD_P, SSD_N, 4
+    d = H * P
+
+    def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dt)
+
+    f32 = torch.float32
+    p = {"conv_x_w": rnd(R, W, d, scale=0.1), "conv_x_b": rnd(R, d, scale=0.1),
+         "conv_B_w": rnd(R, W, N, scale=0.1), "conv_B_b": rnd(R, N, scale=0.1),
+         "conv_C_w": rnd(R, W, N, scale=0.1), "conv_C_b": rnd(R, N, scale=0.1),
+         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)).expand(R, H).contiguous(),
+         "D": rnd(R, H, scale=0.2, shift=1.0, dt=f32), "dt_bias": rnd(R, H, scale=0.5, dt=f32),
+         "norm": rnd(R, d, scale=0.1, shift=1.0)}
+    cache = {"conv_x": rnd(R, B, W - 1, d), "conv_B": rnd(R, B, W - 1, N),
+             "conv_C": rnd(R, B, W - 1, N), "ssm": rnd(R, B, H, P, N, dt=f32)}
+    steps = [(rnd(R, B, d), rnd(R, B, d), rnd(R, B, N), rnd(R, B, N), rnd(R, B, H))
+             for _ in range(SSD_STEPS)]
+    return p, cache, steps
+
+
+def ssd_step_run(fn, p, cache, steps, after=None):
+    """SSD_STEPS successive steps of ``fn`` from a copy of ``cache``: each
+    step's y and copies of the caches after it (``after(cache, before)``
+    runs after each step, with the caches' copies from before it)."""
+    import torch
+
+    cache = {k: v.clone() for k, v in cache.items()}
+    out = []
+    for proj in steps:
+        before = {k: v.clone() for k, v in cache.items()}
+        y = fn(p, cache, *proj)
+        if after is not None:
+            after(cache, before)
+        out.append((y, {k: v.clone() for k, v in cache.items()}))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_ssd_steps(name, dtype, got, want):
+    """Each step's y within TOL, the conv windows bitwise equal, the state
+    within TOL in float32; returns the largest error of y."""
+    import torch
+
+    err = 0.0
+    for i, ((y, c), (y_w, c_w)) in enumerate(zip(got, want)):
+        err = max(err, check_close(f"{name} step {i} y", y, y_w, str(dtype)))
+        for k in ("conv_x", "conv_B", "conv_C"):
+            if not torch.equal(c[k], c_w[k]):
+                raise PhaseFailed(f"{name} step {i}: the {k} window differs from the plain "
+                                  "version's")
+        check_close(f"{name} step {i} state", c["ssm"], c_w["ssm"], "torch.float32")
+    return err
+
+
+def phase_ssd_kernels(ops, dev, seed):
+    """(a) SSD-scan and SSD-step against their plain versions at zamba2's
+    full width in float32 and bf16: the scan at the graphed prefill's
+    pieces (SSD_PIECES) from a seeded state and at whole prompts off the
+    chunk (SSD_FRESH) from zero, in three decay regimes; the step over
+    SSD_STEPS successive steps merged (R 4, B 4) and for one tenant (R 1, B
+    4). Two launches give the same bits; two controls of each kernel fail
+    its check."""
+    import torch
+
+    from repro_torch.kernels import ssd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 33)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        for S in SSD_PIECES:
+            inputs, s0 = ssd_scan_inputs(gen, dev, dtype, S)
+            check_ssd_scan(ops, f"ssd_scan {tag} S={S} from a seeded state", inputs, s0)
+        for S in SSD_FRESH:
+            inputs, s0 = ssd_scan_inputs(gen, dev, dtype, S, state=False)
+            _, y, st = check_ssd_scan(ops, f"ssd_scan {tag} S={S} from zero", inputs, s0)
+            check_same_bits(f"ssd_scan {tag} S={S}", (y, st),
+                            lambda: ops.ssd_scan(*inputs, ssd_chunk(), init_state=s0))
+        for decay in ("strong", "weak"):
+            for S, state in ((512, True), (777, False)):
+                inputs, s0 = ssd_scan_inputs(gen, dev, dtype, S, decay, state)
+                check_ssd_scan(ops, f"ssd_scan {tag} S={S} {decay} decay, dt_raw ~ "
+                               f"N{SSD_DECAYS[decay]}, {'seeded' if state else 'zero'} state",
+                               inputs, s0)
+        for R, B in SSD_STEP_SEQS:
+            p, cache, steps = ssd_step_inputs(gen, dev, dtype, R, B)
+            name = f"ssd_step {tag} R={R} B={B}"
+            want = ssd_step_run(ops.ssd_step_plain, p, cache, steps)
+            got = ssd_step_run(ops.ssd_step, p, cache, steps)
+            check_ssd_steps(name, dtype, got, want)
+            again = ssd_step_run(ops.ssd_step, p, cache, steps)
+            check_same_bits(name, [t for y, c in got for t in (y, *c.values())],
+                            lambda: [t for y, c in again for t in (y, *c.values())])
+    log(f"  every scan launch {ssd.SCAN_VARIANT} (chunks of {ssd.CHUNK} steps, "
+        f"{ssd.scan_grid(1, SSD_HEADS, SSD_P)} blocks a sequence), every step launch "
+        f"{ssd.STEP_VARIANT} ({ssd.step_grid(4, 4, SSD_HEADS)} blocks merged)")
+    # the controls, at the serving shapes (bf16): each must fail its check
+    dtype = torch.bfloat16
+    inputs, s0 = ssd_scan_inputs(gen, dev, dtype, 512)
+    plain = ops.ssd_scan_plain(*inputs, ssd_chunk(), init_state=s0)
+    name = "ssd_scan bf16 S=512 from a seeded state"
+    must_fail("the scan continues from a zeroed state",
+              lambda: check_ssd_scan(ops, name, inputs, s0, (inputs, None), plain))
+    xh, dt, A, Bm, Cm = inputs
+    must_fail("B and C swapped", lambda: check_ssd_scan(ops, name, inputs, s0,
+                                                        ((xh, dt, A, Cm, Bm), s0), plain))
+    p, cache, steps = ssd_step_inputs(gen, dev, dtype, 4, 4)
+    want = ssd_step_run(ops.ssd_step_plain, p, cache, steps)
+    name = "ssd_step bf16 R=4 B=4"
+
+    def unshifted(c, before):
+        c["conv_B"].copy_(before["conv_B"])
+        c["conv_C"].copy_(before["conv_C"])
+    must_fail("the B and C windows left unshifted", lambda: check_ssd_steps(
+        name, dtype, ssd_step_run(ops.ssd_step, p, cache, steps, after=unshifted), want))
+    no_d = {**p, "D": torch.zeros_like(p["D"])}
+    must_fail("the D term dropped", lambda: check_ssd_steps(
+        name, dtype, ssd_step_run(ops.ssd_step, no_d, cache, steps), want))
+
+
+def ssd_scan_work(S, given_state, dtype):
+    """(bytes, float32 flops) of a scan over one sequence at zamba2's width:
+    xh and y, B and C in ``dtype``, float32 dt and A read or written once,
+    the state written (and read, when given); the recurrence's 4 P N
+    operations a head-step."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    H, P, N = SSD_HEADS, SSD_P, SSD_N
+    nbytes = S * (2 * H * P * esize + 2 * N * esize + 4 * H) + 4 * H \
+        + (1 + given_state) * 4 * H * P * N
+    return nbytes, 4 * S * H * P * N
+
+
+def ssd_step_work(R, B, dtype, W=4):
+    """(bytes, float32 flops) of the decode mixer of R x B sequences: the
+    state read and written once; z, xs, y, B, C, dt, the windows read and
+    written, the tenants' params read; SSD_STEP_FLOPS a state element."""
+    esize = 2 if "bfloat16" in str(dtype) else 4
+    H, P, N = SSD_HEADS, SSD_P, SSD_N
+    d = H * P
+    nbytes = (2 * 4 * R * B * H * P * N
+              + esize * R * B * (3 * d + 2 * N + H + 2 * (W - 1) * (d + 2 * N))
+              + R * (esize * ((W + 1) * (d + 2 * N) + d) + 3 * 4 * H))
+    return nbytes, SSD_STEP_FLOPS * R * B * H * P * N
+
+
+def measure_ssd(ops, dev, seed, median, launches, per_mode):
+    """The kernels rows of SSD-scan (a 512-token piece from a state, the
+    graphed route's largest; the median whole prompt from zero) and
+    SSD-step (the merged step, one tenant's), bf16: kernel, plain version
+    and bound, with the serving run's launches (both modes for the scan,
+    each step with its own mode's)."""
+    import torch
+
+    from repro_torch.kernels import ssd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 34)
+    dtype = torch.bfloat16
+    rows = []
+    for S, state, what in ((512, True, "a 512-token piece from a state"),
+                           (median, False, f"the median whole prompt ({median}) from zero")):
+        inputs, s0 = ssd_scan_inputs(gen, dev, dtype, S, state=state)
+        err, _, _ = check_ssd_scan(ops, f"ssd_scan bf16 {what}", inputs, s0)
+        ms = time_ms(lambda: ops.ssd_scan(*inputs, ssd_chunk(), init_state=s0), 20)
+        plain_ms = time_ms(lambda: ops.ssd_scan_plain(*inputs, ssd_chunk(), init_state=s0), 3, 1,
+                           SSD_PLAIN_SLEEP_CYCLES)
+        nbytes, flops = ssd_scan_work(S, state, dtype)
+        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+        log(f"    ssd_scan {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} ({plain_ms / ms:.1f}x) "
+            f"library: none bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound="
+            f"{ms / bound_ms:.1f}")
+        rows.append(kernel_row("ssd_scan", f"{ZAMBA} {what}: {SSD_HEADS} heads of P={SSD_P}, "
+                               f"N={SSD_N}, bf16", launches["ssd_scan"], {
+                                   "variant": ssd.SCAN_VARIANT, "max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms, "library_ms": None,
+                                   "bound_ms": bound_ms, "bound_by": bound_by}))
+    for (R, B), mode, per in zip(SSD_STEP_SEQS, ("merged decode (space_time)",
+                                                 "one tenant's decode (time_only)"), per_mode):
+        p, cache, steps = ssd_step_inputs(gen, dev, dtype, R, B)
+        want = ssd_step_run(ops.ssd_step_plain, p, cache, steps[:1])
+        got = ssd_step_run(ops.ssd_step, p, cache, steps[:1])
+        err = check_ssd_steps(f"ssd_step bf16 R={R} B={B}", dtype, got, want)
+        ms = time_ms(lambda: ops.ssd_step(p, cache, *steps[0]), 50)
+        plain_ms = time_ms(lambda: ops.ssd_step_plain(p, cache, *steps[0]), 10, 1,
+                           SSD_PLAIN_SLEEP_CYCLES)
+        nbytes, flops = ssd_step_work(R, B, dtype)
+        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+        log(f"    ssd_step {mode} R={R} B={B}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"({plain_ms / ms:.1f}x) library: none bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"kernel/bound={ms / bound_ms:.1f}")
+        rows.append(kernel_row("ssd_step", f"{ZAMBA} {mode}: R={R} x B={B}, {SSD_HEADS} heads "
+                               f"of P={SSD_P}, N={SSD_N}, bf16", per["ssd_step"], {
+                                   "variant": ssd.STEP_VARIANT, "max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms, "library_ms": None,
+                                   "bound_ms": bound_ms, "bound_by": bound_by}))
+    return rows
+
+
+def p8_check(cfg, dev, seed, layers=P8_LAYERS):
+    """(d) P8: zamba2 at full width and ``layers`` layers (5 Mamba2 and the
+    shared attention block), a prefill of PROMPT_LEN tokens with
+    ``torch.backends.cudnn.allow_tf32`` True gives the same bits, logits
+    and every cache, as with False; so does the causal conv alone at
+    d_inner. Whether ``F.conv1d`` (the conv before the repair) differs
+    between the two settings at the same input is printed beside it."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import build_model, ssm
+
+    cut = dataclasses.replace(cfg, num_layers=layers, block_pattern=cfg.block_pattern[:layers])
+    model = build_model(cut, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 35)
+    params = model.init(gen)
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(rng.randint(1, cut.vocab_size, size=(1, PROMPT_LEN)), device=dev)
+    d_inner = ssm.dims(cut)[0]
+    x = torch.randn((1, PROMPT_LEN, d_inner), generator=gen, device=dev).to(model.dtype)
+    w = (torch.randn((cut.ssm.conv_width, d_inner), generator=gen, device=dev) * 0.1).to(
+        model.dtype)
+    b = torch.zeros(d_inner, dtype=model.dtype, device=dev)
+    W = w.shape[0]
+
+    def conv1d():
+        lhs = F.pad(x.float().transpose(1, 2), (W - 1, 0))
+        return F.conv1d(lhs, w.float().t().unsqueeze(1), groups=d_inner)
+
+    runs = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.no_grad():
+                logits, caches = model.forward_prefill(params, tokens, CACHE_LEN)
+                runs[tf32] = (logits, caches, ssm._causal_conv(x, w, b), conv1d())
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (l0, c0, v0, k0), (l1, c1, v1, k1) = runs[False], runs[True]
+    same = {"logits": torch.equal(l0, l1), "conv": torch.equal(v0, v1),
+            **{name: all(torch.equal(a, b) for a, b in zip(c0[name], c1[name])) for name in c0}}
+    log(f"  P8: {cut.name} at {layers} layers, a {PROMPT_LEN}-token {cut.dtype} prefill with "
+        f"cudnn.allow_tf32 True against False, bitwise: {same}; F.conv1d (the conv before the "
+        f"repair) at d_inner {d_inner}: "
+        + ("bitwise equal" if torch.equal(k0, k1) else
+           f"differs by up to {float((k0 - k1).abs().max()):.3e}"))
+    if not all(same.values()):
+        raise PhaseFailed(f"P8: the prefill depends on cudnn.allow_tf32: {same}")
+    del params, runs
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 8

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Prefills on the card, by route: host wall, kernel time, launches, idle share.
+"""Prefills and decode steps on the card, by route: wall, kernel time, launches, idle share.
 
     python3 experiments/prefill_turns.py                       # zamba2-7b, whole prompts
     python3 experiments/prefill_turns.py --root DIR --arch stablelm-1.6b,rwkv6-1.6b \\
         --routes whole,pieces,graphed
+    python3 experiments/prefill_turns.py --root DIR --routes whole,graphed,decode
 
 Builds each ``--arch`` at full width and depth (bf16, seeded random weights,
 one tenant) from the port under ``DIR/src`` (default: the checkout this
@@ -23,7 +24,16 @@ positions by each route of ``--routes``:
   (``MultiTenantEngine._run_pieces``). Needs a checkout with the piece
   route; its build's capture seconds and pool bytes are reported.
 
-Each route prefills two prompts unmeasured, then every prompt ``--repeats``
+- ``decode``: not a prefill. Four tenants (seeded weights) x 4 slots on
+  the graph route serve the 16 prompts, once in ``space_time`` (the merged
+  decode step) and once in ``time_only`` (each tenant's); after the step
+  that prefills and the one that captures, ``--steps`` steady steps are
+  timed on the host clock to a synchronize, and the step's graphs are
+  replayed back to back ``--steps`` times under CUDA events (the step's
+  device ms; idle share = 1 - device / wall), as ``chip_smoke.py``'s
+  ``graphs`` line times them. One JSON line per mode.
+
+Each prefill route prefills two prompts unmeasured, then every prompt ``--repeats``
 times, each prefill timed on the host clock around a synchronize. One
 prefill of the median prompt runs under ``torch.profiler``: its wall, its
 kernel time and kernel count (device activities), the idle share (1 -
@@ -62,6 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="zamba2-7b", help="comma list")
     ap.add_argument("--routes", default="whole", help="comma list of whole, pieces, graphed")
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=8, help="steady decode steps (route decode)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -78,11 +89,76 @@ def main(argv=None) -> int:
                            capture_output=True, text=True).stdout.strip()
     for arch in args.arch.split(","):
         for route in args.routes.split(","):
-            rec = measure(arch, route, args)
-            rec["card"] = ident
-            print(json.dumps({"prefill_turns": rec}), flush=True)
+            recs = ([measure_decode(arch, mode, args) for mode in ("space_time", "time_only")]
+                    if route == "decode" else [measure(arch, route, args)])
+            for rec in recs:
+                rec["card"] = ident
+                print(json.dumps({"prefill_turns": rec}), flush=True)
             torch.cuda.empty_cache()
     return 0
+
+
+TENANTS = 4
+SLOTS = 4
+SLEEP_CYCLES = 20_000_000  # ~10 ms queued ahead of the timed replays
+
+
+def measure_decode(arch: str, mode: str, args) -> dict:
+    """The graphed decode step of TENANTS x SLOTS in ``mode``: host wall per
+    steady step, the device ms of the step's graphs replayed back to back."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, InferenceRequest, MultiTenantEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    gens = []
+    for t in range(TENANTS):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 1 + t)
+        gens.append(gen)
+    stacked = model.init_stacked(gens)
+    eng = MultiTenantEngine(model, stacked_params=stacked, graphs=True, config=EngineConfig(
+        num_tenants=TENANTS, slots_per_tenant=SLOTS, cache_len=CACHE_LEN, mode=mode))
+    rng = np.random.RandomState(args.seed)
+    lens = rng.randint(128, 1025, size=REQUESTS)
+    for i, n in enumerate(lens):
+        eng.submit(InferenceRequest(tenant_id=i % TENANTS, prompt=rng.randint(
+            1, cfg.vocab_size, size=int(n)).tolist(), max_new_tokens=args.steps + 4))
+    walls = []
+    with torch.no_grad():
+        eng.step()  # every prefill, then the first decode step, eagerly
+        eng.step()  # the capture
+        torch.cuda.synchronize()
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        progs = list(eng.programs.programs.values())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(args.steps):
+            for prog in progs:
+                prog.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / args.steps
+    stats = eng.programs.stats()
+    wall = float(np.median(walls))
+    rec = {"root": args.root, "arch": cfg.name, "route": f"decode {mode}", "tenants": TENANTS,
+           "slots": SLOTS, "programs": len(progs), "steps": args.steps,
+           "wall_ms_p50": wall, "wall_ms_min": float(np.min(walls)),
+           "wall_ms_max": float(np.max(walls)), "graph_device_ms": device_ms,
+           "idle_share": 1 - device_ms / wall, "replays": stats["replays"],
+           "captures": stats["captures"]}
+    del eng, stacked
+    return rec
 
 
 def measure(arch: str, route: str, args) -> dict:

@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("decode_attention", "flash_attention", "batched_gemm", "grouped_gemm", "wkv6_scan",
-           "flash_attention_bwd", "wkv6_scan_bwd", "wkv6_state", "adamw")
+           "flash_attention_bwd", "wkv6_scan_bwd", "wkv6_state", "adamw", "ssd_scan",
+           "ssd_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +74,14 @@ SIGNATURES = {
         # tile0s, partials, done, gnorm, scale, bc1, bc2, lr, b1, c1, b2, c2,
         # eps, wd, stream
         [_I] * 3 + [_L] * 3 + [_P] * 10 + [_F] * 6 + [_P], _I),
+    "ssd_scan": (
+        # xh, dt, A, Bm, Cm, s0, y, s_out, B, S, H, P, N, chunk, dtype, stream
+        [_P] * 8 + [_I] * 7 + [_P], _I),
+    "ssd_step": (
+        # z, xs, Bm, Cm, dt, conv_x_w, conv_x_b, conv_B_w, conv_B_b, conv_C_w,
+        # conv_C_b, A_log, D, dt_bias, norm, conv_x, conv_B, conv_C, ssm, y,
+        # arrivals, R, B, H, P, N, W, dtype, eps, stream
+        [_P] * 21 + [_I] * 7 + [_F, _P], _I),
 }
 REPRO_BAD_ARGUMENT = -1
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,4 +1,4 @@
-"""Dispatch layer over the GEMM, attention, WKV6 and AdamW kernels.
+"""Dispatch layer over the GEMM, attention, WKV6, AdamW and SSD kernels.
 
 Routing is by the device of the tensors, never by a fallback: a CUDA
 tensor goes to the hand-written kernel (which raises on anything it does
@@ -52,6 +52,7 @@ from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import wkv6_scan as _wkv
 from repro_torch.kernels import wkv6_state as _wks
 
@@ -66,6 +67,8 @@ COUNTERS: Dict[str, _build.OpCounter] = {
     "wkv6_scan_bwd": _wkv.bwd_counter,
     "adamw_norm": _aw.norm_counter,
     "adamw_update": _aw.counter,
+    "ssd_scan": _ssd.scan_counter,
+    "ssd_step": _ssd.step_counter,
 }
 
 
@@ -388,6 +391,58 @@ def adamw_update(params, grads, mus, nus, scale, bc1, bc2, lr, *, b1: float, b2:
         _check_plain_device(params[0], "adamw_update")
     return adamw_update_plain(params, grads, mus, nus, scale, bc1, bc2, lr, b1=b1, b2=b2,
                               eps=eps, weight_decay=weight_decay)
+
+
+def ssd_scan_plain(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``ssd_scan``, on any device."""
+    _ssd.scan_counter.plain_calls += 1
+    return ref.ssd_scan(xh, dt, A, Bm, Cm, chunk, init_state)
+
+
+def ssd_scan(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's chunked SSD scan: xh (B, S, H, P), dt (B, S, H) post-softplus,
+    A (H,), Bm and Cm (B, S, N), from ``init_state`` (B, H, P, N) float32
+    (zero if None) -> (y (B, S, H, P) in xh's dtype, the final state float32).
+    ``chunk`` is the model's (the plain version's); the kernel takes its
+    own (``ssd.CHUNK``)."""
+    if not xh.is_cuda:
+        _check_plain_device(xh, "ssd_scan")
+    if _ssd.scan_route(xh.is_cuda, _grad_needed(xh, dt, A, Bm, Cm)) == "kernel":
+        return _ssd.ssd_scan(xh, dt, A, Bm, Cm, init_state)
+    return ssd_scan_plain(xh, dt, A, Bm, Cm, chunk, init_state)
+
+
+def ssd_step_plain(p, cache, z, xs, Bm, Cm, dt) -> torch.Tensor:
+    """The plain version of ``ssd_step``, on any device."""
+    _ssd.step_counter.plain_calls += 1
+    return ref.ssd_step(p, cache, z, xs, Bm, Cm, dt)
+
+
+def ssd_step(p, cache, z, xs, Bm, Cm, dt) -> torch.Tensor:
+    """Mamba2's decode mixer for R tenants x B slots, from the projections
+    (z, xs (R, B, d_inner), Bm, Cm (R, B, N), dt (R, B, H)) to ``out_proj``'s
+    input (R, B, d_inner), over ``p``'s tenant-stacked params; ``cache``'s
+    conv windows and float32 state are updated IN PLACE."""
+    if z.is_cuda:
+        return _ssd.ssd_step(p, cache, z, xs, Bm, Cm, dt)
+    _check_plain_device(z, "ssd_step")
+    return ssd_step_plain(p, cache, z, xs, Bm, Cm, dt)
 
 
 # The decode step is a handful of elementwise ops and one small product per

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GEMM, attention, WKV6 and AdamW kernels.
+"""Plain PyTorch versions of the GEMM, attention, WKV6, AdamW and SSD kernels.
 
 These are the semantic ground truth the CUDA kernels are held against on
 the card, and what ``ops`` runs for tensors that lie on the CPU. They
@@ -15,9 +15,10 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -476,3 +477,118 @@ def adamw_update(
         p32 = p.float()
         delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p32
         p.copy_(p32 - lr * delta)
+
+
+def ssd_scan(
+    xh: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,    # (B, S, H)  post-softplus
+    A: torch.Tensor,     # (H,)       negative
+    Bm: torch.Tensor,    # (B, S, N)
+    Cm: torch.Tensor,    # (B, S, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's chunked SSD scan (the JAX package's jnp ``ssd_scan``) ->
+    (y (B, S, H, P) in xh's dtype, final state (B, H, P, N) float32). S is
+    padded to a multiple of the chunk with dt = 0 (no decay, no input)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    Sp = -(-S // L) * L
+    if Sp != S:
+        pad = Sp - S
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = Sp // L
+
+    la = (dt * A).reshape(B, nc, L, H).float()
+    xbar = (xh * dt[..., None]).reshape(B, nc, L, H, P).float()
+    Bc = Bm.reshape(B, nc, L, N).float()
+    Cc = Cm.reshape(B, nc, L, N).float()
+    cum = la.cumsum(dim=2)                                  # (B, nc, L, H)
+
+    with _full_f32():
+        # intra-chunk: quadratic in L
+        scores = torch.matmul(Cc, Bc.transpose(-1, -2))     # (B, nc, L, M)
+        mask = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()[..., None]
+        rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, L, M, H)
+        # clamp before exp: masked (l < m) entries have rel >> 0 and would overflow
+        rel = torch.where(mask, rel, 0.0)
+        decay = torch.where(mask, torch.exp(rel), 0.0)
+        y_intra = torch.einsum("bclmh,bcmhp->bclhp", scores[..., None] * decay, xbar)
+
+        # per-chunk state contribution and decay
+        last = cum[:, :, -1:, :]                            # (B, nc, 1, H)
+        tail = torch.exp(last - cum)[..., None] * xbar      # (B, nc, L, H, P)
+        chunk_state = torch.einsum("bclhp,bcln->bchpn", tail, Bc)
+        chunk_decay = torch.exp(last[:, :, 0, :])           # (B, nc, H)
+
+        # inter-chunk sequential pass, keeping the state before each chunk
+        state = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+                 if init_state is None else init_state.float())
+        before = []
+        for c in range(nc):
+            before.append(state)
+            state = chunk_decay[:, c, :, None, None] * state + chunk_state[:, c]
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "bcln,bchpn->bclhp", Cc, torch.stack(before, dim=1))
+    y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
+    return y.to(xh.dtype), state
+
+
+SSD_NORM_EPS = 1e-6  # the per-head RMS norm's (the reference's groupnorm_heads default)
+
+
+def ssd_step(
+    p: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],
+    z: torch.Tensor,
+    xs: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    dt: torch.Tensor,
+) -> torch.Tensor:
+    """Mamba2's decode mixer for R tenants x B slots, from the projections
+    to ``out_proj``'s input (the JAX package's jnp ``mamba2_decode``
+    between them): z, xs (R, B, d_inner), Bm, Cm (R, B, N), dt (R, B, H)
+    raw, all in the model dtype; ``p`` the tenant-stacked params (leading R:
+    the conv weights and biases, A_log, D, dt_bias, norm); ``cache``'s ``conv_x`` (R, B, W-1, d_inner), ``conv_B``,
+    ``conv_C`` (R, B, W-1, N) and ``ssm`` (R, B, H, P, N) float32, updated
+    IN PLACE (each conv window shifted by the new input, the state
+    advanced). Returns y (R, B, d_inner) in the model dtype: the conv
+    outputs rounded to it, silu(z) in it, the gated and normed output
+    rounded once."""
+    R, B, d_inner = z.shape
+    H = p["A_log"].shape[-1]
+    P = d_inner // H
+    dtype = z.dtype
+
+    def conv_step(new, name):
+        prev = cache[name]
+        window = torch.cat([prev, new[:, :, None, :].to(prev.dtype)], dim=2)  # (R, B, W, C)
+        w, b = p[f"{name}_w"], p[f"{name}_b"]
+        out = (window.float() * w.float()[:, None]).sum(dim=2)
+        out = F.silu(out + b.float()[:, None]).to(dtype)
+        prev.copy_(window[:, :, 1:])
+        return out
+
+    xc = conv_step(xs, "conv_x")
+    Bc = conv_step(Bm, "conv_B").float()
+    Cc = conv_step(Cm, "conv_C").float()
+    dts = F.softplus(dt.float() + p["dt_bias"][:, None])      # (R, B, H)
+    A = -torch.exp(p["A_log"])[:, None]                        # (R, 1, H)
+    decay = torch.exp(dts * A)
+    xh = xc.reshape(R, B, H, P).float()
+
+    state = cache["ssm"]
+    new = (decay[..., None, None] * state
+           + (dts[..., None] * xh)[..., None] * Bc[:, :, None, None, :])
+    state.copy_(new)
+    with _full_f32():
+        y = torch.matmul(new, Cc[:, :, None, :, None])[..., 0]  # (R, B, H, P)
+    y = y + p["D"][:, None, :, None] * xh
+    g = (y.reshape(R, B, d_inner) * F.silu(z)).reshape(R, B, H, P)
+    g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + SSD_NORM_EPS)
+    return (g.reshape(R, B, d_inner) * p["norm"][:, None]).to(dtype)

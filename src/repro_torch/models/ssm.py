@@ -7,8 +7,11 @@ recurrence per head (state S in R^{P x N}):
     y_t = S_t . C_t + D * x_t
 
 Prefill runs the chunked (SSD) form: quadratic within a chunk, then a
-sequential pass over chunks. It is plain PyTorch, as the reference's is
-jnp (no Pallas kernel).
+sequential pass over chunks (``ops.ssd_scan``); a decode step's mixer,
+from the projections to ``out_proj``'s input, is ``ops.ssd_step``. On the
+card each is a hand-written kernel (``kernels/ssd.py``), elsewhere its
+plain version in ``kernels/ref.py``; the reference's are jnp (no Pallas
+kernel). ``plain=True`` runs the plain versions on any device.
 
 Cache contract per layer: ``conv_x`` (B, W-1, d_inner), ``conv_B`` and
 ``conv_C`` (B, W-1, N), the last W-1 raw inputs of each depthwise causal
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 Params = Dict[str, torch.Tensor]
@@ -83,11 +87,21 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, object]]:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv in float32. x (B, S, C), w (W, C) -> (B, S, C)."""
+    """Depthwise causal conv in float32. x (B, S, C), w (W, C) -> (B, S, C),
+    contiguous.
+
+    W shifted multiply-adds, in the order of the sum over the window: no
+    cuDNN call, so nothing on the card runs it in TF32
+    (``cudnn.allow_tf32``). The kernel is read as the reference lays it out,
+    (C, W)."""
     W, C = w.shape
-    lhs = F.pad(x.float().transpose(1, 2), (W - 1, 0))      # (B, C, W-1+S)
-    out = F.conv1d(lhs, w.float().t().unsqueeze(1), groups=C)
-    return (out.transpose(1, 2) + b.float()).to(x.dtype)
+    S = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, W - 1, 0))                  # (B, W-1+S, C)
+    wt = w.float().t()                                       # (C, W)
+    out = xp[:, :S] * wt[:, 0]
+    for k in range(1, W):
+        out = out + xp[:, k:k + S] * wt[:, k]
+    return (out + b.float()).to(x.dtype)
 
 
 def ssd_scan(
@@ -100,52 +114,9 @@ def ssd_scan(
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (B, S, H, P) in xh's dtype, final state
-    (B, H, P, N) float32). S is padded to a multiple of the chunk with
-    dt = 0 (no decay, no input)."""
-    B, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    L = min(chunk, S)
-    Sp = -(-S // L) * L
-    if Sp != S:
-        pad = Sp - S
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    nc = Sp // L
-
-    la = (dt * A).reshape(B, nc, L, H).float()
-    xbar = (xh * dt[..., None]).reshape(B, nc, L, H, P).float()
-    Bc = Bm.reshape(B, nc, L, N).float()
-    Cc = Cm.reshape(B, nc, L, N).float()
-    cum = la.cumsum(dim=2)                                  # (B, nc, L, H)
-
-    # intra-chunk: quadratic in L
-    scores = torch.matmul(Cc, Bc.transpose(-1, -2))         # (B, nc, L, M)
-    mask = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()[..., None]
-    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, nc, L, M, H)
-    # clamp before exp: masked (l < m) entries have rel >> 0 and would overflow
-    rel = torch.where(mask, rel, 0.0)
-    decay = torch.where(mask, torch.exp(rel), 0.0)
-    y_intra = torch.einsum("bclmh,bcmhp->bclhp", scores[..., None] * decay, xbar)
-
-    # per-chunk state contribution and decay
-    last = cum[:, :, -1:, :]                                # (B, nc, 1, H)
-    tail = torch.exp(last - cum)[..., None] * xbar          # (B, nc, L, H, P)
-    chunk_state = torch.einsum("bclhp,bcln->bchpn", tail, Bc)
-    chunk_decay = torch.exp(last[:, :, 0, :])               # (B, nc, H)
-
-    # inter-chunk sequential pass, keeping the state before each chunk
-    state = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
-             if init_state is None else init_state.float())
-    before = []
-    for c in range(nc):
-        before.append(state)
-        state = chunk_decay[:, c, :, None, None] * state + chunk_state[:, c]
-    y_inter = torch.exp(cum)[..., None] * torch.einsum(
-        "bcln,bchpn->bclhp", Cc, torch.stack(before, dim=1))
-    y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
-    return y.to(xh.dtype), state
+    (B, H, P, N) float32), by ``ops.ssd_scan``: the kernel on the card (its
+    own chunk length), ``ref.ssd_scan`` at ``chunk`` elsewhere."""
+    return ops.ssd_scan(xh, dt, A, Bm, Cm, chunk, init_state=init_state)
 
 
 def _project(p: Params, x: torch.Tensor):
@@ -159,12 +130,13 @@ def mamba2_forward(
     cfg: ModelConfig,
     init_cache_state: Optional[Cache] = None,
     return_cache: bool = True,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Prefill forward of x (B, S, d) -> (out (B, S, d), the caches after
     the last token). ``init_cache_state``: a continuation, from a previous
     chunk's conv tails and SSM state (read, not written).
     ``return_cache=False`` is the train mode: from zero state, no caches
-    (None in their place)."""
+    (None in their place). ``plain``: the scan's plain version."""
     d_inner, H, P, N = dims(cfg)
     B, S, _ = x.shape
     W = cfg.ssm.conv_width
@@ -191,8 +163,9 @@ def mamba2_forward(
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, S, H, P)
-    y, final_state = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size,
-                              init_state=None if hist is None else hist["ssm"])
+    scan = ops.ssd_scan_plain if plain else ops.ssd_scan
+    y, final_state = scan(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size,
+                          init_state=None if hist is None else hist["ssm"])
     y = y + p["D"][:, None] * xh.float()
     # back to the residual dtype before the gated norm, as the reference
     y = y.reshape(B, S, d_inner).to(x.dtype)
@@ -205,36 +178,13 @@ def mamba2_forward(
     return out, cache
 
 
-def mamba2_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache) -> torch.Tensor:
+def mamba2_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache,
+                  plain: bool = False) -> torch.Tensor:
     """One token for R tenants x B slots: x (R, B, d), params with a
-    leading R, cache leaves (R, B, ...) updated in place -> out (R, B, d)."""
-    d_inner, H, P, N = dims(cfg)
-    R, B, _ = x.shape
+    leading R, cache leaves (R, B, ...) updated in place -> out (R, B, d).
+    The mixer between the projections and ``out_proj`` is one
+    ``ops.ssd_step`` (``plain``: its plain version)."""
     z, xs_raw, Bm_raw, Cm_raw, dt_raw = _project(p, x)
-
-    def conv_step(new, name):
-        prev = cache[name]
-        window = torch.cat([prev, new[:, :, None, :].to(prev.dtype)], dim=2)  # (R, B, W, C)
-        w, b = p[f"{name}_w"], p[f"{name}_b"]
-        out = (window.float() * w.float()[:, None]).sum(dim=2)
-        out = F.silu(out + b.float()[:, None]).to(x.dtype)
-        prev.copy_(window[:, :, 1:])
-        return out
-
-    xs = conv_step(xs_raw, "conv_x")
-    Bm = conv_step(Bm_raw, "conv_B").float()
-    Cm = conv_step(Cm_raw, "conv_C").float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"][:, None])   # (R, B, H)
-    A = -torch.exp(p["A_log"])[:, None]                        # (R, 1, H)
-    decay = torch.exp(dt * A)
-    xh = xs.reshape(R, B, H, P).float()
-
-    state = cache["ssm"]
-    new = (decay[..., None, None] * state
-           + (dt[..., None] * xh)[..., None] * Bm[:, :, None, None, :])
-    state.copy_(new)
-    y = torch.matmul(new, Cm[:, :, None, :, None])[..., 0]    # (R, B, H, P)
-    y = y + p["D"][:, None, :, None] * xh
-    y = y.reshape(R, B, d_inner)
-    y = layers.groupnorm_heads(y * F.silu(z), H) * p["norm"][:, None]
-    return torch.matmul(y.to(x.dtype), p["out_proj"])
+    step = ops.ssd_step_plain if plain else ops.ssd_step
+    y = step(p, cache, z, xs_raw, Bm_raw, Cm_raw, dt_raw)
+    return torch.matmul(y, p["out_proj"])

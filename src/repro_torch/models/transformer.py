@@ -118,7 +118,8 @@ class Model:
     """Config + device + pure apply functions (params are external).
 
     ``plain_kernels=True`` runs every kernel's op (attention, the WKV6
-    scan) through its plain PyTorch version on any device: the opt-in used
+    scan and state, Mamba2's SSD scan and step) through its plain PyTorch
+    version on any device: the opt-in used
     to hold the kernel path against the plain path on the card (in training,
     autograd then differentiates the plain versions).
 
@@ -308,7 +309,8 @@ class Model:
             return rwkv.rwkv_train(lp, x, cfg, self.plain), aux
         if kind == BlockKind.MAMBA2:
             h = layers.rmsnorm(lp["norm"]["scale"], x, cfg.norm_eps)
-            y, _ = ssm.mamba2_forward(lp["mamba"], h, cfg, return_cache=False)
+            # the plain scan: SSD-scan has no backward kernel yet (ROADMAP Queue 2)
+            y, _ = ssm.mamba2_forward(lp["mamba"], h, cfg, return_cache=False, plain=True)
             return x + y, aux
         h = layers.rmsnorm(lp["norm1"]["scale"], x, cfg.norm_eps)
         x = x + attention.attn_forward(lp["attn"], h, cfg, self.kinds[i], rope, self.plain)
@@ -419,7 +421,8 @@ class Model:
                 continue
             if kind == BlockKind.MAMBA2:
                 h = layers.rmsnorm(lp["norm"]["scale"], x, cfg.norm_eps)
-                y, new = ssm.mamba2_forward(lp["mamba"], h, cfg, None if fresh else c)
+                y, new = ssm.mamba2_forward(lp["mamba"], h, cfg, None if fresh else c,
+                                            plain=self.plain)
                 for name, t in new.items():
                     c[name].copy_(t)
                 x = x + y
@@ -464,7 +467,7 @@ class Model:
                 continue
             if kind == BlockKind.MAMBA2:
                 h = layers.rmsnorm(lp["norm"]["scale"][:, None, :], x, cfg.norm_eps)
-                x = x + ssm.mamba2_decode(lp["mamba"], h, cfg, c)
+                x = x + ssm.mamba2_decode(lp["mamba"], h, cfg, c, self.plain)
                 continue
             h = layers.rmsnorm(lp["norm1"]["scale"][:, None, :], x, cfg.norm_eps)
             x = x + attention.attn_decode(

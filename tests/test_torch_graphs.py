@@ -366,8 +366,10 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
     """Phase 7b's serving of zamba2 (Mamba2 state and a shared attention
     block) at smoke width on the CPU, every engine on the graph route with
     ``ModelShare`` for the card: the main path's eager-once-then-replays
-    check, and ``graph_checks`` (graphed against eager in lockstep, both
-    controls caught) in both modes, into the ``graphs`` line."""
+    check, the launch counts (the attention kernels and SSD-scan and
+    SSD-step stood in for by counting plain versions), and
+    ``graph_checks`` (graphed against eager in lockstep, both controls
+    caught) in both modes, into the ``graphs`` line."""
     import dataclasses
     import json
     from pathlib import Path
@@ -380,7 +382,7 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
     from repro_torch.config import smoke_variant
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, ssd
     from repro_torch.serving import engine as engine_mod
 
     for name in ("synchronize", "_sleep", "empty_cache", "reset_peak_memory_stats"):
@@ -402,8 +404,17 @@ def test_phase_serving_graph_checks_rehearsed(monkeypatch):
             kernel or da.variant(q.dtype, q.shape[-1], q.shape[1] // kc.shape[1]))
         return ref.decode_attention(q, kc, vc, lengths, scale=scale)
 
+    def scan(xh, dt, A, Bm, Cm, chunk, init_state=None):
+        ssd.scan_counter.launched(ssd.SCAN_VARIANT)
+        return ref.ssd_scan(xh, dt, A, Bm, Cm, chunk, init_state)
+
+    def step(p, cache, z, xs, Bm, Cm, dt):
+        ssd.step_counter.launched(ssd.STEP_VARIANT)
+        return ref.ssd_step(p, cache, z, xs, Bm, Cm, dt)
+
     for mod, name, fn in ((ops, "flash_attention", flash), (fa, "flash_attention", flash),
-                          (ops, "decode_attention", decode), (da, "decode_attention", decode)):
+                          (ops, "decode_attention", decode), (da, "decode_attention", decode),
+                          (ops, "ssd_scan", scan), (ops, "ssd_step", step)):
         monkeypatch.setattr(mod, name, fn)
     # the graph route on the CPU, with the card's two calls stood in for:
     # the engine's build captures its prefill programs (their stand-in

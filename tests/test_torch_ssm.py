@@ -6,7 +6,8 @@ that is not a multiple of the chunk, from a zero and from a given state;
 the depthwise causal conv; the block's prefill whole, and split in two
 chunks that continue from the first chunk's conv tails and SSM state; and
 the one-token decode step over a tenant axis, continuing from a prefill's
-caches.
+caches; and a 4-layer zamba2-shaped model through ``ops`` against its
+``plain_kernels`` twin.
 """
 
 import dataclasses
@@ -24,7 +25,8 @@ from repro.config import smoke_variant as jsmoke  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 
 from repro_torch.config import get_config, smoke_variant  # noqa: E402
-from repro_torch.models import ssm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import build_model, ssm  # noqa: E402
 
 RTOL = ATOL = 1e-4
 
@@ -181,3 +183,43 @@ def test_param_and_cache_specs_match_the_jax_init():
     for name, (shape, dt) in ssm.cache_specs(tcfg).items():
         assert (3,) + shape == jc[name].shape
         assert (dt is None) == (jc[name].dtype == jnp.bfloat16)
+
+
+def test_plain_kernels_model_is_bitwise_the_default_one_on_the_cpu():
+    """zamba2's smoke variant at 4 layers (2 Mamba2, 2 shared attention):
+    with ``plain_kernels`` False (``ops.ssd_scan`` / ``ops.ssd_step``, which
+    route a CPU tensor to the plain versions) and True (the plain versions
+    named), a whole prefill, a two-piece prefill and 3 decode steps give
+    bitwise-equal logits and caches; every SSD call of either model is a
+    plain call, one a Mamba2 layer a prefill pass or decode step."""
+    cfg = smoke_variant(get_config("zamba2-7b"), num_layers=4)
+    n_mamba = sum(k.name == "MAMBA2" for k in cfg.layer_pattern)
+    models = [build_model(cfg, device="cpu", plain_kernels=plain) for plain in (False, True)]
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    params = models[0].init(gen)
+    tok = torch.randint(1, cfg.vocab_size, (1, 37), generator=gen)
+    runs = []
+    ops.reset_counters()
+    with torch.no_grad():
+        for model in models:
+            out = {}
+            out["whole"], caches = model.forward_prefill(params, tok, 64)
+            _, cc = model.forward_prefill(params, tok[:, :20], 64)
+            out["pieces"], cc = model.forward_prefill(params, tok[:, 20:], 64, caches=cc, start=20)
+            lengths = torch.tensor([37])
+            for step in range(3):
+                out[f"step {step}"], caches = model.forward_decode(params, tok[:, step], caches,
+                                                                   lengths)
+                lengths = lengths + 1
+            runs.append((out, caches, cc))
+    (a, ca, pa), (b, cb, pb) = runs
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for x, y in ((ca, cb), (pa, pb)):
+        for name in x:
+            assert all(torch.equal(u, v) for u, v in zip(x[name], y[name])), name
+    scan, step = ops.COUNTERS["ssd_scan"], ops.COUNTERS["ssd_step"]
+    assert (scan.launches, step.launches) == (0, 0)
+    assert scan.plain_calls == 2 * 3 * n_mamba and step.plain_calls == 2 * 3 * n_mamba
+    ops.reset_counters()
