@@ -98,12 +98,14 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      GB in bf16), kernel path against plain path; (b) serves the 16
      requests of phase 3 for four granite-moe tenants (10.7 GB) and four
      zamba2 tenants (45.9 GB, 8.2 GB of caches) in both modes, with their
-     kernels rows. Before (a), zamba2's Mamba2 mixer: SSD-scan against its
-     plain version at the graphed prefill's pieces (1-512 tokens) from a
+     kernels rows. Before (a), zamba2's Mamba2 mixer: SSD-scan (its
+     tensor-core kernel, ``mma``) against its plain version at the graphed
+     prefill's pieces (1-512 tokens) from a
      seeded state and at whole prompts (742, 777) from zero, in three decay
      regimes, SSD-step over 3 successive steps merged (R 4 x B 4) and for
-     one tenant (R 1), float32 and bf16, two launches the same bits, two
-     controls of each that must fail; (a)'s plain path runs their plain
+     one tenant (R 1), float32 and bf16, two launches the same bits, the
+     controls that must fail (SSD-scan's three: a zeroed state, B and C
+     swapped, the chunk chain cut; SSD-step's two); (a)'s plain path runs their plain
      versions, and P8 holds a 6-layer zamba2 prefill bitwise under
      ``cudnn.allow_tf32`` True against False; (b) counts SSD-scan once per
      Mamba2 layer (68) per prefill piece (and per eager whole prompt) and
@@ -281,8 +283,10 @@ timed at, its launches by variant, and ``prior_ms``: the previous kernel's
 time at the same inputs (K1: its first, CUDA-core kernel; K2, K4: the
 CUDA-core variant; K3: split_kv where the rule takes mma, else its first,
 single-pass kernel, null at D = 112, where it has no instance; K5: its first, sequential
-kernel; K5-state: the chunked K5 with float32 w, the launch it replaces), launched
-explicitly. Kernel times are device times of back-to-back
+kernel; K5-state: the chunked K5 with float32 w, the launch it replaces;
+SSD-scan: its first, CUDA-core kernel, whose rows also carry both terms of
+its bound, the operations at the CUDA cores' rate beside them, and the
+kernel's ratio to each), launched explicitly. Kernel times are device times of back-to-back
 launches queued behind a sleep kernel, so the host's launch cost does not pace
 them. The build prints ptxas's report for every kernel, the dynamic shared
 memory of the wgmma kernels, K3's ring and K5's chunked kernel, and how many
@@ -357,7 +361,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = {"torch.bfloat16": 989e12,    # dense bf16 tensor cores
-              "torch.float32": 67e12}      # float32 outside the tensor cores
+              "torch.float32": 67e12,      # float32 outside the tensor cores
+              "tf32": 495e12}              # dense TF32 tensor cores
 # f32: the JAX kernel tests' own tolerance; only the order of float32 sums
 # differs between kernel and plain version.
 # bf16: both compute in float32 from the same bf16 inputs, then round the
@@ -3375,6 +3380,7 @@ SSD_STEP_SEQS = ((4, 4), (1, 4))    # (R, B): the merged decode step, one tenant
 SSD_STEPS = 3                       # successive steps: the shifted windows are read back
 SSD_STEP_FLOPS = 5                  # float32 operations a state element: 2 x, 1 +, 1 FMA
 SSD_PLAIN_SLEEP_CYCLES = 10_000_000  # ~5 ms a call: the plain versions' tens of launches queue
+SSD_TIMED_PIECES = (1, 64, 512)     # SSD-scan's rows: pieces from a state, then the median prompt
 P8_LAYERS = 6                       # P8's zamba2 cut: 5 Mamba2 layers and the shared attention
 # SSD-scan in float32 against its plain version: the plain version takes the
 # model's chunk of 256 steps, the kernel 64, and exp(cum_l - cum_m) rounds as
@@ -3505,18 +3511,64 @@ def check_ssd_steps(name, dtype, got, want):
     return err
 
 
+def ssd_scan_chain_cut(ops, inputs):
+    """A control: SSD-scan over CHUNK-step slices of ``inputs``, each from
+    zero, y concatenated and the last slice's state: the chunk chain cut."""
+    import torch
+
+    from repro_torch.kernels import ssd
+
+    xh, dt, A, Bm, Cm = inputs
+    ys, state = [], None
+    for c0 in range(0, xh.shape[1], ssd.CHUNK):
+        cut = slice(c0, c0 + ssd.CHUNK)
+        y, state = ops.ssd_scan(xh[:, cut].contiguous(), dt[:, cut].contiguous(), A,
+                                Bm[:, cut].contiguous(), Cm[:, cut].contiguous(), ssd_chunk())
+        ys.append(y)
+    return torch.cat(ys, 1), state
+
+
+def check_ssd_scan_fit(ssd):
+    """The built library's shared memory a block of ``ssd.SCAN_VARIANT``,
+    by dtype, against the wrapper's mirror (``ssd.scan_smem_bytes``), and
+    the one-wave rule: the card holds zamba2's one-sequence grid
+    (``ssd.scan_grid``) at once in both dtypes."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ssd_scan")
+    grid = ssd.scan_grid(1, SSD_HEADS, SSD_P)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    code = ssd.SCAN_VARIANT_CODES[ssd.SCAN_VARIANT]
+    fits = []
+    for dtype in (torch.float32, torch.bfloat16):
+        got = lib.repro_ssd_scan_smem(code, _build.DTYPE_CODES[dtype])
+        if got != ssd.scan_smem_bytes(dtype):
+            raise PhaseFailed(f"ssd_scan {dtype}: {got} bytes of shared memory a block, the "
+                              f"wrapper says {ssd.scan_smem_bytes(dtype)}")
+        per_sm = lib.repro_ssd_scan_blocks_per_sm(code, _build.DTYPE_CODES[dtype])
+        if per_sm * sms < grid:
+            raise PhaseFailed(f"ssd_scan {dtype}: {per_sm} blocks an SM x {sms} SMs hold fewer "
+                              f"than the {grid} blocks of one sequence")
+        fits.append(f"{str(dtype)[6:]} {got} bytes, {per_sm} blocks an SM")
+    log(f"  ssd_scan {ssd.SCAN_VARIANT} a block: {'; '.join(fits)} ({grid} blocks a sequence, "
+        f"{sms} SMs: one wave)")
+
+
 def phase_ssd_kernels(ops, dev, seed):
     """(a) SSD-scan and SSD-step against their plain versions at zamba2's
     full width in float32 and bf16: the scan at the graphed prefill's
     pieces (SSD_PIECES) from a seeded state and at whole prompts off the
     chunk (SSD_FRESH) from zero, in three decay regimes; the step over
     SSD_STEPS successive steps merged (R 4, B 4) and for one tenant (R 1, B
-    4). Two launches give the same bits; two controls of each kernel fail
-    its check."""
+    4). Two launches give the same bits; three controls of the scan and two
+    of the step fail their checks."""
     import torch
 
     from repro_torch.kernels import ssd
 
+    check_ssd_scan_fit(ssd)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 33)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3544,9 +3596,9 @@ def phase_ssd_kernels(ops, dev, seed):
             again = ssd_step_run(ops.ssd_step, p, cache, steps)
             check_same_bits(name, [t for y, c in got for t in (y, *c.values())],
                             lambda: [t for y, c in again for t in (y, *c.values())])
-    log(f"  every scan launch {ssd.SCAN_VARIANT} (chunks of {ssd.CHUNK} steps, "
-        f"{ssd.scan_grid(1, SSD_HEADS, SSD_P)} blocks a sequence), every step launch "
-        f"{ssd.STEP_VARIANT} ({ssd.step_grid(4, 4, SSD_HEADS)} blocks merged)")
+    log(f"  every scan launch {ssd.SCAN_VARIANT} (chunks of {ssd.CHUNK} steps, strips of "
+        f"{ssd.TILE} rows, {ssd.scan_grid(1, SSD_HEADS, SSD_P)} blocks a sequence), every step "
+        f"launch {ssd.STEP_VARIANT} ({ssd.step_grid(4, 4, SSD_HEADS)} blocks merged)")
     # the controls, at the serving shapes (bf16): each must fail its check
     dtype = torch.bfloat16
     inputs, s0 = ssd_scan_inputs(gen, dev, dtype, 512)
@@ -3557,6 +3609,17 @@ def phase_ssd_kernels(ops, dev, seed):
     xh, dt, A, Bm, Cm = inputs
     must_fail("B and C swapped", lambda: check_ssd_scan(ops, name, inputs, s0,
                                                         ((xh, dt, A, Cm, Bm), s0), plain))
+    inputs, _ = ssd_scan_inputs(gen, dev, dtype, SSD_FRESH[0], state=False)
+    want, want_s = ops.ssd_scan_plain(*inputs, ssd_chunk())
+    name = f"ssd_scan bf16 S={SSD_FRESH[0]} from zero"
+
+    def chain_cut():
+        got, got_s = ssd_scan_chain_cut(ops, inputs)
+        torch.cuda.synchronize()
+        check_close(f"{name} y", got, want, "torch.bfloat16", ssd_scan_tol(dtype, want))
+        check_close(f"{name} final state", got_s, want_s, "torch.float32",
+                    ssd_scan_tol(torch.float32, want_s))
+    must_fail(f"the chunk chain cut ({ssd.CHUNK}-step slices, each from zero)", chain_cut)
     p, cache, steps = ssd_step_inputs(gen, dev, dtype, 4, 4)
     want = ssd_step_run(ops.ssd_step_plain, p, cache, steps)
     name = "ssd_step bf16 R=4 B=4"
@@ -3575,12 +3638,29 @@ def ssd_scan_work(S, given_state, dtype):
     """(bytes, float32 flops) of a scan over one sequence at zamba2's width:
     xh and y, B and C in ``dtype``, float32 dt and A read or written once,
     the state written (and read, when given); the recurrence's 4 P N
-    operations a head-step."""
+    operations a head-step (priced by ``ssd_scan_bound``)."""
     esize = 2 if "bfloat16" in str(dtype) else 4
     H, P, N = SSD_HEADS, SSD_P, SSD_N
     nbytes = S * (2 * H * P * esize + 2 * N * esize + 4 * H) + 4 * H \
         + (1 + given_state) * 4 * H * P * N
     return nbytes, 4 * S * H * P * N
+
+
+def ssd_scan_bound(S, given_state, dtype):
+    """SSD-scan's bound from ``ssd_scan_work``: the larger of its bytes at
+    the memory rate and its operations at the rate of the tensor-core
+    products the kernel runs them as, float32-accurate TF32 passes (the
+    TF32 rate over 3 for 3xTF32; over 2 in a bf16 model, where every
+    product of the recurrence has a bf16 operand, exact in TF32). Returns
+    (bound_ms, bound_by, bytes_ms, operations_ms, and the operations at the
+    CUDA cores' float32 rate, which the first kernel runs them at)."""
+    nbytes, flops = ssd_scan_work(S, given_state, dtype)
+    passes = 2 if "bfloat16" in str(dtype) else 3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops * passes / PEAK_FLOPS["tf32"] * 1e3
+    cuda_core_ms = flops / PEAK_FLOPS["torch.float32"] * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, cuda_core_ms
 
 
 def ssd_step_work(R, B, dtype, W=4):
@@ -3597,11 +3677,13 @@ def ssd_step_work(R, B, dtype, W=4):
 
 
 def measure_ssd(ops, dev, seed, median, launches, per_mode):
-    """The kernels rows of SSD-scan (a 512-token piece from a state, the
-    graphed route's largest; the median whole prompt from zero) and
+    """The kernels rows of SSD-scan (pieces of SSD_TIMED_PIECES tokens from
+    a state, the graphed route's; the median whole prompt from zero) and
     SSD-step (the merged step, one tenant's), bf16: kernel, plain version
-    and bound, with the serving run's launches (both modes for the scan,
-    each step with its own mode's)."""
+    and bound (SSD-scan's both terms, ``ssd_scan_bound``), SSD-scan's first
+    kernel (``cuda_core``, checked, then timed as ``prior_ms``), with the
+    serving run's launches (both modes for the scan, each step with its own
+    mode's)."""
     import torch
 
     from repro_torch.kernels import ssd
@@ -3610,23 +3692,43 @@ def measure_ssd(ops, dev, seed, median, launches, per_mode):
     gen.manual_seed(seed + 34)
     dtype = torch.bfloat16
     rows = []
-    for S, state, what in ((512, True, "a 512-token piece from a state"),
-                           (median, False, f"the median whole prompt ({median}) from zero")):
+    scans = [(S, True, f"a {S}-token piece from a state") for S in SSD_TIMED_PIECES]
+    for S, state, what in scans + [(median, False, f"the median whole prompt ({median}) from "
+                                                   "zero")]:
         inputs, s0 = ssd_scan_inputs(gen, dev, dtype, S, state=state)
-        err, _, _ = check_ssd_scan(ops, f"ssd_scan bf16 {what}", inputs, s0)
+        name = f"ssd_scan bf16 {what}"
+        err, _, _ = check_ssd_scan(ops, name, inputs, s0)
+        prior = lambda: ssd.scan_prior(*inputs, init_state=s0)  # noqa: E731
+        p_y, p_s = prior()
+        want, want_s = ops.ssd_scan_plain(*inputs, ssd_chunk(), init_state=s0)
+        torch.cuda.synchronize()
+        check_close(f"{name} (cuda_core) y", p_y, want, "torch.bfloat16", ssd_scan_tol(dtype, want))
+        check_close(f"{name} (cuda_core) final state", p_s, want_s, "torch.float32",
+                    ssd_scan_tol(torch.float32, want_s))
         ms = time_ms(lambda: ops.ssd_scan(*inputs, ssd_chunk(), init_state=s0), 20)
+        prior_ms = time_ms(prior, 20)
         plain_ms = time_ms(lambda: ops.ssd_scan_plain(*inputs, ssd_chunk(), init_state=s0), 3, 1,
                            SSD_PLAIN_SLEEP_CYCLES)
-        nbytes, flops = ssd_scan_work(S, state, dtype)
-        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
-        log(f"    ssd_scan {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} ({plain_ms / ms:.1f}x) "
-            f"library: none bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound="
-            f"{ms / bound_ms:.1f}")
+        bound_ms, bound_by, bytes_ms, ops_ms, cuda_core_ms = ssd_scan_bound(S, state, dtype)
+        chunks, strips = ssd.scan_tiles(S)
+        log(f"    ssd_scan {what} ({chunks} chunks, {strips} strips in the last): ms={ms:.4f} "
+            f"prior_ms={prior_ms:.4f} (cuda_core, {prior_ms / ms:.2f}x) plain_ms={plain_ms:.4f} "
+            f"({plain_ms / ms:.1f}x) library: none bound_ms={bound_ms:.4f} ({bound_by}; bytes "
+            f"{bytes_ms:.4f}, operations {ops_ms:.4f} on TF32 tensor cores, {cuda_core_ms:.4f} "
+            f"on CUDA cores) kernel/bound={ms / bound_ms:.2f} kernel/bytes={ms / bytes_ms:.2f} "
+            f"kernel/operations={ms / ops_ms:.2f} kernel/cuda-core operations="
+            f"{ms / cuda_core_ms:.2f}")
         rows.append(kernel_row("ssd_scan", f"{ZAMBA} {what}: {SSD_HEADS} heads of P={SSD_P}, "
                                f"N={SSD_N}, bf16", launches["ssd_scan"], {
                                    "variant": ssd.SCAN_VARIANT, "max_abs_err": err, "ms": ms,
+                                   "prior": "ssd_scan cuda_core", "prior_ms": prior_ms,
                                    "plain_ms": plain_ms, "library_ms": None,
-                                   "bound_ms": bound_ms, "bound_by": bound_by}))
+                                   "bound_ms": bound_ms, "bound_by": bound_by,
+                                   "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+                                   "operations_cuda_core_ms": cuda_core_ms,
+                                   "ms_over_bytes": ms / bytes_ms,
+                                   "ms_over_operations": ms / ops_ms,
+                                   "ms_over_operations_cuda_core": ms / cuda_core_ms}))
     for (R, B), mode, per in zip(SSD_STEP_SEQS, ("merged decode (space_time)",
                                                  "one tenant's decode (time_only)"), per_mode):
         p, cache, steps = ssd_step_inputs(gen, dev, dtype, R, B)

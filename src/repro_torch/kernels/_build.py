@@ -75,8 +75,9 @@ SIGNATURES = {
         # eps, wd, stream
         [_I] * 3 + [_L] * 3 + [_P] * 10 + [_F] * 6 + [_P], _I),
     "ssd_scan": (
-        # xh, dt, A, Bm, Cm, s0, y, s_out, B, S, H, P, N, chunk, dtype, stream
-        [_P] * 8 + [_I] * 7 + [_P], _I),
+        # xh, dt, A, Bm, Cm, s0, y, s_out, B, S, H, P, N, chunk, dtype,
+        # variant, stream
+        [_P] * 8 + [_I] * 8 + [_P], _I),
     "ssd_step": (
         # z, xs, Bm, Cm, dt, conv_x_w, conv_x_b, conv_B_w, conv_B_b, conv_C_w,
         # conv_C_b, A_log, D, dt_bias, norm, conv_x, conv_B, conv_C, ssm, y,

@@ -14,7 +14,14 @@ tensors.
   (``CHUNK`` for every S, whatever the model's ``chunk_size``: the chunked
   form equals the recurrence up to rounding; the last chunk is masked past
   S, which is not padded in memory) and one block per (sequence, head, slice
-  of ``P_SLICE`` channels) (``scan_grid``). There is no backward kernel:
+  of ``P_SLICE`` channels) (``scan_grid``). Two kernels: ``mma``
+  (``SCAN_VARIANT``, every call on the path), its chunk products on the
+  tensor cores (the Gram of bf16 B and C in bf16, every product with a
+  float32 operand 3xTF32, never single-pass TF32), four warps a strip of
+  ``TILE`` rows each and four the state, the next chunk staged by
+  cp.async; and ``cuda_core``, the first kernel (float32 FMAs), which only
+  ``scan_prior`` launches (``chip_smoke.py``'s ``prior_ms``). There is no
+  backward kernel:
   ``scan_route`` sends a CUDA call that needs a gradient nowhere (it
   raises), and the train block calls the plain version itself.
 - ``ssd_step``: one token for R tenants x B slots from the projections'
@@ -36,10 +43,14 @@ from repro_torch.kernels import _build, ref
 
 scan_counter = _build.OpCounter()
 step_counter = _build.OpCounter()
-SCAN_VARIANT = "chunked"  # SSD-scan: chunks of CHUNK steps, a block a (sequence, head, slice)
+SCAN_VARIANT = "mma"      # SSD-scan on the path: its chunk products on the tensor cores
 STEP_VARIANT = "fused"    # SSD-step: a block a (sequence, head), one launch a layer
-CHUNK = 64       # steps a chunk of the scan kernel (csrc/ssd_scan.cu's kL)
+# SSD-scan's kernels by C code: the first (float32 FMAs on CUDA cores, kept
+# as the prior) and the tensor-core one
+SCAN_VARIANT_CODES = {"cuda_core": 0, "mma": 1}
+CHUNK = 64       # steps a chunk of the scan kernels (csrc/ssd_scan.cu's kL)
 P_SLICE = 32     # channels of a head a scan block takes (kPS)
+TILE = 16        # rows of a chunk one warp of the mma kernel takes (kTile): a piece's granularity
 SUPPORTED = {"P": 64, "N": 64, "W": 4}
 # the step's params and caches, in the order the launch takes their pointers
 STEP_PARAMS = ("conv_x_w", "conv_x_b", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b",
@@ -51,6 +62,26 @@ def scan_grid(B: int, H: int, P: int) -> int:
     """Blocks of a scan launch: one per (sequence, head, ``P_SLICE``
     channels); zamba2's one-sequence prefill, 112 heads of 64, is 224."""
     return B * H * (P // P_SLICE)
+
+
+def scan_smem_bytes(dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a block of the mma kernel: a two-chunk ring
+    of the raw C and B (rows of N + 8 bf16 or N + 4 float32 elements), x
+    (P_SLICE + 8 or + 4) and dt, the state slice (rows of N + 8 float32)
+    twice, each strip's y_c (TILE rows x P_SLICE, float32) handed from a
+    state warp to its y warp, and the prefix sums of A dt of two chunks."""
+    N, L = SUPPORTED["N"], CHUNK
+    e = 2 if dtype == torch.bfloat16 else 4
+    pad = 8 if e == 2 else 4
+    stage = 2 * L * (N + pad) * e + L * (P_SLICE + pad) * e + 4 * L
+    return 2 * stage + 2 * P_SLICE * (N + 8) * 4 + L * P_SLICE * 4 + 2 * L * 4
+
+
+def scan_tiles(S: int) -> Tuple[int, int]:
+    """(chunks, strips of ``TILE`` rows in the last chunk) the mma kernel
+    computes for S steps: a 1- to 16-token piece is one strip."""
+    chunks = -(-S // CHUNK)
+    return chunks, -(-(S - (chunks - 1) * CHUNK) // TILE)
 
 
 def step_grid(R: int, B: int, H: int) -> int:
@@ -103,9 +134,19 @@ def ssd_scan(
     """``ref.ssd_scan`` on the card: xh (B, S, H, P), Bm and Cm (B, S, N)
     of one dtype (float32 or bf16); dt (B, S, H) (post-softplus) and A (H,)
     float32; init_state (B, H, P, N) float32 or None (zero); all contiguous
-    and 16-byte aligned on one card. Returns (y (B, S, H, P) in xh's dtype,
-    the final state (B, H, P, N) float32). Raises on anything the kernel
-    does not take."""
+    and 16-byte aligned on one card. Launches ``SCAN_VARIANT``'s kernel.
+    Returns (y (B, S, H, P) in xh's dtype, the final state (B, H, P, N)
+    float32). Raises on anything the kernel does not take."""
+    return _scan(SCAN_VARIANT, xh, dt, A, Bm, Cm, init_state)
+
+
+def scan_prior(xh, dt, A, Bm, Cm, init_state=None):
+    """``ssd_scan`` by the first kernel, ``cuda_core``: how ``chip_smoke.py``
+    checks and times it as ``prior_ms``. No path of the port calls it."""
+    return _scan("cuda_core", xh, dt, A, Bm, Cm, init_state)
+
+
+def _scan(kind, xh, dt, A, Bm, Cm, init_state):
     _build.check_device(xh)
     if xh.ndim != 4:
         raise ValueError(f"ssd_scan: xh must be (B, S, H, P), got {tuple(xh.shape)}")
@@ -135,9 +176,9 @@ def ssd_scan(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             None if init_state is None else init_state.data_ptr(), y.data_ptr(),
             state.data_ptr(), B, S, H, P, N, CHUNK, _build.DTYPE_CODES[xh.dtype],
-            _build.stream_of(xh))
+            SCAN_VARIANT_CODES[kind], _build.stream_of(xh))
     _build.check_status(lib, "ssd_scan", status)
-    scan_counter.launched(SCAN_VARIANT)
+    scan_counter.launched(kind)
     return y, state
 
 

@@ -10,10 +10,13 @@ rtol/atol 1e-4 (``test_torch_ssm.py``'s); bf16 no farther from the float32
 result than twice the reference's bf16 result is, plus 0.1% of its largest
 magnitude (the port's bf16 rule). Also: the rounding gap between the
 model's chunk (256) and the kernel's (64) against a float64 recurrence,
-which ``chip_smoke.py``'s ``SSD_SCAN_ATOL_OF_MAX`` must cover; the
-wrappers' fixed rules (chunk, grids, scratch, the gradient route) and
-refusals before any launch; the ops' routes by device and their counters;
-and ``_causal_conv`` (P8) against the JAX conv with ``F.conv1d`` unusable.
+which ``chip_smoke.py``'s ``SSD_SCAN_ATOL_OF_MAX`` must cover; a numpy
+emulation of the mma kernel's 3xTF32 products in the chunked form against
+the same recurrence (single-pass TF32 printed beside it); the wrappers'
+fixed rules (chunk, strips, shared memory, grids, scratch, the gradient
+route, the variant codes) and refusals before any launch; the ops' routes
+by device and their counters; and ``_causal_conv`` (P8) against the JAX
+conv with ``F.conv1d`` unusable.
 """
 
 import dataclasses
@@ -143,6 +146,101 @@ def test_the_kernel_chunk_rounds_no_worse_than_the_model_chunk():
     assert errs[256] + errs[ssd.CHUNK] <= chip_smoke.SSD_SCAN_ATOL_OF_MAX / 2
 
 
+def _tf32(a, rounded=True):
+    """float32 ``a`` as TF32 (10 stored mantissa bits), by mantissa masking:
+    rounded to nearest, ties away from zero (the kernel's split of big: half
+    of the dropped 13 bits added to the magnitude, then masked), or
+    truncated (how the tensor core reads small = v - big: its low 13 bits
+    ignored)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    if rounded:
+        u = u + np.uint32(0x1000)
+    return (u & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _tensor_core_product(a, b, passes):
+    """a @ b in float32 as SSD-scan's mma kernel takes it on the tensor
+    cores: ``passes`` 3 is 3xTF32 (big = tf32(v), small = v - big as TF32;
+    a_small b_big + a_big b_small + a_big b_big, float32 sums). An operand
+    exact in TF32 (a bf16 value) has a zero small part, so its product is
+    the kernel's two passes (a_small b + a_big b) and a bf16 Gram is exact
+    products. ``passes`` 1 is single-pass TF32 (a_big b_big)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    small_a, small_b = _tf32(a - ab, rounded=False), _tf32(b - bb, rounded=False)
+    return small_a @ bb + ab @ small_b + ab @ bb
+
+
+def _fast_exp(v):
+    """float32 ``__expf(v)`` as the kernel's M takes it: ex2.approx of v
+    log2(e), the product rounded to float32 (its dominant error: ~1e-6
+    relative at |v| ~ 20); ex2.approx's own error (~2 ulp) is not modelled."""
+    t = np.asarray(v, np.float32) * np.float32(1.4426950408889634)
+    return np.exp2(t.astype(np.float64)).astype(np.float32)
+
+
+def _chunked_on_tensor_cores(xh, dt, A, Bm, Cm, passes, L=64):
+    """The mma kernel's chunked form in float32 from zero, every product as
+    ``_tensor_core_product`` takes it and in the kernel's order: per chunk
+    the Gram G = C B^T; M o dt = G o __expf(cum_l - cum_m) o dt_m at and
+    below the diagonal, then y = (M o dt) x + exp(cum) o (C S^T), x
+    exact in a bf16 model (two passes); S = exp(last) S + (exp(last - cum)
+    o (x dt))^T B, B exact in a bf16 model."""
+    Bsz, S, H, P = xh.shape
+    f32 = np.float32
+    y = np.zeros(xh.shape, f32)
+    for b in range(Bsz):
+        for h in range(H):
+            st = np.zeros((P, Bm.shape[-1]), f32)
+            for c0 in range(0, S, L):
+                sl = slice(c0, min(c0 + L, S))
+                d = dt[b, sl, h]
+                cum = np.cumsum(d * A[h], dtype=f32)
+                C, Bc, x = Cm[b, sl], Bm[b, sl], xh[b, sl, h]
+                G = _tensor_core_product(C, Bc.T, passes)
+                low = np.tril(np.ones(G.shape, bool))
+                Mdt = np.where(low, G * _fast_exp(np.where(low, cum[:, None] - cum[None, :], 0))
+                               * d[None, :], 0).astype(f32)
+                y[b, sl, h] = (_tensor_core_product(Mdt, x, passes)
+                               + np.exp(cum)[:, None] * _tensor_core_product(C, st.T, passes))
+                last = cum[-1]
+                xw = (np.exp(last - cum)[:, None] * (x * d[:, None])).astype(f32)
+                st = (np.exp(last) * st + _tensor_core_product(xw.T, Bc, passes)).astype(f32)
+    return y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_kernels_3xtf32_products_hold_the_float32_check(dtype):
+    """zamba2's decays (A = -linspace(1, 16)) over a 777-step prompt at the
+    kernel's N = 64: the mma kernel's chunked form with its 3xTF32 products
+    is within half of ``chip_smoke.SSD_SCAN_ATOL_OF_MAX`` of the largest |y|
+    from a float64 recurrence (B, C and x as bf16 values in the bf16 case:
+    the Gram's products exact). Single-pass TF32 products, printed beside
+    it, are why the split is there."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rng = np.random.RandomState(3)
+    B, S, H, P, N = 1, 777, 8, 8, ssd.SUPPORTED["N"]
+    xh = _randn(rng, B, S, H, P)
+    dt = np.log1p(np.exp(_randn(rng, B, S, H)))
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    Bm, Cm = _randn(rng, B, S, N, scale=0.5), _randn(rng, B, S, N, scale=0.5)
+    if dtype == "bfloat16":
+        xh, Bm, Cm = _bf16(xh), _bf16(Bm), _bf16(Cm)
+    want = _recurrence64(xh, dt, A, Bm, Cm)
+    scale = np.abs(want).max()
+    errs = {passes: np.abs(_chunked_on_tensor_cores(xh, dt, A, Bm, Cm, passes) - want).max()
+            / scale for passes in (3, 1)}
+    print(f"{dtype}: max |y - float64| / max |y|: 3xTF32 {errs[3]:.3e}, single-pass TF32 "
+          f"{errs[1]:.3e} (the float32 check allows {chip_smoke.SSD_SCAN_ATOL_OF_MAX:.0e})")
+    assert errs[3] <= chip_smoke.SSD_SCAN_ATOL_OF_MAX / 2
+    assert errs[1] > errs[3]
+
+
 def _step_params(cfg, seed, R):
     rng = np.random.RandomState(seed)
     d_inner, H, P, N = ssm.dims(cfg)
@@ -238,6 +336,20 @@ def test_the_rules_mirror_the_kernel_sources():
 
     assert const(scan, "kL") == ssd.CHUNK == 64  # every S: the last chunk is masked
     assert const(scan, "kPS") == ssd.P_SLICE
+    assert const(scan, "kTile") == ssd.TILE == 16  # a warp's strip: m16 of mma.sync
+    assert const(scan, "kRowS") == ssd.SUPPORTED["N"] + 8
+    assert const(scan, "kSmemBf16") == ssd.scan_smem_bytes(torch.bfloat16)
+    assert const(scan, "kSmemF32") == ssd.scan_smem_bytes(torch.float32)
+    assert "__launch_bounds__(kThreads, 2) ssd_scan_kernel" in scan  # <= 128 registers
+    # the mma kernel's products: a bf16 Gram, 3xTF32 (big rounded by mantissa
+    # masking, as _tf32 emulates it), no library call
+    for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+               "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+               "(__float_as_uint(v) + 0x1000u) & 0xffffe000u"):
+        assert op in scan
+    assert "cublas" not in scan.lower()
+    assert "variant: 0 cuda_core, 1 mma" in scan
+    assert ssd.SCAN_VARIANT_CODES == {"cuda_core": 0, "mma": 1} and ssd.SCAN_VARIANT == "mma"
     assert const(scan, "kN") == const(step, "kN") == ssd.SUPPORTED["N"]
     assert const(step, "kP") == ssd.SUPPORTED["P"] and const(step, "kW") == ssd.SUPPORTED["W"]
     for name in ("ssd_scan", "ssd_step"):
@@ -250,6 +362,15 @@ def test_grids_and_scratch():
     assert (H, P, N, cfg.ssm.conv_width) == (112, 64, 64, 4)
     assert ssd.SUPPORTED == {"P": P, "N": N, "W": cfg.ssm.conv_width}
     assert ssd.scan_grid(1, H, P) == 224  # one prefill sequence: more blocks than 132 SMs
+    # ... and one wave of them: blocks an SM by shared memory (228 KB an SM,
+    # 1 KB of it reserved a block), at most 2 by registers (256 threads at
+    # __launch_bounds__(256, 2)), times 132 SMs
+    for dtype in (torch.bfloat16, torch.float32):
+        by_smem = (228 * 1024) // (ssd.scan_smem_bytes(dtype) + 1024)
+        assert 132 * min(by_smem, 2) >= ssd.scan_grid(1, H, P), dtype
+    # strips of TILE rows the mma kernel computes: a 1- to 16-token piece is one
+    assert [ssd.scan_tiles(S) for S in (1, 4, 16, 17, 64, 128, 512, 742, 777)] == [
+        (1, 1), (1, 1), (1, 1), (1, 2), (1, 4), (2, 4), (8, 4), (12, 3), (13, 1)]
     assert ssd.step_grid(4, 4, H) == 1792 and ssd.step_grid(1, 4, H) == 448
     assert ssd.step_work_ints(4, 4) == 16 and ssd.step_work_ints(1, 4) == 4
 
@@ -296,6 +417,56 @@ def test_the_scan_wrapper_refuses_before_the_launch(monkeypatch):
         ssd.ssd_scan(xh, dt, A, Bm, Cm, torch.zeros(1, 2, 64, 32))
     with pytest.raises(AssertionError, match="reached the launch"):
         ssd.ssd_scan(xh, dt, A, Bm, Cm, torch.zeros(1, 2, 64, 64))
+
+
+def test_the_scan_wrapper_launches_the_kernel_it_is_asked_for(monkeypatch):
+    """Through a stand-in library: ``ssd_scan`` launches ``SCAN_VARIANT``'s
+    code (mma, 1) and ``scan_prior`` cuda_core's (0), each counted under its
+    name."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def repro_ssd_scan(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(_build, "check_device", lambda t: None)
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    ssd.scan_counter.reset()
+    y, state = ssd.ssd_scan(*_full_width_scan())
+    assert y.dtype == torch.bfloat16 and state.shape == (1, 2, 64, 64)
+    ssd.scan_prior(*_full_width_scan(dtype=torch.float32))
+    assert [c[-3:-1] for c in calls] == [(1, 1), (0, 0)]  # (dtype, variant) codes
+    assert ssd.scan_counter.variants == {"mma": 1, "cuda_core": 1}
+    ssd.scan_counter.reset()
+
+
+def test_the_scan_bound_prices_the_tensor_core_products():
+    """``chip_smoke.ssd_scan_bound`` comes from the inputs alone: the
+    recurrence's 4 S H P N operations at the TF32 rate over the kernel's
+    passes (2 in a bf16 model, 3 in float32) against its bytes; the CUDA
+    cores' term is reported beside it, never the bound."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    for dtype, passes in (("torch.bfloat16", 2), ("torch.float32", 3)):
+        for S, state in ((1, True), (64, True), (512, True), (742, False)):
+            nbytes, flops = chip_smoke.ssd_scan_work(S, state, dtype)
+            bound_ms, by, bytes_ms, ops_ms, cuda_core_ms = chip_smoke.ssd_scan_bound(
+                S, state, dtype)
+            assert ops_ms == pytest.approx(flops * passes / 495e12 * 1e3)
+            assert cuda_core_ms == pytest.approx(flops / 67e12 * 1e3) and cuda_core_ms > ops_ms
+            assert bytes_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+            assert bound_ms == max(bytes_ms, ops_ms)
+            assert by == ("bytes" if bytes_ms >= ops_ms else "operations")
+    # zamba2's bf16 512-token piece: bytes-bound once the products are on
+    # the tensor cores
+    assert chip_smoke.ssd_scan_bound(512, True, "torch.bfloat16")[1] == "bytes"
 
 
 def _step_inputs(R=2, B=2, H=2, P=64, N=64, W=4, dtype=torch.bfloat16):
