@@ -3170,6 +3170,8 @@ def phase_rwkv(ops, dev, seed, profile=False):
                 raise PhaseFailed(f"{mode}: {op} launched {per[op]} times, not "
                                   f"{cfg.num_layers * n} per prefill pass ({prefills})")
     by_variant = {op: dict(ops.COUNTERS[op].variants) for op in per_layer}
+    # the state pass's launches by piece length, as its wrapper counts them
+    by_size = dict(ops.COUNTERS["wkv6_state"].sizes)
     log(f"  launches per mode: " + ", ".join(f"{op} {cfg.num_layers * n * prefills} = "
                                             f"{cfg.num_layers} layers x {n} x {prefills} prefill "
                                             f"passes ({REQUESTS} prompts)"
@@ -3200,6 +3202,57 @@ def phase_rwkv(ops, dev, seed, profile=False):
     if "wkv6_state" in per_layer:
         rows.append({**state_row, "launches": launches["wkv6_state"],
                      "launches_by_variant": by_variant["wkv6_state"]})
+        if sum(by_size.values()) != launches["wkv6_state"]:
+            raise PhaseFailed(f"wkv6_state: {launches['wkv6_state']} launches on the serving "
+                              f"path, {sum(by_size.values())} counted by size: {by_size}")
+        rows += measure_state_pieces(ops, dev, seed, by_size)
+    return rows
+
+
+STATE_PIECES = (512, 64, 1)  # K5-state's rows at the graphed route's piece sizes
+
+
+def measure_state_pieces(ops, dev, seed, by_size):
+    """The state pass at the graphed route's piece sizes (STATE_PIECES; 32
+    heads, bf16 k, v, float32 w ~ N(STATE_W_MEAN, 1), from a random state):
+    checked against its plain version, then timed beside its plain version
+    and its bound, with its segment count and the serving path's launches
+    at that size (``by_size``: the wrapper's counts by T over both modes)."""
+    import torch
+
+    from repro_torch.kernels import wkv6_state as ws
+
+    log(f"  wkv6_state serving launches by piece size: {dict(sorted(by_size.items()))} (sum "
+        f"{sum(by_size.values())})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    rows = []
+    for T in STATE_PIECES:
+        _, k, v, w, _ = wkv_inputs(gen, dev, torch.bfloat16, T, w_dtype=torch.float32,
+                                   w_mean=STATE_W_MEAN)
+        s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+        err, _ = check_state(ops, f"wkv6_state a {T}-token piece from a random state", k, v, w,
+                             s0)
+        buf = s0.clone()
+        ms = time_ms(lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf), 50)
+        plain_ms = time_ms(lambda: ops.wkv6_state_plain(k, v, w, init_state=buf,
+                                                        final_state=buf), 3, 1)
+        nbytes, flops = state_work(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16)
+        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+        G = ws.segments(WKV_HEADS, T)
+        log(f"    wkv6_state T={T} ({G} segments a head): ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library: none bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={ms / bound_ms:.1f} "
+            f"serving launches at this size {by_size.get(T, 0)}")
+        n = by_size.get(T, 0)
+        rows.append({"name": "wkv6_state", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/wkv6_state.cu",
+                     "replaces": REPLACES["wkv6_state"], "variant": ws.VARIANT, "segments": G,
+                     "shape": f"a {T}-token piece of the graphed prefill: {WKV_HEADS} heads, "
+                              "bf16 k, v, float32 w, from a state",
+                     "launches": n, "launches_by_variant": {ws.VARIANT: n},
+                     "launches_counted": "at this piece size",
+                     "max_abs_err": err, "ms": ms, "prior_ms": None, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
     return rows
 
 
@@ -3379,6 +3432,7 @@ SSD_DECAYS = {"default": (0.0, 1.0), "strong": (1.0, 1.0), "weak": (-6.0, 0.5)}
 SSD_STEP_SEQS = ((4, 4), (1, 4))    # (R, B): the merged decode step, one tenant's
 SSD_STEPS = 3                       # successive steps: the shifted windows are read back
 SSD_STEP_FLOPS = 5                  # float32 operations a state element: 2 x, 1 +, 1 FMA
+SSD_STEP_COLD_BYTES = 96 << 20      # state a cold timing cycles over: ~2x the L2
 SSD_PLAIN_SLEEP_CYCLES = 10_000_000  # ~5 ms a call: the plain versions' tens of launches queue
 SSD_TIMED_PIECES = (1, 64, 512)     # SSD-scan's rows: pieces from a state, then the median prompt
 P8_LAYERS = 6                       # P8's zamba2 cut: 5 Mamba2 layers and the shared attention
@@ -3562,8 +3616,9 @@ def phase_ssd_kernels(ops, dev, seed):
     pieces (SSD_PIECES) from a seeded state and at whole prompts off the
     chunk (SSD_FRESH) from zero, in three decay regimes; the step over
     SSD_STEPS successive steps merged (R 4, B 4) and for one tenant (R 1, B
-    4). Two launches give the same bits; three controls of the scan and two
-    of the step fail their checks."""
+    4). Two launches give the same bits; three controls of the scan and three
+    of the step (the B and C windows left unshifted, D dropped, the arrival
+    counters left stale) fail their checks."""
     import torch
 
     from repro_torch.kernels import ssd
@@ -3632,6 +3687,23 @@ def phase_ssd_kernels(ops, dev, seed):
     no_d = {**p, "D": torch.zeros_like(p["D"])}
     must_fail("the D term dropped", lambda: check_ssd_steps(
         name, dtype, ssd_step_run(ops.ssd_step, no_d, cache, steps), want))
+    stale = []
+
+    def stale_counters(p_, c, *proj):
+        # each sequence's arrival counter left at H before the launch, as a
+        # launch cut short could leave it: no block sees H - 1, so no block
+        # shifts the B and C windows
+        counters = ssd.step_arrivals(c["ssm"], *c["ssm"].shape[:2])
+        counters.fill_(SSD_HEADS)
+        stale.append(counters)
+        return ops.ssd_step(p_, c, *proj)
+    try:
+        must_fail("the arrival counters left stale (at H) before each launch",
+                  lambda: check_ssd_steps(name, dtype,
+                                          ssd_step_run(stale_counters, p, cache, steps), want))
+    finally:
+        for counters in stale:  # back to 0 for whatever state reuses the address
+            counters.zero_()
 
 
 def ssd_scan_work(S, given_state, dtype):
@@ -3681,8 +3753,9 @@ def measure_ssd(ops, dev, seed, median, launches, per_mode):
     a state, the graphed route's; the median whole prompt from zero) and
     SSD-step (the merged step, one tenant's), bf16: kernel, plain version
     and bound (SSD-scan's both terms, ``ssd_scan_bound``), SSD-scan's first
-    kernel (``cuda_core``, checked, then timed as ``prior_ms``), with the
-    serving run's launches (both modes for the scan, each step with its own
+    kernel (``cuda_core``, checked, then timed as ``prior_ms``), SSD-step
+    warm and cold and in float32 too (``ssd_step_times``), with the serving
+    run's launches (both modes for the scan, each step with its own
     mode's)."""
     import torch
 
@@ -3731,24 +3804,54 @@ def measure_ssd(ops, dev, seed, median, launches, per_mode):
                                    "ms_over_operations_cuda_core": ms / cuda_core_ms}))
     for (R, B), mode, per in zip(SSD_STEP_SEQS, ("merged decode (space_time)",
                                                  "one tenant's decode (time_only)"), per_mode):
-        p, cache, steps = ssd_step_inputs(gen, dev, dtype, R, B)
-        want = ssd_step_run(ops.ssd_step_plain, p, cache, steps[:1])
-        got = ssd_step_run(ops.ssd_step, p, cache, steps[:1])
-        err = check_ssd_steps(f"ssd_step bf16 R={R} B={B}", dtype, got, want)
-        ms = time_ms(lambda: ops.ssd_step(p, cache, *steps[0]), 50)
-        plain_ms = time_ms(lambda: ops.ssd_step_plain(p, cache, *steps[0]), 10, 1,
-                           SSD_PLAIN_SLEEP_CYCLES)
-        nbytes, flops = ssd_step_work(R, B, dtype)
-        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
-        log(f"    ssd_step {mode} R={R} B={B}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"({plain_ms / ms:.1f}x) library: none bound_ms={bound_ms:.4f} ({bound_by}) "
-            f"kernel/bound={ms / bound_ms:.1f}")
+        t = {str(dt_)[6:]: ssd_step_times(ops, gen, dev, dt_, R, B)
+             for dt_ in (torch.bfloat16, torch.float32)}
+        bf, f32 = t["bfloat16"], t["float32"]
+        log(f"    ssd_step {mode} R={R} B={B}: bf16 ms={bf['ms']:.4f} (state in L2 "
+            f"{bf['ms_warm']:.4f}) plain_ms={bf['plain_ms']:.4f} "
+            f"({bf['plain_ms'] / bf['ms']:.1f}x) library: none bound_ms={bf['bound_ms']:.4f} "
+            f"({bf['bound_by']}) kernel/bound={bf['ms'] / bf['bound_ms']:.2f} (in L2 "
+            f"{bf['ms_warm'] / bf['bound_ms']:.2f}); float32 ms={f32['ms']:.4f} (in L2 "
+            f"{f32['ms_warm']:.4f}) plain_ms={f32['plain_ms']:.4f} "
+            f"bound_ms={f32['bound_ms']:.4f}")
         rows.append(kernel_row("ssd_step", f"{ZAMBA} {mode}: R={R} x B={B}, {SSD_HEADS} heads "
                                f"of P={SSD_P}, N={SSD_N}, bf16", per["ssd_step"], {
-                                   "variant": ssd.STEP_VARIANT, "max_abs_err": err, "ms": ms,
-                                   "plain_ms": plain_ms, "library_ms": None,
-                                   "bound_ms": bound_ms, "bound_by": bound_by}))
+                                   "variant": ssd.STEP_VARIANT, **bf,
+                                   "prior": "ssd_step fused (the first kernel), timed in turns "
+                                            "with the parent: experiments/prefill_turns.py "
+                                            "--routes step",
+                                   "library_ms": None, "float32": f32}))
     return rows
+
+
+def ssd_step_times(ops, gen, dev, dtype, R, B):
+    """SSD-step at (R, B) in ``dtype`` on seeded inputs: one step checked
+    against its plain version, then its time cycling over caches past
+    SSD_STEP_COLD_BYTES of state (``ms``: each launch reads its state from
+    device memory, as a decode pass over the layers does), on one cache
+    (``ms_warm``: the state stays in the 50 MB L2 between launches), the
+    plain version's and the bound. Takes only ``ops.ssd_step`` and
+    ``ops.ssd_step_plain`` of the port, so it times an older checkout's
+    kernel as well (``experiments/prefill_turns.py --routes step``)."""
+    import itertools
+
+    p, cache, steps = ssd_step_inputs(gen, dev, dtype, R, B)
+    want = ssd_step_run(ops.ssd_step_plain, p, cache, steps[:1])
+    got = ssd_step_run(ops.ssd_step, p, cache, steps[:1])
+    err = check_ssd_steps(f"ssd_step {str(dtype)[6:]} R={R} B={B}", dtype, got, want)
+    ms_warm = time_ms(lambda: ops.ssd_step(p, cache, *steps[0]), 50)
+    n_cold = max(2, -(-SSD_STEP_COLD_BYTES // (cache["ssm"].numel() * 4)))
+    caches = [{k: v.clone() for k, v in cache.items()} for _ in range(n_cold)]
+    turn = itertools.cycle(caches)
+    # the warm-up steps every cache once, so nothing is made while timed
+    ms = time_ms(lambda: ops.ssd_step(p, next(turn), *steps[0]), 50, n_cold)
+    del caches
+    plain_ms = time_ms(lambda: ops.ssd_step_plain(p, cache, *steps[0]), 10, 1,
+                       SSD_PLAIN_SLEEP_CYCLES)
+    nbytes, flops = ssd_step_work(R, B, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    return {"max_abs_err": err, "ms": ms, "ms_warm": ms_warm, "cold_caches": n_cold,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def p8_check(cfg, dev, seed, layers=P8_LAYERS):

@@ -5,6 +5,7 @@
     python3 experiments/prefill_turns.py --root DIR --arch stablelm-1.6b,rwkv6-1.6b \\
         --routes whole,pieces,graphed
     python3 experiments/prefill_turns.py --root DIR --routes whole,graphed,decode
+    python3 experiments/prefill_turns.py --root DIR --routes step
 
 Builds each ``--arch`` at full width and depth (bf16, seeded random weights,
 one tenant) from the port under ``DIR/src`` (default: the checkout this
@@ -32,6 +33,18 @@ positions by each route of ``--routes``:
   replayed back to back ``--steps`` times under CUDA events (the step's
   device ms; idle share = 1 - device / wall), as ``chip_smoke.py``'s
   ``graphs`` line times them. One JSON line per mode.
+
+- ``step``: not a prefill, and no model. ``ops.ssd_step`` (SSD-step, the
+  Mamba2 decode mixer) alone at zamba2-7b's width, merged (R 4 tenants x
+  B 4 slots) and one tenant's (R 1 x B 4), bf16 and float32, by this
+  checkout's ``chip_smoke.ssd_step_times`` (the harness of its SSD-step
+  rows): one step held against ``ops.ssd_step_plain``, then timed by CUDA
+  events behind a sleep, ``ms`` cycling over caches past
+  ``SSD_STEP_COLD_BYTES`` of state (each launch reads its state from
+  device memory, as a decode pass does) and ``ms_warm`` on one cache
+  (its state held in the 50 MB L2). Runs once, whatever ``--arch``; one
+  JSON line per (dtype, R, B) with the launches by variant and the
+  library's register report.
 
 Each prefill route prefills two prompts unmeasured, then every prompt ``--repeats``
 times, each prefill timed on the host clock around a synchronize. One
@@ -70,7 +83,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--arch", default="zamba2-7b", help="comma list")
-    ap.add_argument("--routes", default="whole", help="comma list of whole, pieces, graphed")
+    ap.add_argument("--routes", default="whole",
+                    help="comma list of whole, pieces, graphed, decode, step")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--steps", type=int, default=8, help="steady decode steps (route decode)")
     ap.add_argument("--seed", type=int, default=0)
@@ -84,11 +98,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from repro_torch.kernels import _build
 
-    _build.build()  # every kernel at once, one nvcc a source
+    routes = args.routes.split(",")
+    # every kernel at once, one nvcc a source (SSD-step's alone for the step route)
+    _build.build(["ssd_step"] if routes == ["step"] else _build.SOURCES)
     ident = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                            capture_output=True, text=True).stdout.strip()
-    for arch in args.arch.split(","):
-        for route in args.routes.split(","):
+    if "step" in routes:
+        routes.remove("step")
+        for rec in measure_step(args):
+            rec["card"] = ident
+            print(json.dumps({"prefill_turns": rec}), flush=True)
+    for arch in args.arch.split(",") if routes else []:
+        for route in routes:
             recs = ([measure_decode(arch, mode, args) for mode in ("space_time", "time_only")]
                     if route == "decode" else [measure(arch, route, args)])
             for rec in recs:
@@ -159,6 +180,36 @@ def measure_decode(arch: str, mode: str, args) -> dict:
            "captures": stats["captures"]}
     del eng, stacked
     return rec
+
+
+def measure_step(args) -> list:
+    """SSD-step alone at each (dtype, R, B) of chip_smoke.py's
+    SSD_STEP_SEQS: ``chip_smoke.ssd_step_times`` (checked against its plain
+    version, then timed from device memory and in L2), with the launches by
+    variant and the library's register report."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+
+    sys.path.append(str(Path(__file__).resolve().parents[1]))  # this checkout's chip_smoke.py
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 35)
+    report = _build.build_log("ssd_step")
+    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, B in cs.SSD_STEP_SEQS:
+            ops.reset_counters()
+            t = cs.ssd_step_times(ops, gen, dev, dtype, R, B)
+            recs.append({"root": args.root, "route": "step", "op": "ssd_step",
+                         "dtype": str(dtype)[6:], "R": R, "B": B, "heads": cs.SSD_HEADS, **t,
+                         "launches_by_variant": dict(ops.COUNTERS["ssd_step"].variants),
+                         "build_report": regs})
+            torch.cuda.empty_cache()
+    return recs
 
 
 def measure(arch: str, route: str, args) -> dict:

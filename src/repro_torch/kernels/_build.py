@@ -97,31 +97,39 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 @dataclasses.dataclass
 class OpCounter:
-    """Per-op counts: kernel launches (in all, and by variant where the op
-    has more than one kernel), and calls of the plain version."""
+    """Per-op counts: kernel launches (in all, by variant where the op has
+    more than one kernel, and by size where its wrapper names one), and
+    calls of the plain version."""
 
     launches: int = 0
     plain_calls: int = 0
     variants: Dict[str, int] = dataclasses.field(default_factory=dict)
+    sizes: Dict[int, int] = dataclasses.field(default_factory=dict)
 
-    def launched(self, variant: str) -> None:
-        """Count one launch of the op's ``variant`` kernel."""
+    def launched(self, variant: str, size: Optional[int] = None) -> None:
+        """Count one launch of the op's ``variant`` kernel, and of ``size``
+        (the wkv6_state wrapper's sequence length T) where one is given."""
         self.launches += 1
         self.variants[variant] = self.variants.get(variant, 0) + 1
+        if size is not None:
+            self.sizes[size] = self.sizes.get(size, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
         self.variants = {}
+        self.sizes = {}
 
     def copy(self) -> "OpCounter":
-        return OpCounter(self.launches, self.plain_calls, dict(self.variants))
+        return OpCounter(self.launches, self.plain_calls, dict(self.variants), dict(self.sizes))
 
     def since(self, before: "OpCounter") -> "OpCounter":
         """What was counted after ``before`` (an earlier ``copy()``)."""
         variants = {k: n - before.variants.get(k, 0) for k, n in self.variants.items()}
+        sizes = {k: n - before.sizes.get(k, 0) for k, n in self.sizes.items()}
         return OpCounter(self.launches - before.launches, self.plain_calls - before.plain_calls,
-                         {k: n for k, n in variants.items() if n})
+                         {k: n for k, n in variants.items() if n},
+                         {k: n for k, n in sizes.items() if n})
 
     def add(self, other: "OpCounter", times: int = 1) -> None:
         """Add ``times`` x ``other``'s counts (a negative ``times`` takes
@@ -129,10 +137,11 @@ class OpCounter:
         replay and never at capture (``ops.capturing``)."""
         self.launches += times * other.launches
         self.plain_calls += times * other.plain_calls
-        for k, n in other.variants.items():
-            self.variants[k] = self.variants.get(k, 0) + times * n
-            if not self.variants[k]:
-                del self.variants[k]
+        for counts, more in ((self.variants, other.variants), (self.sizes, other.sizes)):
+            for k, n in more.items():
+                counts[k] = counts.get(k, 0) + times * n
+                if not counts[k]:
+                    del counts[k]
 
 
 def _nvcc() -> str:

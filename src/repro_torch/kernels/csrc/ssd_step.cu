@@ -16,21 +16,42 @@
 // What bounds it on an H100: bytes. The state is read once and written once:
 // 2 R B H P N 4 bytes, 58.7 MB for zamba2's merged step (R 4, B 4; 17.5 us at
 // 3.35 TB/s), 4.4 us for one tenant's (R 1), against ~5 float32 operations an
-// element. The design:
-//   * one block per (sequence, head), 256 threads: thread t owns the state's
-//     row p = t / 4 and 16 of its N = 64 columns (four 16-byte loads and
-//     stores, a warp on 2 KB in a row), so the state moves once each way and
-//     everything else is a few hundred bytes a block;
-//   * the block computes its head's P conv channels, the B and C convs (every
-//     head reads the same windows), dt and silu(z) into shared memory, then the
-//     state update and S C in registers, y's sum over the row's 4 threads by
-//     shuffles, and the per-head norm's sum over the P rows in a fixed order;
-//   * each block shifts its head's x windows itself. The B and C windows are
-//     every head's: the last block of a sequence to arrive (an integer counter
-//     a sequence, zeroed here before the launch and reset by that block, as
-//     adamw.cu's norm finds its last block) shifts them after every block has
-//     read them, so each launch, eager or replayed in a CUDA graph, gives the
-//     same bits;
+// element. Everything else is a few hundred bytes a block. The first kernel
+// (`fused`, 2.7x the bound at one tenant) lost its time to two things: each
+// thread owned 16 consecutive floats of a row, so each 16-byte load or store
+// instruction of a warp touched 32 pieces 64 bytes apart, a quarter of each,
+// and three memory round trips (the conv inputs, a fence and an atomic)
+// stood in series in front of the state's read. The design (`coalesced`):
+//   * one block per (sequence, head), 288 threads. Warps 0-7 own the state,
+//     as 16-byte vectors: thread t the vectors t, t + 256, t + 512, t + 768
+//     of the head's (P, N) tile (rows t / 16 + 16 q, columns 4 (t % 16) ..
+//     + 3), so each load or store instruction of a warp moves 512 contiguous
+//     bytes. Each state thread issues every load it needs at entry: its conv
+//     or gate inputs, D and its rows' norm weights, then its four state
+//     vectors, with an evict-first hint (the next read of a state is a whole
+//     decode pass later), so a block's 16 KB are in flight with the few
+//     hundred bytes the x conv step, silu(z) and dt need;
+//   * then the x conv step, silu(z), dt and the decay into shared memory, one
+//     barrier, the state update and S C in registers, y's sum over a row's 16
+//     threads by shuffles (a fixed tree), the per-head norm's sum over the P
+//     rows in a fixed order (each warp's 8 rows, then the 8 warps in order),
+//     y stored;
+//   * each block shifts its head's x windows itself, right after reading them
+//     (no other block reads those channels). The B and C windows are every
+//     head's, and warp 8 is their only reader in a block: it computes their
+//     conv steps, hands B and C to the state warps at a barrier it does not
+//     wait at, then arrives on the sequence's counter (a fence, then an
+//     atomicAdd) and waits for the answer; in the last block of the sequence
+//     to arrive it shifts them, after every head's block has read them. No
+//     state warp waits for that round trip;
+//   * the counters are never zeroed by a memset: the last block of a sequence
+//     resets its counter to 0 (after the H arrivals, so no increment is
+//     lost), and the wrapper keeps one set a state tensor, zeroed when it is
+//     made (kernels/ssd.py step_arrivals), so every launch, eager or
+//     replayed in a CUDA graph, finds them at 0 and leaves them at 0. Two
+//     launches that share a set update the same state, which no caller runs
+//     at once (a cache is stepped by one launch after another on one
+//     stream), so no two launches that may overlap share a counter;
 //   * the state update rounds as the plain version does (two products, then a
 //     sum: no FMA contraction), so the new state equals the plain version's
 //     given the same conv outputs and dt.
@@ -40,11 +61,14 @@ namespace {
 
 using repro::Elem;
 
-constexpr int kThreads = 256;
 constexpr int kP = 64;                    // channels a head
 constexpr int kN = 64;                    // state size
 constexpr int kW = 4;                     // conv window
-constexpr int kCols = kN / (kThreads / kP);  // state columns a thread: 16
+constexpr int kStateThreads = 256;        // warps 0-7: the state
+constexpr int kThreads = kStateThreads + 32;  // warp 8: the shared B and C windows
+constexpr int kVecs = kP * kN / 4 / kStateThreads;  // 16-byte vectors of the state a thread: 4
+constexpr int kRowVecs = kN / 4;                    // vectors a state row: 16
+constexpr int kBCWarp = kStateThreads / 32;         // 8
 
 struct Args {
   const void* z;         // (R, B, d_inner)   model dtype
@@ -78,32 +102,38 @@ __device__ __forceinline__ float softplus(float x) {  // torch's, beta 1, thresh
   return x > 20.f ? x : log1pf(expf(x));
 }
 
-// One conv step of channel c of a (W-1, C) window at `win` (row stride C):
-// sum_w window[w] w[w] + b over the window and the new input, in float32 as
-// the plain version (products rounded, summed in order), silu'd and rounded
-// to the model dtype. The window's values are returned in `old` for the
-// shift.
-template <bool BF16>
-__device__ __forceinline__ float conv_step(const typename Elem<BF16>::T* win, int C, int c,
-                                           float x_new, const typename Elem<BF16>::T* w,
-                                           const typename Elem<BF16>::T* bias, float* old) {
-  float acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < kW - 1; ++k) {
-    old[k] = Elem<BF16>::load(win, (long)k * C + c);
-    acc = __fadd_rn(acc, __fmul_rn(old[k], Elem<BF16>::load(w, (long)k * C + c)));
-  }
-  acc = __fadd_rn(acc, __fmul_rn(x_new, Elem<BF16>::load(w, (long)(kW - 1) * C + c)));
-  const float out = silu(__fadd_rn(acc, Elem<BF16>::load(bias, c)));
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(out)) : out;
-}
+// A conv step's inputs for channel c of a (W-1, C) window at `win` (row
+// stride C): the window, the W weights, the bias and the new input, loaded
+// at once.
+struct ConvIn {
+  float old[kW - 1], w[kW], bias, x;
+};
 
 template <bool BF16>
-__device__ __forceinline__ void shift(typename Elem<BF16>::T* win, int C, int c, const float* old,
-                                      float x_new) {
+__device__ __forceinline__ ConvIn conv_load(const typename Elem<BF16>::T* win, int C, int c,
+                                            const typename Elem<BF16>::T* w,
+                                            const typename Elem<BF16>::T* bias,
+                                            const typename Elem<BF16>::T* x, long xi) {
+  ConvIn in;
 #pragma unroll
-  for (int k = 0; k < kW - 2; ++k) Elem<BF16>::store(win, (long)k * C + c, old[k + 1]);
-  Elem<BF16>::store(win, (long)(kW - 2) * C + c, x_new);
+  for (int k = 0; k < kW - 1; ++k) in.old[k] = Elem<BF16>::load(win, (long)k * C + c);
+#pragma unroll
+  for (int k = 0; k < kW; ++k) in.w[k] = Elem<BF16>::load(w, (long)k * C + c);
+  in.bias = Elem<BF16>::load(bias, c);
+  in.x = Elem<BF16>::load(x, xi);
+  return in;
+}
+
+// A named barrier of `count` threads (a multiple of 32): warp 8 hands B and
+// C to the state warps at barrier 1 of all kThreads; the state warps alone
+// meet at barrier 2.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrive at named barrier `id` of `count` threads without waiting for it.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 template <bool BF16>
@@ -111,105 +141,169 @@ __device__ __forceinline__ float round_to(float x) {
   return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
+// sum_w window[w] w[w] + b over the window and the new input, in float32 as
+// the plain version (products rounded, summed in order), silu'd and rounded
+// to the model dtype.
+template <bool BF16>
+__device__ __forceinline__ float conv_out(const ConvIn& in) {
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < kW - 1; ++k) acc = __fadd_rn(acc, __fmul_rn(in.old[k], in.w[k]));
+  acc = __fadd_rn(acc, __fmul_rn(in.x, in.w[kW - 1]));
+  return round_to<BF16>(silu(__fadd_rn(acc, in.bias)));
+}
+
+// The window shifted by one step: rows 1.. W-2 up, the new input last.
+template <bool BF16>
+__device__ __forceinline__ void shift(typename Elem<BF16>::T* win, int C, int c,
+                                      const ConvIn& in) {
+#pragma unroll
+  for (int k = 0; k < kW - 2; ++k) Elem<BF16>::store(win, (long)k * C + c, in.old[k + 1]);
+  Elem<BF16>::store(win, (long)(kW - 2) * C + c, in.x);
+}
+
 template <bool BF16>
 __global__ void __launch_bounds__(kThreads) ssd_step_kernel(const Args a) {
   using T = typename Elem<BF16>::T;
-  __shared__ float xh_s[kP], sz_s[kP], B_s[kN], C_s[kN], red[kThreads / 32];
+  __shared__ __align__(16) float B_s[kN], C_s[kN];
+  __shared__ float xh_s[kP], sz_s[kP], red[kStateThreads / 32];
   __shared__ float dt_s, decay_s;
-  __shared__ bool last;
 
   const int H = a.H, d_inner = H * kP;
   const int h = blockIdx.x % H;
   const int rb = blockIdx.x / H;  // the sequence: tenant r = rb / B, slot rb % B
   const int r = rb / a.B;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // (1) the conv steps, dt and silu(z); thread groups of 64
-  float old[kW - 1];
-  float x_new = 0.f;
+  if (warp == kBCWarp) {
+    // (1') the B and C conv steps (channels lane and lane + 32 of each); this
+    // warp is the block's only reader of the shared windows
+    const T* const wB = static_cast<const T*>(a.wB) + (long)r * kW * kN;
+    const T* const wC = static_cast<const T*>(a.wC) + (long)r * kW * kN;
+    T* const winB = static_cast<T*>(a.conv_B) + (long)rb * (kW - 1) * kN;
+    T* const winC = static_cast<T*>(a.conv_C) + (long)rb * (kW - 1) * kN;
+    ConvIn in[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool isB = i < 2;
+      const int c = lane + 32 * (i & 1);
+      in[i] = conv_load<BF16>(isB ? winB : winC, kN, c, isB ? wB : wC,
+                              static_cast<const T*>(isB ? a.bB : a.bC) + (long)r * kN,
+                              static_cast<const T*>(isB ? a.Bm : a.Cm), (long)rb * kN + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) (i < 2 ? B_s : C_s)[lane + 32 * (i & 1)] = conv_out<BF16>(in[i]);
+    named_arrive(1, kThreads);  // (A): B_s and C_s to the state warps, which it does not wait for
+    // every read of the windows by this block is done: arrive on the
+    // sequence's counter, and in its last block to arrive shift the windows
+    unsigned arrived = 0u;
+    if (lane == 0) {
+      __threadfence();
+      arrived = atomicAdd(a.arrivals + rb, 1u);
+    }
+    if (__shfl_sync(0xffffffffu, arrived, 0) == (unsigned)H - 1) {
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) shift<BF16>(i < 2 ? winB : winC, kN, lane + 32 * (i & 1), in[i]);
+      if (lane == 0) a.arrivals[rb] = 0u;  // after all H arrivals: the next launch finds 0
+    }
+    return;
+  }
+
+  // (0) every load a state thread needs, issued first: its conv or gate
+  // inputs, D, the norm weights of its rows, then its four 16-byte vectors
+  // of the state, vector q*256 + t of the head's (P, N) tile: row
+  // p_q = 16 q + t / 16, columns 4 (t % 16) .. + 3 (each load instruction
+  // of a warp reads 512 contiguous bytes)
   const int g = tid >> 6, k = tid & 63;
+  const int row0 = tid / kRowVecs, n0 = (tid % kRowVecs) * 4;
+  constexpr int kRowStep = kStateThreads / kRowVecs;  // 16 rows between a thread's vectors
+  ConvIn xin;
+  float zv = 0.f, raw = 0.f, bias = 0.f, alog = 0.f;
+  T* const winx = static_cast<T*>(a.conv_x) + (long)rb * (kW - 1) * d_inner;
   if (g == 0) {  // x's channel h P + k
     const int c = h * kP + k;
-    x_new = Elem<BF16>::load(static_cast<const T*>(a.xs), (long)rb * d_inner + c);
-    xh_s[k] = conv_step<BF16>(static_cast<const T*>(a.conv_x) + (long)rb * (kW - 1) * d_inner,
-                              d_inner, c, x_new,
-                              static_cast<const T*>(a.wx) + (long)r * kW * d_inner,
-                              static_cast<const T*>(a.bx) + (long)r * d_inner, old);
-  } else if (g == 1 || g == 2) {  // B's and C's channel k
-    const bool isB = g == 1;
-    x_new = Elem<BF16>::load(static_cast<const T*>(isB ? a.Bm : a.Cm), (long)rb * kN + k);
-    const float v = conv_step<BF16>(
-        static_cast<const T*>(isB ? a.conv_B : a.conv_C) + (long)rb * (kW - 1) * kN, kN, k,
-        x_new, static_cast<const T*>(isB ? a.wB : a.wC) + (long)r * kW * kN,
-        static_cast<const T*>(isB ? a.bB : a.bC) + (long)r * kN, old);
-    (isB ? B_s : C_s)[k] = v;
-  } else {  // silu(z) in the model dtype; dt and the decay
-    const float zv = Elem<BF16>::load(static_cast<const T*>(a.z), (long)rb * d_inner + h * kP + k);
-    sz_s[k] = round_to<BF16>(silu(zv));
+    xin = conv_load<BF16>(winx, d_inner, c, static_cast<const T*>(a.wx) + (long)r * kW * d_inner,
+                          static_cast<const T*>(a.bx) + (long)r * d_inner,
+                          static_cast<const T*>(a.xs), (long)rb * d_inner + c);
+  } else if (g == 1) {  // z's channel h P + k; dt's inputs
+    zv = Elem<BF16>::load(static_cast<const T*>(a.z), (long)rb * d_inner + h * kP + k);
     if (k == 0) {
-      const float raw = Elem<BF16>::load(static_cast<const T*>(a.dt), (long)rb * H + h);
-      const float d = softplus(__fadd_rn(raw, __ldg(a.dt_bias + (long)r * H + h)));
-      dt_s = d;
-      decay_s = expf(__fmul_rn(d, -expf(__ldg(a.A_log + (long)r * H + h))));
+      raw = Elem<BF16>::load(static_cast<const T*>(a.dt), (long)rb * H + h);
+      bias = __ldg(a.dt_bias + (long)r * H + h);
+      alog = __ldg(a.A_log + (long)r * H + h);
     }
   }
-  __syncthreads();
-  if (tid == 0) {  // every read of the shared B and C windows by this block is done
-    __threadfence();
-    last = atomicAdd(a.arrivals + rb, 1u) == (unsigned)H - 1;
-  }
-  __syncthreads();
+  const float Dh = __ldg(a.D + (long)r * H + h);
+  const bool row_lead = n0 == 0;  // the thread that finishes its rows
+  float nv[kVecs];
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q)
+    nv[q] = row_lead ? Elem<BF16>::load(static_cast<const T*>(a.norm),
+                                        (long)r * d_inner + h * kP + row0 + kRowStep * q)
+                     : 0.f;
+  float4* const st = reinterpret_cast<float4*>(a.ssm + ((long long)rb * H + h) * kP * kN) + tid;
+  float4 s[kVecs];
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q) s[q] = __ldcs(st + kStateThreads * q);  // evict first
+
+  // (1) the x conv step (each block shifts its head's x windows: no other
+  // block reads them), silu(z) in the model dtype, dt and the decay
   if (g == 0) {
-    shift<BF16>(static_cast<T*>(a.conv_x) + (long)rb * (kW - 1) * d_inner, d_inner, h * kP + k,
-                old, x_new);
-  } else if (last && (g == 1 || g == 2)) {
-    __threadfence();
-    shift<BF16>(static_cast<T*>(g == 1 ? a.conv_B : a.conv_C) + (long)rb * (kW - 1) * kN, kN, k,
-                old, x_new);
-    if (tid == 64) a.arrivals[rb] = 0u;  // for the next launch
+    xh_s[k] = conv_out<BF16>(xin);
+    shift<BF16>(winx, d_inner, h * kP + k, xin);
+  } else if (g == 1) {
+    sz_s[k] = round_to<BF16>(silu(zv));
+    if (k == 0) {
+      const float d = softplus(__fadd_rn(raw, bias));
+      dt_s = d;
+      decay_s = expf(__fmul_rn(d, -expf(alog)));
+    }
+  }
+  named_sync(1, kThreads);  // (A)
+
+  // (2) the state update in place, and each row's part of S C, summed over
+  // the row's 16 threads by shuffles
+  const float4 Bv = *reinterpret_cast<const float4*>(B_s + n0);
+  const float4 Cv = *reinterpret_cast<const float4*>(C_s + n0);
+  const float dt = dt_s, decay = decay_s;
+  float sq = 0.f;
+  float gv[kVecs];
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q) {
+    const int p = row0 + kRowStep * q;
+    const float xp = xh_s[p];
+    const float coef = __fmul_rn(dt, xp);
+    float4 v = s[q];
+    v.x = __fadd_rn(__fmul_rn(decay, v.x), __fmul_rn(coef, Bv.x));
+    v.y = __fadd_rn(__fmul_rn(decay, v.y), __fmul_rn(coef, Bv.y));
+    v.z = __fadd_rn(__fmul_rn(decay, v.z), __fmul_rn(coef, Bv.z));
+    v.w = __fadd_rn(__fmul_rn(decay, v.w), __fmul_rn(coef, Bv.w));
+    __stcs(st + kStateThreads * q, v);
+    float part = fmaf(v.x, Cv.x, 0.f);
+    part = fmaf(v.y, Cv.y, part);
+    part = fmaf(v.z, Cv.z, part);
+    part = fmaf(v.w, Cv.w, part);
+#pragma unroll
+    for (int o = 1; o < kRowVecs; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    gv[q] = __fmul_rn(__fadd_rn(part, __fmul_rn(Dh, xp)), sz_s[p]);
+    if (row_lead) sq = __fadd_rn(sq, __fmul_rn(gv[q], gv[q]));
   }
 
-  // (2) the state row p, columns [n0, n0 + 16): updated in place, and its part of S C
-  const int p = tid >> 2, n0 = (tid & 3) * kCols;
-  const float xp = xh_s[p];
-  const float coef = __fmul_rn(dt_s, xp);
-  const float decay = decay_s;
-  float4* st = reinterpret_cast<float4*>(a.ssm + (((long long)rb * H + h) * kP + p) * kN + n0);
-  float part = 0.f;
-#pragma unroll
-  for (int q = 0; q < kCols / 4; ++q) {
-    float4 v = st[q];
-    const int n = n0 + 4 * q;
-    v.x = __fadd_rn(__fmul_rn(decay, v.x), __fmul_rn(coef, B_s[n]));
-    v.y = __fadd_rn(__fmul_rn(decay, v.y), __fmul_rn(coef, B_s[n + 1]));
-    v.z = __fadd_rn(__fmul_rn(decay, v.z), __fmul_rn(coef, B_s[n + 2]));
-    v.w = __fadd_rn(__fmul_rn(decay, v.w), __fmul_rn(coef, B_s[n + 3]));
-    st[q] = v;
-    part = fmaf(v.x, C_s[n], part);
-    part = fmaf(v.y, C_s[n + 1], part);
-    part = fmaf(v.z, C_s[n + 2], part);
-    part = fmaf(v.w, C_s[n + 3], part);
-  }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
-  const float yv = __fadd_rn(part, __fmul_rn(__ldg(a.D + (long)r * H + h), xp));
-  const float gv = __fmul_rn(yv, sz_s[p]);
-
-  // (3) the per-head RMS norm over the P rows (each row once, from its first thread)
-  float sq = (tid & 3) == 0 ? __fmul_rn(gv, gv) : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if ((tid & 31) == 0) red[tid >> 5] = sq;
-  __syncthreads();
+  // (3) the per-head RMS norm over the P rows: each warp's 8 rows (its row
+  // leads' sums, in q order, then lanes 0 and 16), then the 8 warps in order
+  sq += __shfl_xor_sync(0xffffffffu, sq, kRowVecs);
+  if (lane == 0) red[warp] = sq;
+  named_sync(2, kStateThreads);
   float total = 0.f;
 #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) total += red[w];
+  for (int w = 0; w < kStateThreads / 32; ++w) total += red[w];
   const float inv = rsqrtf(__fadd_rn(__fdiv_rn(total, (float)kP), a.eps));
-  if ((tid & 3) == 0) {
-    const int c = h * kP + p;
-    const float nv = Elem<BF16>::load(static_cast<const T*>(a.norm), (long)r * d_inner + c);
-    Elem<BF16>::store(static_cast<T*>(a.y), (long)rb * d_inner + c,
-                      __fmul_rn(__fmul_rn(gv, inv), nv));
+  if (row_lead) {
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q)
+      Elem<BF16>::store(static_cast<T*>(a.y), (long)rb * d_inner + h * kP + row0 + kRowStep * q,
+                        __fmul_rn(__fmul_rn(gv[q], inv), nv[q]));
   }
 }
 
@@ -226,7 +320,8 @@ extern "C" {
 // conv_B, conv_C (R, B, W-1, N) and ssm (R, B, H, P, N) float32, updated in
 // place; y (R, B, H P). Everything but A_log, D, dt_bias and ssm in the model
 // dtype: float32 (dtype 0) or bf16 (dtype 1); every array contiguous, ssm
-// 16-byte aligned; `arrivals` R B unsigned ints of scratch, zeroed here.
+// 16-byte aligned; `arrivals` R B unsigned ints, 0 at the launch and left at
+// 0 by it (kept by the caller with the state; nothing here zeroes them).
 // Returns 0, a cudaError_t, or REPRO_BAD_ARGUMENT.
 int repro_ssd_step(const void* z, const void* xs, const void* Bm, const void* Cm,
                    const void* dt, const void* wx, const void* bx, const void* wB, const void* bB,
@@ -246,14 +341,13 @@ int repro_ssd_step(const void* z, const void* xs, const void* Bm, const void* Cm
       reinterpret_cast<uintptr_t>(arrivals) % 4)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = cudaMemsetAsync(arrivals, 0, sizeof(unsigned) * R * B, s);
-  if (err != cudaSuccess) return (int)err;
   const Args a = {z, xs, Bm, Cm, dt, wx, bx, wB, bB, wC, bC, A_log, D, dt_bias, norm,
                   conv_x, conv_B, conv_C, ssm, y, arrivals, B, H, eps};
+  const int grid = R * B * H;
   if (dtype == 1) {
-    ssd_step_kernel<true><<<R * B * H, kThreads, 0, s>>>(a);
+    ssd_step_kernel<true><<<grid, kThreads, 0, s>>>(a);
   } else {
-    ssd_step_kernel<false><<<R * B * H, kThreads, 0, s>>>(a);
+    ssd_step_kernel<false><<<grid, kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,11 @@ tensors.
   raises), and the train block calls the plain version itself.
 - ``ssd_step``: one token for R tenants x B slots from the projections'
   outputs to ``out_proj``'s input, the caches updated in place; one launch
-  a layer, one block per (sequence, head) (``step_grid``), an integer
-  arrival counter a sequence as scratch (``step_work_ints``).
+  a layer, one block per (sequence, head) (``step_grid``), the state read
+  first and in full 512-byte rows a warp (``STEP_VARIANT``). An integer
+  arrival counter a sequence (``step_work_ints``) is kept with the state it
+  guards (``step_arrivals``): made zeroed once, left at zero by every
+  launch, so a launch allocates and zeroes nothing.
 
 Shapes the kernels take (zamba2-7b's): P = 64 channels a head, state N = 64,
 conv window W = 4 (``SUPPORTED``); float32 or bf16 model dtypes.
@@ -38,13 +41,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.kernels import _build, ref
 
 scan_counter = _build.OpCounter()
 step_counter = _build.OpCounter()
 SCAN_VARIANT = "mma"      # SSD-scan on the path: its chunk products on the tensor cores
-STEP_VARIANT = "fused"    # SSD-step: a block a (sequence, head), one launch a layer
+STEP_VARIANT = "coalesced"  # SSD-step: a block a (sequence, head), the state read first, coalesced
 # SSD-scan's kernels by C code: the first (float32 FMAs on CUDA cores, kept
 # as the prior) and the tensor-core one
 SCAN_VARIANT_CODES = {"cuda_core": 0, "mma": 1}
@@ -90,8 +94,41 @@ def step_grid(R: int, B: int, H: int) -> int:
 
 
 def step_work_ints(R: int, B: int) -> int:
-    """The step's scratch: one arrival counter (int32) a sequence."""
+    """The step's counters: one arrival counter (int32) a sequence, which
+    each of its H blocks adds one to."""
     return R * B
+
+
+# the step's arrival counters by (device, state address, sequences), each
+# beside a weak reference to the storage of the state it guards
+_ARRIVALS: Dict[Tuple[torch.device, int, int], Tuple[StorageWeakRef, torch.Tensor]] = {}
+
+
+def step_arrivals(ssm: torch.Tensor, R: int, B: int) -> torch.Tensor:
+    """The arrival counters of the steps on the state ``ssm`` (R x B
+    sequences): ``step_work_ints(R, B)`` int32, zeroed when first asked
+    for, then the same tensor for every launch on that state. The kernel's
+    last block of a sequence resets its counter, so each launch leaves them
+    at 0 for the next, eager or replayed in a CUDA graph (the step graphs
+    are captured after an eager run on the same caches, so the counters
+    already exist). Keyed by the state's address; two launches that share
+    counters write one state, which no caller steps twice at once.
+
+    A set lives as long as its state's storage: when a new set is made,
+    those whose state was freed are dropped (a freed counter's memory goes
+    back to its stream's pool, after any launch queued on it), so the
+    registry holds the live states' sets and those freed since the last
+    new one, however many states a server makes and frees. A state made at
+    a freed one's address gets a new set at 0."""
+    key = (ssm.device, ssm.data_ptr(), R * B)
+    entry = _ARRIVALS.get(key)
+    if entry is None or entry[0].expired():
+        for k in [k for k, (state, _) in _ARRIVALS.items() if state.expired()]:
+            del _ARRIVALS[k]
+        entry = _ARRIVALS[key] = (
+            StorageWeakRef(ssm.untyped_storage()),
+            torch.zeros(step_work_ints(R, B), dtype=torch.int32, device=ssm.device))
+    return entry[1]
 
 
 def scan_route(is_cuda: bool, needs_grad: bool) -> str:
@@ -229,13 +266,13 @@ def ssd_step(
     if cache["ssm"].data_ptr() % 16:
         raise ValueError("ssd_step: the ssm state must be 16-byte aligned")
     y = torch.empty_like(xs)
-    work = torch.empty(step_work_ints(R, B), dtype=torch.int32, device=dev)
+    arrivals = step_arrivals(cache["ssm"], R, B)
     lib = _build.load("ssd_step")
     ptrs = [t.data_ptr() for t in (z, xs, Bm, Cm, dt)]
     ptrs += [p[k].data_ptr() for k in STEP_PARAMS]
     ptrs += [cache[k].data_ptr() for k in STEP_CACHES]
     with torch.cuda.device(dev):
-        status = lib.repro_ssd_step(*ptrs, y.data_ptr(), work.data_ptr(), R, B, H, P, N, W,
+        status = lib.repro_ssd_step(*ptrs, y.data_ptr(), arrivals.data_ptr(), R, B, H, P, N, W,
                                     _build.DTYPE_CODES[dtype], ref.SSD_NORM_EPS,
                                     _build.stream_of(z))
     _build.check_status(lib, "ssd_step", status)

@@ -148,5 +148,5 @@ def wkv6_state(
             B, H, T, N, V, ctypes.addressof(packed), _build.DTYPE_CODES[k.dtype], G,
             _build.stream_of(k))
     _build.check_status(lib, "wkv6_state", status)
-    counter.launched(VARIANT)
+    counter.launched(VARIANT, size=T)
     return final_state

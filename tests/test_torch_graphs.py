@@ -194,6 +194,25 @@ def test_opcounter_add_and_since():
     assert (c.launches, c.variants) == (7, {"wgmma": 4, "cuda_core": 3})
 
 
+def test_opcounter_counts_by_size_through_capture_and_replay():
+    """The by-size counts follow the by-variant ones: taken out at capture,
+    added back once a replay, and dropped where they come to 0."""
+    c = OpCounter()
+    c.launched("segmented", size=64)
+    snap = c.copy()
+    c.launched("segmented", size=512)
+    c.launched("segmented", size=64)
+    c.launched("segmented")  # a wrapper that names no size
+    d = c.since(snap)
+    assert (d.launches, d.sizes) == (3, {512: 1, 64: 1})
+    c.add(d, -1)
+    assert (c.launches, c.variants, c.sizes) == (1, {"segmented": 1}, {64: 1})
+    c.add(d, 2)
+    assert (c.launches, c.sizes) == (7, {64: 3, 512: 2})
+    c.reset()
+    assert (c.launches, c.variants, c.sizes) == (0, {}, {})
+
+
 # --------------------------------------------- the engine on the CPU: staging
 @pytest.fixture(scope="module")
 def zamba_tenants():

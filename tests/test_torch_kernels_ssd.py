@@ -19,6 +19,7 @@ by device and their counters; and ``_causal_conv`` (P8) against the JAX
 conv with ``F.conv1d`` unusable.
 """
 
+import contextlib
 import dataclasses
 import re
 from pathlib import Path
@@ -41,6 +42,9 @@ from repro_torch.models import build_model, ssm  # noqa: E402
 
 RTOL = ATOL = 1e-4
 CSRC = Path(ssd.__file__).resolve().parent / "csrc"
+# csrc/ssd_step.cu's block: state threads, threads, 16-byte state vectors a
+# thread, vectors a state row
+STEP_BLOCK = {"kStateThreads": 256, "kThreads": 288, "kVecs": 4, "kRowVecs": 16}
 
 
 def _randn(rng, *shape, scale=1.0):
@@ -354,6 +358,22 @@ def test_the_rules_mirror_the_kernel_sources():
     assert const(step, "kP") == ssd.SUPPORTED["P"] and const(step, "kW") == ssd.SUPPORTED["W"]
     for name in ("ssd_scan", "ssd_step"):
         assert name in _build.SOURCES and name in _build.SIGNATURES
+    # SSD-step's block: 8 state warps of 4 16-byte vectors a thread (16 a
+    # row) and warp 8 for the shared B and C windows; the state streamed
+    # with an evict-first hint; no memset and no scratch made by the launch;
+    # the sequence's last arriving block shifts the windows and resets its
+    # counter; no library call
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", step):
+        env[name] = int(eval(expr.replace("/", "//"), {}, dict(env)))
+    assert {name: env[name] for name in STEP_BLOCK} == STEP_BLOCK
+    assert env["kVecs"] * env["kStateThreads"] * 4 == ssd.SUPPORTED["P"] * ssd.SUPPORTED["N"]
+    assert "__ldcs(st + kStateThreads * q)" in step and "__stcs(st + kStateThreads * q, v)" in step
+    assert "Memset" not in step and "cudaMalloc" not in step and "cublas" not in step.lower()
+    for rule in ("atomicAdd(a.arrivals + rb, 1u)", "== (unsigned)H - 1",
+                 "a.arrivals[rb] = 0u", "named_arrive(1, kThreads)"):
+        assert rule in step, rule
+    assert ssd.STEP_VARIANT == "coalesced"
 
 
 def test_grids_and_scratch():
@@ -373,6 +393,47 @@ def test_grids_and_scratch():
         (1, 1), (1, 1), (1, 1), (1, 2), (1, 4), (2, 4), (8, 4), (12, 3), (13, 1)]
     assert ssd.step_grid(4, 4, H) == 1792 and ssd.step_grid(1, 4, H) == 448
     assert ssd.step_work_ints(4, 4) == 16 and ssd.step_work_ints(1, 4) == 4
+    # the step's counters: kept with the state, zeroed once, one set a state
+    # (and a sequence count), never made per launch
+    state = torch.zeros(4, 4, 2, 64, 64)
+    counters = ssd.step_arrivals(state, 4, 4)
+    assert counters.dtype == torch.int32 and counters.shape == (16,) and not counters.any()
+    assert ssd.step_arrivals(state, 4, 4) is counters
+    counters[3] = 7  # whatever a launch leaves is what the next one finds
+    assert int(ssd.step_arrivals(state, 4, 4)[3]) == 7
+    counters.zero_()
+    assert ssd.step_arrivals(torch.zeros_like(state), 4, 4) is not counters
+    tenant0 = state[:1]  # one tenant's view: the same address, other sequences
+    assert tenant0.data_ptr() == state.data_ptr()
+    assert ssd.step_arrivals(tenant0, 1, 4) is not counters
+    assert ssd.step_arrivals(tenant0, 1, 4).shape == (4,)
+
+
+def test_the_arrival_counters_live_as_long_as_their_state():
+    """A counter set is dropped once its state's storage is freed (when the
+    next new set is made), so states made and freed one after another, as
+    a server's prefills hand decode fresh ones, leave no sets behind; a
+    tenant's view keeps its set while the whole state lives."""
+    import gc
+
+    def sets():
+        return sum(1 for state, _ in ssd._ARRIVALS.values() if not state.expired())
+
+    before = len(ssd._ARRIVALS)
+    state = torch.zeros(2, 3, 2, 64, 64)
+    kept = ssd.step_arrivals(state[1:], 1, 3)
+    live = sets()
+    for _ in range(20):
+        ssd.step_arrivals(torch.zeros(1, 3, 2, 64, 64), 1, 3)
+        gc.collect()
+    assert sets() == live and len(ssd._ARRIVALS) <= before + 2
+    assert ssd.step_arrivals(state[1:], 1, 3) is kept
+    key = (state.device, state[1:].data_ptr(), 3)
+    del state, kept
+    gc.collect()
+    assert ssd._ARRIVALS[key][0].expired()
+    ssd.step_arrivals(torch.zeros(1, 3, 2, 64, 64), 1, 3)
+    assert key not in ssd._ARRIVALS
 
 
 def test_the_scan_route_raises_on_a_gradient_on_the_card():
@@ -505,6 +566,150 @@ def test_the_step_wrapper_refuses_before_the_launch(monkeypatch):
         ssd.ssd_step(dict(p, D=p["D"].to(torch.bfloat16)), cache, *proj)
     with pytest.raises(AssertionError, match="reached the launch"):
         ssd.ssd_step(p, cache, *proj)
+
+
+def test_the_step_launch_makes_no_scratch_and_no_memset(monkeypatch):
+    """The wrapper hands the kernel the counters kept with the state: the
+    same ones launch after launch on one cache, others for another cache,
+    and a launch after the first allocates nothing but y (the library call
+    stood in for; the C side zeroes nothing, as the source check shows)."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def repro_ssd_step(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "check_device", lambda t: None)
+    monkeypatch.setattr(_build, "load", lambda name: Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    p, cache, proj = _step_inputs(R=2, B=3, H=2)
+    other = {k: v.clone() for k, v in cache.items()}
+    ssd.ssd_step(p, cache, *proj)
+    made = []
+    for name in ("empty", "zeros", "full"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _real=real, _n=name, **k: (
+            made.append(_n), _real(*a, **k))[1])
+    y = ssd.ssd_step(p, cache, *proj)
+    assert made == [] and y.shape == (2, 3, 128)
+    ssd.ssd_step(p, other, *proj)
+    assert made == ["zeros"]  # the other state's counters, once
+    first, second, third = calls
+    assert first[20] == second[20] == ssd.step_arrivals(cache["ssm"], 2, 3).data_ptr()
+    assert third[20] == ssd.step_arrivals(other["ssm"], 2, 3).data_ptr() != first[20]
+    assert first[21:28] == (2, 3, 2, 64, 64, 4, _build.DTYPE_CODES[torch.bfloat16])
+    assert len(first) == len(_build.SIGNATURES["ssd_step"][0])
+
+
+def _emulated_launch(counters, H, orders):
+    """One SSD-step launch's arrivals as the kernel makes them: in sequence
+    rb, block h's warp 8 adds 1 to ``counters[rb]`` in the order
+    ``orders[rb]``; the block that finds H - 1 is the last, shifts the B
+    and C windows and writes 0. Returns, by sequence, the blocks that
+    shifted."""
+    shifted = []
+    for rb, order in enumerate(orders):
+        last = []
+        for h in order:
+            old = counters[rb]
+            counters[rb] = old + 1
+            if old == H - 1:
+                last.append(h)
+                counters[rb] = 0
+        shifted.append(last)
+    return shifted
+
+
+def test_the_arrival_counters_stay_right_over_successive_launches():
+    """The counters' arithmetic over 6 launches of 4 sequences, blocks
+    arriving in a new random order each launch: from counters made at 0,
+    exactly one block a sequence shifts, the H-th to arrive, after every
+    head has read, and each launch leaves every counter at 0 for the next.
+    Left stale at H (chip_smoke.py's control), no block shifts and the
+    counters stay off, launch after launch."""
+    H, seqs = 112, 4
+    rng = np.random.RandomState(0)
+    counters = ssd.step_arrivals(torch.zeros(1, seqs, 1, 64, 64), 1, seqs).tolist()
+    assert counters == [0] * seqs
+    for _ in range(6):
+        orders = [rng.permutation(H).tolist() for _ in range(seqs)]
+        shifted = _emulated_launch(counters, H, orders)
+        assert shifted == [[order[-1]] for order in orders]
+        assert counters == [0] * seqs
+    stale = [H] * seqs
+    for _ in range(3):
+        assert _emulated_launch(stale, H, [rng.permutation(H).tolist()
+                                           for _ in range(seqs)]) == [[]] * seqs
+    assert stale == [H + 3 * H] * seqs
+
+
+def test_the_coalesced_tile_matches_the_plain_step():
+    """The kernel's layout and sums for one head, emulated in float32 on the
+    plain step's own conv outputs and dt: thread t of the 256 state
+    threads owns the 16-byte vectors t + 256 q (rows t / 16 + 16 q, columns
+    4 (t % 16) .. + 3), every vector once; the new state, two products and
+    a sum, equals the plain version's bit for bit; y (a row's 4-column FMA
+    chains, the pairwise tree over its 16 threads, D x, the gate, the
+    norm's warp-then-block order) within float32 rounding of it."""
+    rng = np.random.RandomState(3)
+    H, P, N = 2, 64, 64
+    p, cache, proj = _step_inputs(R=1, B=1, H=H, dtype=torch.float32)
+    for t in (*p.values(), *cache.values(), *proj):
+        t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.5))
+    p["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H))[None])
+    p["norm"].add_(1.0)
+    s0 = cache["ssm"].clone()
+    conv = {k: cache[k].clone() for k in ("conv_x", "conv_B", "conv_C")}
+    want_y = ref.ssd_step(p, cache, *proj)
+    z, xs, Bm, Cm, dt_raw = proj
+
+    def conv_out(name, new):  # the plain version's conv output for this step
+        window = torch.cat([conv[name], new[:, :, None, :]], dim=2)
+        out = (window * p[f"{name}_w"][:, None]).sum(dim=2) + p[f"{name}_b"][:, None]
+        return torch.nn.functional.silu(out)[0, 0].numpy()
+
+    xc, Bc, Cc = conv_out("conv_x", xs), conv_out("conv_B", Bm), conv_out("conv_C", Cm)
+    dts = torch.nn.functional.softplus(dt_raw + p["dt_bias"][:, None])  # as the plain step
+    decay = torch.exp(dts * -torch.exp(p["A_log"])[:, None])[0, 0].numpy()
+    dts = dts[0, 0].numpy()
+    sz = torch.nn.functional.silu(z[0, 0]).numpy()
+    t = np.arange(256)
+    f = np.arange(4)[:, None] * 256 + t[None]           # (q, t): the vectors a thread owns
+    rows, n0 = f // 16, (f % 16) * 4
+    assert sorted(f.ravel().tolist()) == list(range(P * N // 4))
+    f32 = np.float32
+    for h in range(H):
+        S = s0[0, 0, h].numpy()
+        xh = xc[h * P:(h + 1) * P]
+        coef = f32(dts[h]) * xh                          # (P,)
+        cols = n0[..., None] + np.arange(4)              # (q, t, 4)
+        old = S[rows[..., None], cols]
+        new = f32(decay[h]) * old + coef[rows][..., None] * Bc[cols]
+        got_S = np.empty_like(S)
+        got_S[rows[..., None], cols] = new
+        np.testing.assert_array_equal(got_S, cache["ssm"][0, 0, h].numpy())
+        part = np.zeros(rows.shape, np.float32)          # fmaf over the 4 columns, in order
+        for c in range(4):
+            part = (new[..., c].astype(np.float64) * Cc[cols[..., c]] + part).astype(f32)
+        lanes = part.reshape(4, 16, 16)                  # (q, row of the q, its 16 threads)
+        for _ in range(4):                               # xor 1, 2, 4, 8: pairwise in lane order
+            lanes = (lanes[..., 0::2] + lanes[..., 1::2]).astype(f32)
+        y_rows = lanes[..., 0].ravel()                   # row 16 q + r, q-major: row order
+        gv = ((y_rows + f32(p["D"][0, h]) * xh).astype(f32) * sz[h * P:(h + 1) * P]).astype(f32)
+        sq = np.zeros(16, np.float32)                    # (warp, lane 0 or 16)
+        for q in range(4):
+            sq = (sq + gv[16 * q:16 * q + 16] ** 2).astype(f32)
+        warp = (sq[0::2] + sq[1::2]).astype(f32)
+        total = f32(0)
+        for w in range(8):
+            total = f32(total + warp[w])
+        inv = f32(1) / np.sqrt(f32(total / f32(P) + f32(ref.SSD_NORM_EPS)), dtype=f32)
+        got_y = gv * inv * p["norm"][0, h * P:(h + 1) * P].numpy()
+        np.testing.assert_allclose(got_y, want_y[0, 0, h * P:(h + 1) * P].numpy(),
+                                   rtol=1e-5, atol=1e-6)
 
 
 def test_routes_and_counters_on_the_cpu_and_meta():

@@ -276,6 +276,7 @@ def test_a_prefill_launches_one_scan_and_in_bf16_one_state_pass_per_layer(dtype,
     if dtype == "float32":
         return
     assert ops.COUNTERS["wkv6_state"].variants == {wks.VARIANT: L}
+    assert ops.COUNTERS["wkv6_state"].sizes == {S: L}  # a layer's launch, T = S
     for layer in range(L):
         scan, state = lib.calls[2 * layer][1], lib.calls[2 * layer + 1][1]
         wkv = caches["wkv"][layer].data_ptr()
@@ -285,6 +286,27 @@ def test_a_prefill_launches_one_scan_and_in_bf16_one_state_pass_per_layer(dtype,
         assert state["segments"] == wks.segments(B * H, S) == 1
         # the (B, H, S, N) views of (B, S, H, N) projections, passed as they are
         assert state["strides"] == [S * H * N, N, H * N] * 3
+
+
+def test_the_wrapper_counts_its_launches_by_length(monkeypatch):
+    """Each launch counts once in all, once under its variant and once
+    under its length T (the piece sizes' launches that chip_smoke.py's
+    K5-state rows report); a call that raises counts nothing."""
+    lib = _StubLib()
+    monkeypatch.setattr(_build, "check_device", lambda t: None)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    ops.reset_counters()
+    gen = torch.Generator().manual_seed(3)
+    for T in (512, 64, 1, 64, 1, 1):
+        k, v = (torch.randn(2, T, 32, generator=gen).to(torch.bfloat16) for _ in range(2))
+        wks.wkv6_state(k, v, torch.randn(2, T, 32, generator=gen))
+    with pytest.raises(TypeError):
+        wks.wkv6_state(k, v, torch.randn(2, 1, 32, generator=gen).to(torch.bfloat16))
+    c = ops.COUNTERS["wkv6_state"]
+    assert (c.launches, c.variants, c.sizes) == (6, {wks.VARIANT: 6}, {512: 1, 64: 2, 1: 3})
+    assert [a["T"] for _, a in lib.calls] == [512, 64, 1, 64, 1, 1]
 
 
 def test_the_meta_state_pass_counts_the_loops_arithmetic():
