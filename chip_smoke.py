@@ -2682,14 +2682,14 @@ def live_decay_(params, gen):
         layers.normal_(lp["w_lora_b"], LORA_B_SCALE, gen)
 
 
-def wkv_inputs(gen, dev, dtype, T, w_dtype=None, w_mean=-3.0, w_std=1.0):
+def wkv_inputs(gen, dev, dtype, T, w_dtype=None, w_mean=-3.0, w_std=1.0, N=WKV_N):
     """r, k, v, w as the serving path hands them to K5: (1, T, H, N)
-    projections read as (1, H, T, N) views; r, k, v ~ 0.5 N(0, 1) and decay
-    logits w ~ N(w_mean, w_std) (by default decays from 0.37 to 0.998); u
-    (H, N) ~ 0.3 N(0, 1)."""
+    projections read as (1, H, T, N) views (N = V, rwkv6's 64 by default);
+    r, k, v ~ 0.5 N(0, 1) and decay logits w ~ N(w_mean, w_std) (by default
+    decays from 0.37 to 0.998); u (H, N) ~ 0.3 N(0, 1)."""
     import torch
 
-    shape = (1, T, WKV_HEADS, WKV_N)
+    shape = (1, T, WKV_HEADS, N)
 
     def proj(scale, shift=0.0, dt=dtype):
         t = torch.randn(shape, generator=gen, device=dev) * scale + shift
@@ -2697,7 +2697,7 @@ def wkv_inputs(gen, dev, dtype, T, w_dtype=None, w_mean=-3.0, w_std=1.0):
 
     r, k, v = proj(0.5), proj(0.5), proj(0.5)
     w = proj(w_std, w_mean, w_dtype or dtype)
-    u = torch.randn((WKV_HEADS, WKV_N), generator=gen, device=dev) * 0.3
+    u = torch.randn((WKV_HEADS, N), generator=gen, device=dev) * 0.3
     return r, k, v, w, u
 
 
@@ -2836,18 +2836,41 @@ def state_work(BH, T, N, V, dtype):
     return nbytes, 3 * N * V * BH * T
 
 
-def check_state(ops, name, k, v, w, s0):
-    """The state pass against its plain version from ``s0`` (None: zero), at
-    WKV_TOL; returns (max error, the kernel's state)."""
+def state_bound(BH, T, N, V, dtype, kind):
+    """K5-state's bound from ``state_work``: the larger of its bytes at the
+    memory rate and its operations at the rate of the units its ``kind`` of
+    kernel runs them on: the CUDA cores' float32 rate for ``segmented``;
+    for ``row_blocks``, whose tiles are tensor-core products, float32-
+    accurate TF32 passes as SSD-scan's (``ssd_scan_bound``: two for bf16 v,
+    exact in TF32, three for float32). Returns (bound_ms, bound_by)."""
+    nbytes, flops = state_work(BH, T, N, V, dtype)
+    if kind != "row_blocks":
+        return bound(nbytes, flops, "torch.float32")
+    passes = 2 if "bfloat16" in str(dtype) else 3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops * passes / PEAK_FLOPS["tf32"] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_state(ops, name, k, v, w, s0, kernel=None):
+    """The state pass (its wrapper's rule, or ``kernel`` launched directly)
+    against its plain version from ``s0`` (None: zero), at WKV_TOL, tagged
+    with the variant its wrapper counted; returns (max error, the kernel's
+    state)."""
     import torch
 
     from repro_torch.kernels import wkv6_state as ws
 
-    got = ops.wkv6_state(k, v, w, init_state=s0)
+    counter = ops.COUNTERS["wkv6_state"]
+    before = counter.copy()
+    got = (ops.wkv6_state(k, v, w, init_state=s0) if kernel is None else
+           ws.wkv6_state(k, v, w, s0, kernel=kernel))
     want = ops.wkv6_state_plain(k, v, w, init_state=s0)
     torch.cuda.synchronize()
-    BH = got.shape[0]
-    tag = f"{name} [{ws.VARIANT}, {ws.segments(BH, k.shape[-2])} segments]"
+    kinds = sorted(counter.since(before).variants)
+    if kinds == ["segmented"]:
+        kinds = [f"segmented, {ws.segments(got.shape[0], k.shape[-2])} segments"]
+    tag = f"{name} [{', '.join(kinds)}]"
     return check_close(tag, got, want, "torch.float32", WKV_TOL), got
 
 
@@ -2856,8 +2879,11 @@ def phase_state_kernel(ops, dev, seed):
     with float32 w, every T of WKV_TS, from a zero and a random state, in
     one buffer (``final_state is init_state``) bitwise as into a new one;
     777 steps against 512 then 265 from the carried state; strong and weak
-    decay; the (BH, T, N) form; the head sizes of STATE_HEADS."""
+    decay; the (BH, T, N) form; the head sizes of STATE_HEADS under both
+    kernels."""
     import torch
+
+    from repro_torch.kernels import wkv6_state as ws
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 11)
@@ -2894,7 +2920,62 @@ def phase_state_kernel(ops, dev, seed):
         for N, V in STATE_HEADS:
             _, k, v, w, _ = wkv_case_inputs(gen, dev, dtype, 8, 200, N, V)
             s0 = torch.randn((8, N, V), generator=gen, device=dev)
-            check_state(ops, f"{tag} (BH, T, N, V)={(8, 200, N, V)}", k, v, w.float(), s0)
+            for kind in ws.VARIANT_CODES:
+                check_state(ops, f"{tag} (BH, T, N, V)={(8, 200, N, V)}", k, v, w.float(), s0,
+                            kernel=kind)
+
+
+ROW_BLOCK_HEADS = (8, 32, 64)  # N = V of the row-block checks at every piece size
+
+
+def phase_row_blocks(ops, dev, seed):
+    """(a) the state pass's row-block kernel (launched directly) against its
+    plain version at every piece size (``state_pieces``) and N = V in
+    ROW_BLOCK_HEADS, bf16 and float32 k, v as the model's (1, H, T, N)
+    views, float32 w ~ N(STATE_W_MEAN, 1), from a random state; in one buffer
+    (``final_state is init_state``) bitwise as into a new one. ``ok`` only
+    after its control fails the same check: one row of one head's incoming
+    state perturbed, which must move that row alone (the rows are
+    independent), every other row bitwise as before."""
+    import torch
+
+    from repro_torch.kernels import wkv6_state as ws
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 14)
+    name = "wkv6_state row_blocks, 512-token piece, N = V = 64, bf16, random state"
+    _, k, v, w, _ = wkv_inputs(gen, dev, torch.bfloat16, 512, w_dtype=torch.float32,
+                               w_mean=STATE_W_MEAN)
+    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+    want = ops.wkv6_state_plain(k, v, w, init_state=s0)
+    good = ws.wkv6_state(k, v, w, s0, kernel="row_blocks")
+    bad_in = s0.clone()
+    bad_in[3, 37] += 1.0  # head 3, row 37: the third of its four row blocks
+    bad = ws.wkv6_state(k, v, w, bad_in, kernel="row_blocks")
+    torch.cuda.synchronize()
+    moved = (bad != good).any(dim=-1)
+    if moved.sum() != 1 or not moved[3, 37]:
+        raise PhaseFailed(f"{name}: a perturbed state row moved rows "
+                          f"{moved.nonzero().tolist()}, not (3, 37) alone")
+
+    def control():
+        check_close(name, bad, want, "torch.float32", WKV_TOL)
+
+    must_fail("one row of the incoming state perturbed", control)
+    for dtype in (torch.bfloat16, torch.float32):
+        for N in ROW_BLOCK_HEADS:
+            for T in state_pieces():
+                _, k, v, w, _ = wkv_inputs(gen, dev, dtype, T, w_dtype=torch.float32,
+                                           w_mean=STATE_W_MEAN, N=N)
+                s0 = torch.randn((WKV_HEADS, N, N), generator=gen, device=dev)
+                tag = f"wkv6_state {str(dtype)[6:]} T={T} N=V={N} random state"
+                _, whole = check_state(ops, tag, k, v, w, s0, kernel="row_blocks")
+                buf = s0.clone()
+                if ws.wkv6_state(k, v, w, buf, buf, kernel="row_blocks") is not buf:
+                    raise PhaseFailed(f"{tag}: the state is not the caller's buffer")
+                torch.cuda.synchronize()
+                if not torch.equal(buf, whole):
+                    raise PhaseFailed(f"{tag}: in place is not bitwise the new buffer's state")
 
 
 def measure_state(ops, dev, seed, T):
@@ -2932,10 +3013,9 @@ def measure_state(ops, dev, seed, T):
     ms, prior_ms, turns = timed_turns(
         lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf),
         lambda: ops.wkv6_scan(r, k, v, w, u, init_state=prior_buf, final_state=prior_buf), 20)
-    nbytes, flops = state_work(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16)
-    bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
+    bound_ms, bound_by = state_bound(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16, ws.variant(T))
     row = {
-        "variant": ws.VARIANT, "segments": ws.segments(WKV_HEADS, T),
+        "variant": ws.variant(T), "segments": ws.segments(WKV_HEADS, T),
         "shape": f"median prompt: {WKV_HEADS} heads, T={T}, bf16 k, v, float32 w",
         "max_abs_err": err, "ms": ms, "prior": "wkv6_scan chunked, float32 w", "prior_ms": prior_ms,
         "turns_ms": turns,
@@ -2946,9 +3026,8 @@ def measure_state(ops, dev, seed, T):
     }
     log(f"    ms={ms:.4f} prior_ms={prior_ms:.4f} (the chunked K5 with float32 w, "
         f"{prior_ms / ms:.2f}x; turns {', '.join(f'{t:.4f}' for t in turns)}) "
-        f"plain_ms={row['plain_ms']:.4f} library: none bound_ms={bound_ms:.4f} ({bound_by}; bytes "
-        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f}, operations "
-        f"{flops / PEAK_FLOPS['torch.float32'] * 1e3:.4f}) kernel/bound={ms / bound_ms:.1f}")
+        f"plain_ms={row['plain_ms']:.4f} library: none bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"kernel/bound={ms / bound_ms:.1f}")
     return {"name": "wkv6_state", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6_state.cu",
             "replaces": REPLACES["wkv6_state"], **row}
@@ -3148,6 +3227,8 @@ def phase_rwkv(ops, dev, seed, profile=False):
     phase_wkv_kernel(ops, dev, seed)
     log(" (a) the state pass wkv6_state against its plain version")
     phase_state_kernel(ops, dev, seed)
+    log(" (a) its row-block kernel at every piece size of the graphed prefill")
+    phase_row_blocks(ops, dev, seed)
     log(f"  the state pass at the serving run's median prompt (T={median}): controls, check, "
         "times")
     state_row = measure_state(ops, dev, seed, median)
@@ -3169,9 +3250,9 @@ def phase_rwkv(ops, dev, seed, profile=False):
             if per[op] != cfg.num_layers * n * prefills:
                 raise PhaseFailed(f"{mode}: {op} launched {per[op]} times, not "
                                   f"{cfg.num_layers * n} per prefill pass ({prefills})")
-    by_variant = {op: dict(ops.COUNTERS[op].variants) for op in per_layer}
-    # the state pass's launches by piece length, as its wrapper counts them
-    by_size = dict(ops.COUNTERS["wkv6_state"].sizes)
+    # both ops' launches by (variant, piece length), as their wrappers count them
+    counted = {op: ops.COUNTERS[op].copy() for op in per_layer}
+    by_variant = {op: counted[op].variants for op in per_layer}
     log(f"  launches per mode: " + ", ".join(f"{op} {cfg.num_layers * n * prefills} = "
                                             f"{cfg.num_layers} layers x {n} x {prefills} prefill "
                                             f"passes ({REQUESTS} prompts)"
@@ -3179,13 +3260,11 @@ def phase_rwkv(ops, dev, seed, profile=False):
         + f"; by variant on the serving path: {by_variant}; w of the wkv6_scan calls "
         f"({len(w_dtypes)}: eager warm-ups and captures, whose launches replays repeat): "
         f"{sorted(set(str(d) for d in w_dtypes))}")
-    from repro_torch.kernels import wkv6_state as ws
-
-    want_variant = {"wkv6_scan": "chunked", "wkv6_state": ws.VARIANT}
-    for op in per_layer:
-        if by_variant[op] != {want_variant[op]: launches[op]}:
-            raise PhaseFailed(f"{op}: {launches[op]} launches on the serving path, not all "
-                              f"{want_variant[op]}: {by_variant[op]}")
+    if by_variant["wkv6_scan"] != {"chunked": launches["wkv6_scan"]}:
+        raise PhaseFailed(f"wkv6_scan: {launches['wkv6_scan']} launches on the serving path, not "
+                          f"all chunked: {by_variant['wkv6_scan']}")
+    if "wkv6_state" in per_layer:
+        check_state_launches(launches, counted)
     # every launch is an eager call or a replay of a captured call: the spy
     # sees both kinds of call, and a replay repeats what it saw captured
     if not w_dtypes or torch.float32 in w_dtypes:
@@ -3202,57 +3281,141 @@ def phase_rwkv(ops, dev, seed, profile=False):
     if "wkv6_state" in per_layer:
         rows.append({**state_row, "launches": launches["wkv6_state"],
                      "launches_by_variant": by_variant["wkv6_state"]})
-        if sum(by_size.values()) != launches["wkv6_state"]:
-            raise PhaseFailed(f"wkv6_state: {launches['wkv6_state']} launches on the serving "
-                              f"path, {sum(by_size.values())} counted by size: {by_size}")
-        rows += measure_state_pieces(ops, dev, seed, by_size)
+        rows += measure_state_pieces(ops, dev, seed, counted)
     return rows
 
 
-STATE_PIECES = (512, 64, 1)  # K5-state's rows at the graphed route's piece sizes
+def check_state_launches(launches, counted):
+    """The serving path's K5-state and K5 launches, as their wrappers counted
+    them by (variant, piece length) (``counted[op]``): every length a piece
+    size (``state_pieces``); every K5-state launch up to
+    ``ROW_BLOCKS_MAX_T`` steps the row-block kernel and every longer one
+    segmented; one K5 launch beside each K5-state launch at every length;
+    the counts by length summing to K5-state's launches."""
+    from repro_torch.kernels import wkv6_state as ws
+
+    state, scan = counted["wkv6_state"].sizes, counted["wkv6_scan"].sizes
+    table = {T: {kind: n for (kind, t), n in counted["wkv6_state"].variant_sizes.items()
+                 if t == T}
+             for T in sorted(state, reverse=True)}
+    log(f"  wkv6_state serving launches by piece size and variant: {table} (sum "
+        f"{sum(state.values())} of {launches['wkv6_state']}); wkv6_scan by piece size: "
+        f"{dict(sorted(scan.items(), reverse=True))}")
+    wrong = {T: kinds for T, kinds in table.items()
+             if set(kinds) != {"row_blocks" if T <= ws.ROW_BLOCKS_MAX_T else "segmented"}}
+    if (wrong or not set(state) <= set(state_pieces()) or scan != state
+            or sum(state.values()) != launches["wkv6_state"]):
+        raise PhaseFailed(f"wkv6_state: serving launches by piece size and variant {table} "
+                          f"(not the rule's at {sorted(wrong)}), {launches['wkv6_state']} in all; "
+                          f"wkv6_scan by size {scan}")
 
 
-def measure_state_pieces(ops, dev, seed, by_size):
-    """The state pass at the graphed route's piece sizes (STATE_PIECES; 32
-    heads, bf16 k, v, float32 w ~ N(STATE_W_MEAN, 1), from a random state):
-    checked against its plain version, then timed beside its plain version
-    and its bound, with its segment count and the serving path's launches
-    at that size (``by_size``: the wrapper's counts by T over both modes)."""
+def state_pieces():
+    """Every piece size of the graphed prefill at phase 5's cache, longest
+    first, by the engine's rule. K5-state and K5 get a row at each."""
+    from repro_torch.serving.engine import piece_sizes
+
+    return piece_sizes(0, CACHE_LEN)
+
+
+PIECE_ITERS = 50  # timed launches a piece size
+
+
+def piece_kernel_times(ops, gen, dev, T, state_prior=None):
+    """K5-state and K5 at one T-token piece of the graphed prefill, called as
+    ``rwkv_prefill`` calls them: 32 heads, bf16 r, k, v as (1, H, T, N)
+    views, a random state; K5-state from float32 w ~ N(STATE_W_MEAN, 1) into
+    the state in place, K5 from w rounded to bf16 into a scratch state. Each
+    is checked against its plain version, then timed (``time_ms``) beside its
+    plain version and its bound; ``state_prior(k, v, w, s0, s_out)``, where
+    given, is another K5-state kernel, checked likewise and timed in turns
+    with the rule's (``timed_turns``). Returns {op: record}, each with the
+    variant its wrapper counted for one launch. Reads nothing of the
+    wrappers but their counters, so it times an older checkout's kernels
+    too (``experiments/prefill_turns.py --routes state``)."""
+    import torch
+
+    r, k, v, w, u = wkv_inputs(gen, dev, torch.bfloat16, T, w_dtype=torch.float32,
+                               w_mean=STATE_W_MEAN)
+    wb = w.to(torch.bfloat16)
+    s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
+    buf, prior_buf, scratch = s0.clone(), s0.clone(), torch.empty_like(s0)
+    err_state, _ = check_state(ops, f"wkv6_state a {T}-token piece from a random state",
+                               k, v, w, s0)
+    err_scan, _, _ = check_wkv(ops, f"wkv6_scan a {T}-token piece from a random state",
+                               torch.bfloat16, (r, k, v, wb, u), s0)
+    cases = {
+        "wkv6_state": (err_state, None,
+                       lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf),
+                       lambda: ops.wkv6_state_plain(k, v, w, init_state=buf, final_state=buf)),
+        "wkv6_scan": (err_scan, wkv_work(T, torch.bfloat16),
+                      lambda: ops.wkv6_scan(r, k, v, wb, u, init_state=s0, final_state=scratch),
+                      lambda: ops.wkv6_scan_plain(r, k, v, wb, u, init_state=s0,
+                                                  final_state=scratch)),
+    }
+    recs = {}
+    for op, (err, work, kernel, plain) in cases.items():
+        before = ops.COUNTERS[op].copy()
+        kernel()
+        (kind,) = ops.COUNTERS[op].since(before).variants
+        bound_ms, bound_by = (bound(*work, "torch.float32") if work else
+                              state_bound(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16, kind))
+        recs[op] = {"T": T, "variant": kind, "max_abs_err": err,
+                    "plain_ms": time_ms(plain, 3, 1), "bound_ms": bound_ms, "bound_by": bound_by}
+        if op == "wkv6_state" and state_prior is not None:
+            want = ops.wkv6_state_plain(k, v, w, init_state=s0)
+            got = state_prior(k, v, w, s0, scratch)
+            torch.cuda.synchronize()
+            check_close(f"wkv6_state prior at a {T}-token piece", got, want, "torch.float32",
+                        WKV_TOL)
+            recs[op]["ms"], recs[op]["prior_ms"], recs[op]["turns_ms"] = timed_turns(
+                kernel, lambda: state_prior(k, v, w, prior_buf, prior_buf), PIECE_ITERS)
+        else:
+            recs[op]["ms"] = time_ms(kernel, PIECE_ITERS)
+    return recs
+
+
+def measure_state_pieces(ops, dev, seed, counted):
+    """K5-state's and K5's rows at every piece size of the graphed prefill
+    (``state_pieces``, ``piece_kernel_times``; K5-state's row-block pieces
+    with the segmented kernel launched on the same inputs as their prior),
+    each with the serving path's launches at that size by variant, as the
+    wrappers counted them (``counted[op]``, over both modes)."""
     import torch
 
     from repro_torch.kernels import wkv6_state as ws
 
-    log(f"  wkv6_state serving launches by piece size: {dict(sorted(by_size.items()))} (sum "
-        f"{sum(by_size.values())})")
+    def segmented(k, v, w, s0, s_out):
+        return ws.wkv6_state(k, v, w, s0, s_out, kernel="segmented")
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 13)
+    sources = {"wkv6_state": "src/repro_torch/kernels/csrc/wkv6_state.cu",
+               "wkv6_scan": "src/repro_torch/kernels/csrc/wkv6_scan.cu"}
     rows = []
-    for T in STATE_PIECES:
-        _, k, v, w, _ = wkv_inputs(gen, dev, torch.bfloat16, T, w_dtype=torch.float32,
-                                   w_mean=STATE_W_MEAN)
-        s0 = torch.randn((WKV_HEADS, WKV_N, WKV_N), generator=gen, device=dev)
-        err, _ = check_state(ops, f"wkv6_state a {T}-token piece from a random state", k, v, w,
-                             s0)
-        buf = s0.clone()
-        ms = time_ms(lambda: ops.wkv6_state(k, v, w, init_state=buf, final_state=buf), 50)
-        plain_ms = time_ms(lambda: ops.wkv6_state_plain(k, v, w, init_state=buf,
-                                                        final_state=buf), 3, 1)
-        nbytes, flops = state_work(WKV_HEADS, T, WKV_N, WKV_N, torch.bfloat16)
-        bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
-        G = ws.segments(WKV_HEADS, T)
-        log(f"    wkv6_state T={T} ({G} segments a head): ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library: none bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound={ms / bound_ms:.1f} "
-            f"serving launches at this size {by_size.get(T, 0)}")
-        n = by_size.get(T, 0)
-        rows.append({"name": "wkv6_state", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/wkv6_state.cu",
-                     "replaces": REPLACES["wkv6_state"], "variant": ws.VARIANT, "segments": G,
-                     "shape": f"a {T}-token piece of the graphed prefill: {WKV_HEADS} heads, "
-                              "bf16 k, v, float32 w, from a state",
-                     "launches": n, "launches_by_variant": {ws.VARIANT: n},
-                     "launches_counted": "at this piece size",
-                     "max_abs_err": err, "ms": ms, "prior_ms": None, "plain_ms": plain_ms,
-                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+    for T in state_pieces():
+        prior = segmented if ws.variant(T) != "segmented" else None
+        for op, rec in piece_kernel_times(ops, gen, dev, T, prior).items():
+            at_T = {kind: n for (kind, t), n in counted[op].variant_sizes.items() if t == T}
+            prior_ms = rec.get("prior_ms")
+            log(f"    {op} T={T} [{rec['variant']}]: ms={rec['ms']:.4f} "
+                + (f"prior_ms={prior_ms:.4f} (segmented, turns "
+                   f"{', '.join(f'{x:.4f}' for x in rec['turns_ms'])}) " if prior_ms else "")
+                + f"plain_ms={rec['plain_ms']:.4f} library: none bound_ms={rec['bound_ms']:.4f} "
+                f"({rec['bound_by']}) kernel/bound={rec['ms'] / rec['bound_ms']:.1f} serving "
+                f"launches at this size {at_T}")
+            rows.append({"name": op, "route": "cuda", "source": sources[op],
+                         "replaces": REPLACES[op], "variant": rec["variant"],
+                         "shape": f"a {T}-token piece of the graphed prefill: {WKV_HEADS} heads, "
+                                  + ("bf16 k, v, float32 w" if op == "wkv6_state" else
+                                     "bf16 r, k, v, w") + ", from a state",
+                         "launches": sum(at_T.values()), "launches_by_variant": at_T,
+                         "launches_counted": "at this piece size",
+                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                         "prior": "wkv6_state segmented" if prior_ms else None,
+                         "prior_ms": prior_ms, "turns_ms": rec.get("turns_ms"),
+                         "plain_ms": rec["plain_ms"], "library_ms": None,
+                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]})
     return rows
 
 
@@ -6177,7 +6340,8 @@ def p11_long_context(ops, dev, seed):
     for name, t, (nbytes, flops), extra in (
             ("wkv6_scan", k5_ms, (k5_bytes, k5_flops), {"variant": "chunked", "w": "bf16"}),
             ("wkv6_state", ms, (st_bytes, st_flops),
-             {"variant": ws.VARIANT, "segments": ws.segments(WKV_HEADS, T), "w": "float32",
+             {"variant": ws.variant(T), "segments": ws.segments(WKV_HEADS, T),
+              "w": "float32",
               "prior": "wkv6_scan chunked, float32 w", "prior_ms": prior_ms, "turns_ms": turns})):
         bound_ms, bound_by = bound(nbytes, flops, "torch.float32")
         rows[name] = {"shape": f"({WKV_HEADS} heads, T={T}, N=V={WKV_N}), bf16 k, v", "ms": t,

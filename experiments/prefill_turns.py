@@ -6,6 +6,7 @@
         --routes whole,pieces,graphed
     python3 experiments/prefill_turns.py --root DIR --routes whole,graphed,decode
     python3 experiments/prefill_turns.py --root DIR --routes step
+    python3 experiments/prefill_turns.py --root DIR --routes state
 
 Builds each ``--arch`` at full width and depth (bf16, seeded random weights,
 one tenant) from the port under ``DIR/src`` (default: the checkout this
@@ -46,6 +47,17 @@ positions by each route of ``--routes``:
   JSON line per (dtype, R, B) with the launches by variant and the
   library's register report.
 
+- ``state``: not a prefill, and no model. K5-state (``ops.wkv6_state``)
+  and K5 (``ops.wkv6_scan``) alone at rwkv6-1.6b's 32 heads, at every
+  piece size of the graphed prefill (``chip_smoke.state_pieces``, 1024
+  down to 1 tokens), by this checkout's ``chip_smoke.piece_kernel_times``
+  (the harness of phase 5's rows at those sizes): each checked against its
+  plain version, then timed by CUDA events behind a sleep. Runs once,
+  whatever ``--arch``; one JSON line per op and size with the variant its
+  wrapper counted. ``--state-lengths`` times other lengths by the same
+  harness (e.g. the median whole prompt 742 and phase 11's 32768, where
+  K5-state takes its segmented kernel).
+
 Each prefill route prefills two prompts unmeasured, then every prompt ``--repeats``
 times, each prefill timed on the host clock around a synchronize. One
 prefill of the median prompt runs under ``torch.profiler``: its wall, its
@@ -84,10 +96,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--arch", default="zamba2-7b", help="comma list")
     ap.add_argument("--routes", default="whole",
-                    help="comma list of whole, pieces, graphed, decode, step")
+                    help="comma list of whole, pieces, graphed, decode, step, state")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--steps", type=int, default=8, help="steady decode steps (route decode)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--state-lengths", default=None,
+                    help="comma list of lengths for route state (default: every piece size)")
     args = ap.parse_args(argv)
 
     import torch
@@ -99,15 +113,18 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     routes = args.routes.split(",")
-    # every kernel at once, one nvcc a source (SSD-step's alone for the step route)
-    _build.build(["ssd_step"] if routes == ["step"] else _build.SOURCES)
+    # every kernel at once, one nvcc a source (only their own for the step and state routes)
+    alone = {"step": ["ssd_step"], "state": ["wkv6_state", "wkv6_scan"]}
+    _build.build(sorted({n for r in routes for n in alone[r]}) if set(routes) <= set(alone)
+                 else _build.SOURCES)
     ident = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                            capture_output=True, text=True).stdout.strip()
-    if "step" in routes:
-        routes.remove("step")
-        for rec in measure_step(args):
-            rec["card"] = ident
-            print(json.dumps({"prefill_turns": rec}), flush=True)
+    for route, measure_alone in (("step", measure_step), ("state", measure_state)):
+        if route in routes:
+            routes.remove(route)
+            for rec in measure_alone(args):
+                rec["card"] = ident
+                print(json.dumps({"prefill_turns": rec}), flush=True)
     for arch in args.arch.split(",") if routes else []:
         for route in routes:
             recs = ([measure_decode(arch, mode, args) for mode in ("space_time", "time_only")]
@@ -209,6 +226,33 @@ def measure_step(args) -> list:
                          "launches_by_variant": dict(ops.COUNTERS["ssd_step"].variants),
                          "build_report": regs})
             torch.cuda.empty_cache()
+    return recs
+
+
+def measure_state(args) -> list:
+    """K5-state and K5 alone at every piece size of chip_smoke.py's
+    ``state_pieces`` (or ``--state-lengths``), by
+    ``chip_smoke.piece_kernel_times``."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+
+    sys.path.append(str(Path(__file__).resolve().parents[1]))  # this checkout's chip_smoke.py
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 13)
+    report = _build.build_log("wkv6_state")
+    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+    recs = []
+    lengths = ([int(x) for x in args.state_lengths.split(",")] if args.state_lengths
+               else cs.state_pieces())
+    for T in lengths:
+        for op, rec in cs.piece_kernel_times(ops, gen, dev, T).items():
+            recs.append({"root": args.root, "route": "state", "op": op, "heads": cs.WKV_HEADS,
+                         **rec,
+                         "build_report": regs if op == "wkv6_state" else []})
     return recs
 
 

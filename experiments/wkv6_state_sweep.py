@@ -8,8 +8,10 @@ For rwkv6-1.6b's heads (N = V = 64, bf16 k and v as (1, H, T, N) views,
 float32 w ~ N(-6, 1), a random state updated in place) it times the kernel
 at every segment count from 1 to 8 that leaves each segment at least one
 64-step tile (``wkv6_state.segments`` replaced by the count for the
-launch), beside the count the rule picks and the chunked K5 with float32 w
-on the same inputs (the launch the state pass replaced in a bf16 prefill).
+launch), beside the count the rule picks, the row-block kernel (which
+``wkv6_state.variant`` takes up to 512 steps) and the chunked K5 with
+float32 w on the same inputs (the launch the state pass replaced in a bf16
+prefill).
 Times are device ms from ``chip_smoke.time_ms`` (CUDA events over
 back-to-back launches queued behind a sleep kernel). Prints one JSON line
 with the card's name and power limit. Needs a CUDA card; exits 2 without
@@ -29,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--heads", type=int, default=32)
-    ap.add_argument("--lengths", default="64,256,742,2048,8192,32768")
+    ap.add_argument("--lengths", default="64,256,512,742,1024,2048,8192,32768")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -60,20 +62,23 @@ def main(argv=None) -> int:
             ws.segments = lambda BH, T_, G=G: G
             try:
                 by_count[G] = cs.time_ms(
-                    lambda: ops.wkv6_state(k, v, w, init_state=state, final_state=state),
-                    args.iters)
+                    lambda: ws.wkv6_state(k, v, w, state, state, kernel="segmented"), args.iters)
             finally:
                 ws.segments = rule
+        rows_ms = cs.time_ms(lambda: ws.wkv6_state(k, v, w, state, state, kernel="row_blocks"),
+                             args.iters)
         prior = cs.time_ms(lambda: ops.wkv6_scan(r, k, v, w, u, init_state=state,
                                                  final_state=state), args.iters)
         nbytes, flops = cs.state_work(args.heads, T, 64, 64, torch.bfloat16)
         bound_ms, bound_by = cs.bound(nbytes, flops, "torch.float32")
-        row = {"T": T, "rule": rule(args.heads, T), "ms_by_segments": by_count,
-               "k5_float32_w_ms": prior, "bound_ms": bound_ms, "bound_by": bound_by}
+        row = {"T": T, "variant": ws.variant(T), "rule": rule(args.heads, T),
+               "ms_by_segments": by_count, "row_blocks_ms": rows_ms, "k5_float32_w_ms": prior,
+               "bound_ms": bound_ms, "bound_by": bound_by}
         rows.append(row)
         print(f"T={T}: " + ", ".join(f"G={g} {ms:.4f}" for g, ms in by_count.items())
-              + f" ms (rule {row['rule']}); K5 with float32 w {prior:.4f} ms; bound "
-              f"{bound_ms:.4f} ({bound_by})", flush=True)
+              + f" ms (rule {row['rule']}); row_blocks {rows_ms:.4f} ms (the variant rule: "
+              f"{row['variant']}); K5 with float32 w {prior:.4f} ms; bound {bound_ms:.4f} "
+              f"({bound_by})", flush=True)
         del r, k, v, w, u
     print(json.dumps({"wkv6_state_sweep": rows, "heads": args.heads,
                       "card": cs.gpu_identity()}))

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -67,8 +67,9 @@ SIGNATURES = {
         # u_rows, dtype, w_f32, variant, stream
         [_P] * 14 + [_I] * 6 + [_P], _I),
     "wkv6_state": (
-        # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, segments, stream
-        [_P] * 5 + [_I] * 5 + [_P] + [_I] * 2 + [_P], _I),
+        # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, variant, split
+        # (segments a head, or state rows a CTA), stream
+        [_P] * 5 + [_I] * 5 + [_P] + [_I] * 3 + [_P], _I),
     "adamw": (
         # kind, n_leaves, first_f32, tile0, tiles, total_tiles, ptrs, numels,
         # tile0s, partials, done, gnorm, scale, bc1, bc2, lr, b1, c1, b2, c2,
@@ -97,39 +98,45 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 @dataclasses.dataclass
 class OpCounter:
-    """Per-op counts: kernel launches (in all, by variant where the op has
-    more than one kernel, and by size where its wrapper names one), and
-    calls of the plain version."""
+    """Per-op counts: kernel launches (in all, and by (variant, size): the
+    op's kernel where it has more than one, and the size its wrapper names,
+    None where it names none), and calls of the plain version."""
 
     launches: int = 0
     plain_calls: int = 0
-    variants: Dict[str, int] = dataclasses.field(default_factory=dict)
-    sizes: Dict[int, int] = dataclasses.field(default_factory=dict)
+    variant_sizes: Dict[Tuple[str, Optional[int]], int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def variants(self) -> Dict[str, int]:
+        """Launches by variant."""
+        return _totals((v, n) for (v, _), n in self.variant_sizes.items())
+
+    @property
+    def sizes(self) -> Dict[int, int]:
+        """Launches by the size the wrapper named, where it named one."""
+        return _totals((s, n) for (_, s), n in self.variant_sizes.items() if s is not None)
 
     def launched(self, variant: str, size: Optional[int] = None) -> None:
-        """Count one launch of the op's ``variant`` kernel, and of ``size``
-        (the wkv6_state wrapper's sequence length T) where one is given."""
+        """Count one launch of the op's ``variant`` kernel, at ``size`` (the
+        WKV6 wrappers' sequence length T) where one is given."""
         self.launches += 1
-        self.variants[variant] = self.variants.get(variant, 0) + 1
-        if size is not None:
-            self.sizes[size] = self.sizes.get(size, 0) + 1
+        key = (variant, size)
+        self.variant_sizes[key] = self.variant_sizes.get(key, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
-        self.variants = {}
-        self.sizes = {}
+        self.variant_sizes = {}
 
     def copy(self) -> "OpCounter":
-        return OpCounter(self.launches, self.plain_calls, dict(self.variants), dict(self.sizes))
+        return OpCounter(self.launches, self.plain_calls, dict(self.variant_sizes))
 
     def since(self, before: "OpCounter") -> "OpCounter":
         """What was counted after ``before`` (an earlier ``copy()``)."""
-        variants = {k: n - before.variants.get(k, 0) for k, n in self.variants.items()}
-        sizes = {k: n - before.sizes.get(k, 0) for k, n in self.sizes.items()}
+        then = before.variant_sizes
         return OpCounter(self.launches - before.launches, self.plain_calls - before.plain_calls,
-                         {k: n for k, n in variants.items() if n},
-                         {k: n for k, n in sizes.items() if n})
+                         {k: n - then.get(k, 0) for k, n in self.variant_sizes.items()
+                          if n != then.get(k, 0)})
 
     def add(self, other: "OpCounter", times: int = 1) -> None:
         """Add ``times`` x ``other``'s counts (a negative ``times`` takes
@@ -137,11 +144,18 @@ class OpCounter:
         replay and never at capture (``ops.capturing``)."""
         self.launches += times * other.launches
         self.plain_calls += times * other.plain_calls
-        for counts, more in ((self.variants, other.variants), (self.sizes, other.sizes)):
-            for k, n in more.items():
-                counts[k] = counts.get(k, 0) + times * n
-                if not counts[k]:
-                    del counts[k]
+        for k, n in other.variant_sizes.items():
+            self.variant_sizes[k] = self.variant_sizes.get(k, 0) + times * n
+            if not self.variant_sizes[k]:
+                del self.variant_sizes[k]
+
+
+def _totals(pairs: Iterable[Tuple]) -> Dict:
+    """Sum the counts of ``(key, n)`` pairs by key."""
+    out: Dict = {}
+    for key, n in pairs:
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 def _nvcc() -> str:

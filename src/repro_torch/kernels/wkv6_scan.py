@@ -189,7 +189,7 @@ def wkv6_scan(
             u.shape[0], ctypes.addressof(packed), _build.DTYPE_CODES[r.dtype],
             int(w.dtype == torch.float32), VARIANT_CODES[kind], _build.stream_of(r))
     _build.check_status(lib, "wkv6_scan", status)
-    counter.launched(kind)
+    counter.launched(kind, size=T)
     return out, final_state
 
 

@@ -29,9 +29,25 @@ is. A second wave of clusters costs more than the segments save: at 32
 heads, 8 segments (30 clusters resident) took 0.964 ms at T = 32768 and 7
 (32 resident) 0.678 (``experiments/wkv6_state_sweep.py``, an H100 SXM).
 
-Head sizes: N and V each in ``SUPPORTED_HEAD_SIZES``; the kernel runs a 64
-x 64 state with the rows past N and the columns past V held at zero (their
-k and v read as 0, their decay as 1) and writes only the live (N, V).
+The graphed prefill's pieces take a second kernel, ``row_blocks``
+(``variant``: T <= ``ROW_BLOCKS_MAX_T``). Row n of a head's state evolves
+alone, S_t[n, :] = d_t[n] S_{t-1}[n, :] + k_t[n] v_t[:], so a CTA owns
+``ROWS`` rows of one head (``row_grid``: ceil(N / ROWS) x BH CTAs of
+``ROW_THREADS`` threads): it reads k and w at its rows, all of v, and its
+own rows of the state only, so ``final_state`` may be ``init_state`` with
+no ordering, and needs no cluster and no combine. Its 64-step tiles arrive
+in a ring three ahead of the one rolled (a piece of up to 192 steps is one
+round trip), and each tile is rolled as one product: with m_t[n] the
+product of the decays after step t inside the tile and P[n] the tile's,
+S[n, :] <- P[n] S[n, :] + sum_t (k_t[n] m_t[n]) v_t[:], the same recurrence
+regrouped by tile, the sum a (16 x 64) (64 x 64) product on the tensor
+cores in 3xTF32.
+
+Head sizes: N and V each in ``SUPPORTED_HEAD_SIZES``; the segmented kernel
+runs a 64 x 64 state with the rows past N and the columns past V held at
+zero (their k and v read as 0, their decay as 1), the row-block kernel no
+CTA for rows past N and zero columns past V; both write only the live (N,
+V).
 """
 
 from __future__ import annotations
@@ -44,7 +60,12 @@ import torch
 from repro_torch.kernels import _build
 
 counter = _build.OpCounter()
-VARIANT = "segmented"  # the one kernel: segments of time joined in a cluster
+# C codes of the kernels: segments of time joined in a cluster (long
+# sequences), and blocks of state rows (the graphed prefill's pieces)
+VARIANT_CODES = {"segmented": 0, "row_blocks": 1}
+ROW_BLOCKS_MAX_T = 512  # the longest piece below the top one at cache 2048
+ROWS = 16           # state rows a row_blocks CTA owns (one mma tile): 128 CTAs for 32 heads of 64
+ROW_THREADS = 256   # its 8 warps: warp w the state's columns 8w .. 8w + 7
 SUPPORTED_HEAD_SIZES = (8, 16, 32, 64)  # N and V each, as K5 takes them
 TILE = 64           # steps the kernel stages at once
 MAX_SEGMENTS = 8    # the portable thread-block cluster
@@ -62,6 +83,21 @@ def segments(BH: int, T: int) -> int:
     fits = [G for G in range(1, min(MAX_SEGMENTS, T // TILE) + 1)
             if BH <= RESIDENT_CLUSTERS[G]]
     return max(fits, default=1)
+
+
+def variant(T: int) -> str:
+    """The kernel for ``T`` steps, picked before the launch: ``row_blocks``
+    up to ROW_BLOCKS_MAX_T steps (every piece of the graphed prefill below
+    the top one), ``segmented`` above. The card measured the crossover at
+    rwkv6's 32 heads only (``PERF.md``); the rule does not look at the head
+    count."""
+    return "row_blocks" if T <= ROW_BLOCKS_MAX_T else "segmented"
+
+
+def row_grid(BH: int, N: int) -> Tuple[int, int]:
+    """The row-block kernel's grid: (ceil(N / ROWS) row blocks, BH heads)
+    of ROW_THREADS threads each."""
+    return -(-N // ROWS), BH
 
 
 def segment_bounds(T: int, G: int) -> List[Tuple[int, int]]:
@@ -89,6 +125,8 @@ def wkv6_state(
     w: torch.Tensor,
     init_state: Optional[torch.Tensor] = None,
     final_state: Optional[torch.Tensor] = None,
+    *,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """k (BH, T, N) or (B, H, T, N) and v (..., T, V) of one dtype (float32
     or bf16); w (..., T, N) float32; init_state (BH, N, V) float32 or None
@@ -98,8 +136,10 @@ def wkv6_state(
     (a float32 buffer of BH*N*V elements, which may be ``init_state``
     itself) or a new (BH, N, V) tensor. The inputs may be strided views
     with a contiguous last dim. Launches ``csrc/wkv6_state.cu`` on the
-    tensors' card over ``segments(BH, T)`` segments; raises on anything the
-    kernel does not take (device, dtype, N or V outside
+    tensors' card: ``variant(T)``'s kernel, or ``kernel`` where given
+    (how ``chip_smoke.py`` times the segmented kernel at the pieces), over
+    ``segments(BH, T)`` segments or ``row_grid(BH, N)``; raises on anything
+    the kernel does not take (device, dtype, N or V outside
     ``SUPPORTED_HEAD_SIZES``, alignment).
     """
     _build.check_device(k)
@@ -139,14 +179,17 @@ def wkv6_state(
                              f"strides {t.stride()}")
         strides += [sb, sh, st]
     packed = (ctypes.c_longlong * 9)(*strides)
-    G = segments(BH, T)
+    kind = kernel or variant(T)
+    if kind not in VARIANT_CODES:
+        raise ValueError(f"wkv6_state: no kernel {kind!r}")
+    split = ROWS if kind == "row_blocks" else segments(BH, T)
     lib = _build.load("wkv6_state")
     with torch.cuda.device(k.device):
         status = lib.repro_wkv6_state(
             k.data_ptr(), v.data_ptr(), w.data_ptr(),
             None if init_state is None else init_state.data_ptr(), final_state.data_ptr(),
-            B, H, T, N, V, ctypes.addressof(packed), _build.DTYPE_CODES[k.dtype], G,
-            _build.stream_of(k))
+            B, H, T, N, V, ctypes.addressof(packed), _build.DTYPE_CODES[k.dtype],
+            VARIANT_CODES[kind], split, _build.stream_of(k))
     _build.check_status(lib, "wkv6_state", status)
-    counter.launched(VARIANT, size=T)
+    counter.launched(kind, size=T)
     return final_state

@@ -6,9 +6,13 @@ agree with it to float32 rounding (STATE_TOL). The kernel's segmented math
 (segments from zero, per-row decay products, the ordered combine), emulated
 here in torch, regroups the same sums: it is held to the JAX kernel test's
 tolerance (WKV_TOL, also chip_smoke.py's for K5's state), which a state
-rolled with w rounded to bf16 (ROADMAP F4) fails. The rest covers the
-segment rule, the wrapper's refusal of CPU tensors, the calls a prefill
-makes by dtype, and the meta device's count.
+rolled with w rounded to bf16 (ROADMAP F4) fails. The row-block kernel's
+roll (each block of rows from its own k, w columns and all of v, a 64-step
+tile at a time as one product), emulated likewise, is held to the same
+tolerance.
+The rest covers the segment and variant rules, the row-block grid, the
+wrapper's refusal of CPU tensors, the calls a prefill makes by dtype, and
+the meta device's count.
 """
 
 import contextlib
@@ -104,6 +108,37 @@ def emulate_segmented(k, v, w, s0, G):
     return S
 
 
+def emulate_row_blocks(k, v, w, s0, R=wks.ROWS):
+    """The row-block kernel's arithmetic in torch: each block of ``R`` state
+    rows (a CTA) rolls from its rows of ``s0`` (None: zero), reading only
+    its columns of k and w and all of v, a 64-step tile at a time as one
+    product: S <- P S + sum_t k~_t v_t, k~_t = k_t m_t, with m_t the
+    product of the decays after step t in the tile and P the tile's, both
+    float32 as the kernel forms them; P S rounded to float32 and the
+    tile's sum taken in float64 and added (the tensor cores' float32 sums
+    of exact TF32 products, to within their rounding); the blocks are put
+    together only at the end."""
+    B, H, T, N = k.shape
+    V = v.shape[-1]
+    kf, vf = k.reshape(B * H, T, N).float(), v.reshape(B * H, T, V).float()
+    decay = torch.exp(-torch.exp(w.reshape(B * H, T, N).float()))
+    blocks = []
+    for n0 in range(0, N, R):
+        rows = slice(n0, min(N, n0 + R))
+        S = (torch.zeros((B * H, rows.stop - n0, V)) if s0 is None else
+             s0.reshape(B * H, N, V)[:, rows].clone())
+        for t0 in range(0, T, wks.TILE):
+            d = decay[:, t0:t0 + wks.TILE, rows]                        # (BH, nt, R)
+            after = torch.cumprod(d.flip(1), dim=1).flip(1)            # prod over u >= t
+            m = torch.cat([after[:, 1:], torch.ones_like(after[:, :1])], dim=1)
+            kt = kf[:, t0:t0 + wks.TILE, rows] * m                      # k~, float32
+            S = S * after[:, 0, :, None]                                # P S
+            vt = vf[:, t0:t0 + wks.TILE]
+            S = (S.double() + kt.double().transpose(1, 2) @ vt.double()).float()
+        blocks.append(S)
+    return torch.cat(blocks, dim=1)
+
+
 @pytest.mark.parametrize("N,V", HEADS, ids=str)
 @pytest.mark.parametrize("T", TS)
 def test_plain_state_matches_the_reference(T, N, V):
@@ -130,6 +165,195 @@ def test_the_segmented_math_matches_the_reference(T, G):
     assert _close(got, want, WKV_TOL), float(np.abs(got - want).max())
     zero = emulate_segmented(*_views(k, v, w), None, G).numpy()
     assert _close(zero, _oracle(k, v, w, None), WKV_TOL)
+
+
+def _inputs_f32(seed, B, H, T, N, V):
+    """As ``_inputs`` with float32 k, v (not bf16 values)."""
+    rng = np.random.RandomState(seed)
+    k = (rng.standard_normal((B, T, H, N)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((B, T, H, V)) * 0.5).astype(np.float32)
+    w = rng.uniform(-8.0, 2.0, (B, T, H, N)).astype(np.float32)
+    s0 = rng.standard_normal((B * H, N, V)).astype(np.float32)
+    return k, v, w, s0
+
+
+def _oracle_f32(k, v, w, s0):
+    """The reference's ``_wkv_final_state`` on float32 k, v."""
+    B, T, H = k.shape[:3]
+
+    def heads(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, T, a.shape[-1]), jnp.float32)
+
+    return np.asarray(_wkv_final_state(heads(k), heads(v), heads(w), jnp.asarray(s0)))
+
+
+@pytest.mark.parametrize("N,V", [(64, 64), (16, 32), (8, 8)], ids=str)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("T", (1, 4, 64, 512))
+def test_the_row_block_roll_matches_the_reference(T, dtype, N, V):
+    """The row-block kernel's roll at the graphed prefill's piece sizes 1, 4,
+    64 and 512, from a random state, with decays that underflow, for bf16
+    and float32 k, v: within WKV_TOL of ``_wkv_final_state`` and of the
+    plain version. At N = 8 one block's rows past N get no CTA."""
+    if dtype == "bfloat16":
+        k, v, w, s0 = _inputs(T + N + V, 1, 3, T, N, V)
+        views, want = _views(k, v, w), _oracle(k, v, w, s0)
+    else:
+        k, v, w, s0 = _inputs_f32(T + N + V, 1, 3, T, N, V)
+        views = tuple(torch.from_numpy(a).transpose(1, 2) for a in (k, v, w))
+        want = _oracle_f32(k, v, w, s0)
+    got = emulate_row_blocks(*views, torch.from_numpy(s0)).numpy()
+    assert _close(got, want, WKV_TOL), float(np.abs(got - want).max())
+    plain = ref.wkv6_state(*views, torch.from_numpy(s0)).numpy()
+    assert _close(got, plain, WKV_TOL)
+    zero = emulate_row_blocks(*views, None).numpy()
+    assert _close(zero, ref.wkv6_state(*views, None).numpy(), WKV_TOL)
+
+
+def test_a_row_block_depends_on_its_own_rows_alone():
+    """Row independence, what lets ``final_state`` be ``init_state`` with no
+    ordering: changing one row of the incoming state, or k and w at one
+    row, moves that row of the result and no other, bitwise."""
+    k, v, w, s0 = _inputs(11, 1, 2, 64, 64, 64, w_low=-8.0, w_high=-5.0)  # slow decays
+    kt, vt, wt = _views(k, v, w)
+    base = emulate_row_blocks(kt, vt, wt, torch.from_numpy(s0))
+    s1 = s0.copy()
+    s1[1, 37] += 1.0
+    moved = (emulate_row_blocks(kt, vt, wt, torch.from_numpy(s1)) != base).any(-1)
+    assert moved.nonzero().tolist() == [[1, 37]]
+    k2 = kt.clone()
+    k2[0, 0, :, 20] += 1.0
+    moved = (emulate_row_blocks(k2, vt, wt, torch.from_numpy(s0)) != base).any(-1)
+    assert moved.nonzero().tolist() == [[0, 20]]
+
+
+def _tf32_split(x):
+    """The kernel's 3xTF32 split of float32 values: big = x rounded to TF32
+    (half an ulp added to the bits, the low 13 cleared), small = x - big,
+    of which the tensor core reads the top 19 bits."""
+    bits = x.astype(np.float32).view(np.uint32)
+    big = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    small = (x.astype(np.float32) - big).view(np.uint32) & np.uint32(0xFFFFE000)
+    return big.astype(np.float64), small.view(np.float32).astype(np.float64)
+
+
+def _mma_m16n8k8(afrag, bfrag, cfrag):
+    """One warp's mma.sync m16n8k8 from its lanes' fragments (g = lane / 4,
+    t = lane % 4: A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t +
+    4); B b0 (t, g), b1 (t + 4, g); C c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8,
+    the same)), in float64."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = afrag[lane]
+        B[t, g], B[t + 4, g] = bfrag[lane]
+    D = A @ B
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        cfrag[lane] += [D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]]
+
+
+@pytest.mark.parametrize("nt", (64, 37, 8, 1))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_the_row_block_fragments_roll_one_tile(nt, dtype):
+    """One CTA's tile as ``csrc/wkv6_state.cu``'s row-block kernel computes
+    it, lane by lane: each row's suffix products by its half-warp (lane q
+    holding step q + 16j of each block j of 16 steps: a Hillis-Steele scan
+    of shuffles down within each block, times the later blocks' products),
+    k~ and P, then each warp's 16 x 8 block of the state, held as two
+    accumulators each scaled by P, plus ceil(nt / 8) k-steps of m16n8k8
+    products, the even ones into the first and the odd into the second,
+    whose k positions t and t + 4 are steps 2t and 2t + 1 (k~ split 3xTF32
+    against v: two passes for bf16 v, three for float32). Every state
+    element is one lane's, once, and the result is P S + k~^T v within
+    float32 rounding."""
+    rng = np.random.RandomState(nt)
+    R, TILE, D = wks.ROWS, wks.TILE, 64
+    d = np.ones((R, TILE), np.float32)
+    d[:, :nt] = np.exp(-np.exp(rng.uniform(-8, 1, (R, nt)))).astype(np.float32)
+    kk = np.zeros((R, TILE), np.float32)
+    kk[:, :nt] = _bf16(rng.standard_normal((R, nt)).astype(np.float32))
+    v = np.zeros((TILE, D), np.float32)  # steps past nt zero-filled
+    v[:nt] = rng.standard_normal((nt, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        v = _bf16(v)
+    S = rng.standard_normal((R, D)).astype(np.float32)
+    # the scan: thread q of row r takes step q + 16j of each block j of 16 steps
+    ka, P = np.zeros((R, TILE), np.float32), np.zeros(R, np.float32)
+    lanes = np.arange(16)
+    for r in range(R):
+        blocks = d[r].reshape(4, 16)  # [j, q]
+        inc = blocks.copy()
+        off = 1
+        while off < 16:
+            down = np.concatenate([inc[:, off:], inc[:, -off:]], axis=1)  # past 15: their own
+            inc = np.where(lanes + off < 16, inc * down, inc)
+            off *= 2
+        after = np.float32(1)
+        for j in (3, 2, 1, 0):
+            m = np.concatenate([inc[j, 1:], [np.float32(1)]])
+            ka[r, 16 * j + lanes] = kk[r, 16 * j + lanes] * (m * after)
+            after = after * inc[j, 0]
+        P[r] = after
+    after = np.cumprod(d[:, ::-1].astype(np.float64), axis=1)[:, ::-1]
+    m_want = np.concatenate([after[:, 1:], np.ones((R, 1))], axis=1)
+    np.testing.assert_allclose(ka, kk * m_want, rtol=2e-6, atol=1e-30)
+    np.testing.assert_allclose(P, after[:, 0], rtol=2e-6, atol=1e-30)
+    # the product: warp w owns columns 8w .. 8w + 7 of all 16 rows
+    got, seen = np.zeros((R, D)), np.zeros((R, D), int)
+    for w in range(D // 8):
+        chains = np.zeros((2, 32, 4))  # c (the state at entry, then even k-steps), e (odd)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            col = 8 * w + 2 * t
+            chains[0, lane] = [S[g, col] * P[g], S[g, col + 1] * P[g], S[g + 8, col] * P[g + 8],
+                               S[g + 8, col + 1] * P[g + 8]]
+        for k8 in range(-(-nt // 8)):
+            c = chains[k8 % 2]
+            a = np.zeros((32, 4), np.float32)
+            b = np.zeros((32, 2), np.float32)
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                step = 8 * k8 + 2 * t
+                a[lane] = [ka[g, step], ka[g + 8, step], ka[g, step + 1], ka[g + 8, step + 1]]
+                b[lane] = [v[step, 8 * w + g], v[step + 1, 8 * w + g]]
+            ab, as_ = _tf32_split(a)
+            if dtype == "bfloat16":  # v exact in TF32
+                for part in (as_, ab):
+                    _mma_m16n8k8(part, b.astype(np.float64), c)
+            else:
+                bb, bs = _tf32_split(b)
+                for pa, pb in ((as_, bb), (ab, bs), (ab, bb)):
+                    _mma_m16n8k8(pa, pb, c)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            col = 8 * w + 2 * t
+            for (row, cc), x in zip(((g, col), (g, col + 1), (g + 8, col), (g + 8, col + 1)),
+                                    chains[0, lane] + chains[1, lane]):
+                got[row, cc] = x
+                seen[row, cc] += 1
+    assert (seen == 1).all()
+    want = P[:, None].astype(np.float64) * S + ka.astype(np.float64) @ v.astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N", (8, 16, 32, 64))
+def test_the_variant_rule_and_the_row_grid_at_their_edges(N):
+    """The row-block kernel up to the 512-token piece, segmented from 513
+    (the whole prompts and phase 11's 32,768); its grid ceil(N / ROWS) row
+    blocks by BH, 16 rows (one mma tile) and 8 warps of 8 columns each."""
+    assert wks.ROW_BLOCKS_MAX_T == 512
+    for T in (1, 2, 63, 64, 65, 256, 511, 512):
+        assert wks.variant(T) == "row_blocks"
+    for T in (513, 742, 1024, 32768):
+        assert wks.variant(T) == "segmented"
+    for BH in (1, 32, 128, 1000):
+        blocks = -(-N // wks.ROWS)
+        assert wks.row_grid(BH, N) == (blocks, BH)
+        assert (blocks - 1) * wks.ROWS < N <= blocks * wks.ROWS  # no CTA past N
+    assert wks.ROWS == 16 and wks.ROW_THREADS == 8 * 32  # 8 warps x 8 columns: 64
+    assert wks.row_grid(32, 64) == (4, 32)  # rwkv6: 128 CTAs, one wave on 132 SMs
+    assert set(wks.VARIANT_CODES) == {"row_blocks", "segmented"}
 
 
 def test_the_segmented_math_at_the_rules_own_counts():
@@ -234,11 +458,11 @@ class _StubLib:
         return 0
 
     def repro_wkv6_state(self, *a):
-        # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, segments, stream
+        # k, v, w, s0, s_out, B, H, T, N, V, strides, dtype, variant, split, stream
         strides = list((ctypes.c_longlong * 9).from_address(a[10]))
         self.calls.append(("wkv6_state", {"s0": a[3], "s_out": a[4], "B": a[5], "H": a[6],
                                           "T": a[7], "N": a[8], "V": a[9], "strides": strides,
-                                          "dtype": a[11], "segments": a[12]}))
+                                          "dtype": a[11], "variant": a[12], "split": a[13]}))
         return 0
 
 
@@ -247,8 +471,9 @@ def test_a_prefill_launches_one_scan_and_in_bf16_one_state_pass_per_layer(dtype,
     """The smoke variant's prefill on the kernels' route with the launches
     stubbed: per layer one ``wkv6_scan`` and, in bf16 only, one
     ``wkv6_state`` from float32 w into the layer's cache in place (the
-    scan's own state a scratch buffer), over ``segments(BH, T)`` segments;
-    as ``rwkv.prefill_launches`` says."""
+    scan's own state a scratch buffer), by ``variant(T)``'s kernel (at
+    70 steps the row blocks of ``ROWS`` rows); as ``rwkv.prefill_launches``
+    says."""
     lib = _StubLib()
     monkeypatch.setattr(_build, "check_device", lambda t: None)
     monkeypatch.setattr(_build, "load", lambda name: lib)
@@ -275,23 +500,28 @@ def test_a_prefill_launches_one_scan_and_in_bf16_one_state_pass_per_layer(dtype,
     assert [n for n, _ in lib.calls] == list(want) * L
     if dtype == "float32":
         return
-    assert ops.COUNTERS["wkv6_state"].variants == {wks.VARIANT: L}
+    assert ops.COUNTERS["wkv6_state"].variants == {"row_blocks": L}
     assert ops.COUNTERS["wkv6_state"].sizes == {S: L}  # a layer's launch, T = S
+    assert ops.COUNTERS["wkv6_state"].variant_sizes == {("row_blocks", S): L}
+    assert ops.COUNTERS["wkv6_scan"].variant_sizes == {("chunked", S): L}
     for layer in range(L):
         scan, state = lib.calls[2 * layer][1], lib.calls[2 * layer + 1][1]
         wkv = caches["wkv"][layer].data_ptr()
         assert scan["w_f32"] == 0 and scan["s_out"] != wkv  # rounded w; its state a scratch
         assert state["s0"] == state["s_out"] == wkv and state["dtype"] == 1
         assert (state["B"], state["H"], state["T"], state["N"], state["V"]) == (B, H, S, N, N)
-        assert state["segments"] == wks.segments(B * H, S) == 1
+        assert wks.variant(S) == "row_blocks"
+        assert (state["variant"], state["split"]) == (wks.VARIANT_CODES["row_blocks"], wks.ROWS)
         # the (B, H, S, N) views of (B, S, H, N) projections, passed as they are
         assert state["strides"] == [S * H * N, N, H * N] * 3
 
 
 def test_the_wrapper_counts_its_launches_by_length(monkeypatch):
-    """Each launch counts once in all, once under its variant and once
-    under its length T (the piece sizes' launches that chip_smoke.py's
-    K5-state rows report); a call that raises counts nothing."""
+    """Each launch counts once in all, once under its variant, once under
+    its length T and once under both (the piece sizes' launches by variant
+    that chip_smoke.py's K5-state rows report); a call that raises counts
+    nothing. ``kernel=`` forces a variant; the C side gets its code and
+    split (segments a head, or rows a CTA)."""
     lib = _StubLib()
     monkeypatch.setattr(_build, "check_device", lambda t: None)
     monkeypatch.setattr(_build, "load", lambda name: lib)
@@ -299,14 +529,25 @@ def test_the_wrapper_counts_its_launches_by_length(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     ops.reset_counters()
     gen = torch.Generator().manual_seed(3)
-    for T in (512, 64, 1, 64, 1, 1):
+    for T in (512, 64, 1, 64, 1, 1, 1024):
         k, v = (torch.randn(2, T, 32, generator=gen).to(torch.bfloat16) for _ in range(2))
         wks.wkv6_state(k, v, torch.randn(2, T, 32, generator=gen))
+    wks.wkv6_state(k, v, torch.randn(2, 1024, 32, generator=gen), kernel="row_blocks")
     with pytest.raises(TypeError):
-        wks.wkv6_state(k, v, torch.randn(2, 1, 32, generator=gen).to(torch.bfloat16))
+        wks.wkv6_state(k, v, torch.randn(2, 1024, 32, generator=gen).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="no kernel"):
+        wks.wkv6_state(k, v, torch.randn(2, 1024, 32, generator=gen), kernel="rows")
     c = ops.COUNTERS["wkv6_state"]
-    assert (c.launches, c.variants, c.sizes) == (6, {wks.VARIANT: 6}, {512: 1, 64: 2, 1: 3})
-    assert [a["T"] for _, a in lib.calls] == [512, 64, 1, 64, 1, 1]
+    assert (c.launches, c.variants, c.sizes) == (8, {"row_blocks": 7, "segmented": 1},
+                                                 {512: 1, 64: 2, 1: 3, 1024: 2})
+    assert c.variant_sizes == {("row_blocks", 512): 1, ("row_blocks", 64): 2,
+                               ("row_blocks", 1): 3, ("segmented", 1024): 1,
+                               ("row_blocks", 1024): 1}
+    assert [a["T"] for _, a in lib.calls] == [512, 64, 1, 64, 1, 1, 1024, 1024]
+    codes = wks.VARIANT_CODES
+    assert [(a["variant"], a["split"]) for _, a in lib.calls] == \
+        [(codes["row_blocks"], wks.ROWS)] * 6 + [(codes["segmented"], wks.segments(2, 1024)),
+                                                 (codes["row_blocks"], wks.ROWS)]
 
 
 def test_the_meta_state_pass_counts_the_loops_arithmetic():
